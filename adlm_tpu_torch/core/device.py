@@ -1,0 +1,86 @@
+"""Device resolution, compute dtype and f32 precision for the port.
+
+Counterpart of ``adlm_tpu.core.dtypes`` plus the device choice JAX makes
+implicitly.  The port runs on the CUDA card unless the caller asks for
+the CPU: ``resolve_device(None)`` is ``cuda`` and raises on a host
+without one — there is no silent CPU fallback.
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import Iterator, Optional, Union
+
+import numpy as np
+import torch
+from torch import nn
+
+DeviceLike = Union[str, torch.device, None]
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def resolve_device(device: DeviceLike = None) -> torch.device:
+    """``None`` means the card.  A CUDA device on a host without one
+    raises; the CPU is used only when the caller names it."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "adlm_tpu_torch runs on a CUDA device by default and none is "
+            "available; pass device='cpu' to run the plain PyTorch path")
+    return dev
+
+
+def compute_dtype(name: Union[str, torch.dtype]) -> torch.dtype:
+    """'float32' / 'bfloat16' (the config strings) → torch dtype."""
+    if isinstance(name, torch.dtype):
+        return name
+    if name not in _DTYPES:
+        raise ValueError(f"unknown compute dtype {name!r}; have {sorted(_DTYPES)}")
+    return _DTYPES[name]
+
+
+def cast_params(model: nn.Module, dtype: Union[str, torch.dtype]) -> nn.Module:
+    """Cast the module's float32 PARAMETERS to ``dtype`` in place.
+
+    Buffers (frozen-BN statistics, the ``ones`` constant) stay float32,
+    as the JAX package keeps its ``constants`` collection in f32 while
+    the bf16 eval casts ``params`` (``core/dtypes.py::tree_cast``).
+    """
+    dt = compute_dtype(dtype)
+    for p in model.parameters():
+        if p.dtype == torch.float32:
+            p.data = p.data.to(dt)
+    return model
+
+
+def model_dtype(model: nn.Module) -> torch.dtype:
+    """The dtype the model computes in: that of its first parameter."""
+    return next(model.parameters()).dtype
+
+
+@contextlib.contextmanager
+def ieee_f32() -> Iterator[None]:
+    """Run float32 convolutions and matmuls in full IEEE f32.
+
+    cuDNN allows TF32 for f32 convolutions by default, which keeps about
+    three decimal digits; the JAX reference computes f32 at full
+    precision.  The entry points wrap their work in this scope and
+    restore the caller's flags afterwards.
+    """
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    saved = (cudnn.allow_tf32, matmul.allow_tf32)
+    cudnn.allow_tf32 = False
+    matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        cudnn.allow_tf32, matmul.allow_tf32 = saved
+
+
+def to_device(x, device: torch.device, dtype: Optional[torch.dtype] = None
+              ) -> torch.Tensor:
+    """numpy array or tensor → tensor on ``device``."""
+    t = x if isinstance(x, torch.Tensor) else torch.from_numpy(
+        np.ascontiguousarray(x))
+    return t.to(device=device, dtype=dtype, non_blocking=True)

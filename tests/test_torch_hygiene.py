@@ -1,0 +1,147 @@
+"""PyTorch port, hygiene: the port stands alone and never falls back to
+the CPU on its own.
+
+* Importing every ``adlm_tpu_torch`` module in a fresh interpreter loads
+  no ``jax``, ``flax`` or ``adlm_tpu`` module.
+* The entry points, built without a ``device`` on a host without CUDA,
+  raise instead of running on the CPU.
+* The kernel sources the build compiles are in the package, and each
+  wrapper declares the ``ctypes`` signatures of its launchers as the C
+  source defines them.
+"""
+
+import ctypes
+import importlib
+import os
+import pkgutil
+import re
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import adlm_tpu_torch
+from adlm_tpu_torch.core.config import PPNetConfig
+from adlm_tpu_torch.interpret import evaluate
+from adlm_tpu_torch.models.ppnet import PPNet
+from adlm_tpu_torch.ops import _build
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _port_modules():
+    return sorted(m.name for m in pkgutil.walk_packages(
+        adlm_tpu_torch.__path__, "adlm_tpu_torch."))
+
+
+def test_port_imports_nothing_of_jax():
+    mods = _port_modules()
+    assert "adlm_tpu_torch.interpret.evaluate" in mods
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'adlm_tpu'))\n"
+        "print(repr(bad))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def _tiny_model():
+    return PPNet(PPNetConfig(num_prototypes=6, num_classes=3,
+                             prototype_channels=8, deeplab_n_features=8,
+                             deeplab_n_blocks=(1, 1, 1, 1)))
+
+
+@pytest.mark.parametrize("entry", ["make_inference_fn", "SegEvaluator",
+                                   "make_overlay_fn"])
+def test_entry_points_without_device_raise_on_a_host_without_cuda(
+        no_cuda, entry):
+    model = _tiny_model()
+    args = () if entry == "make_overlay_fn" else (3,)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        getattr(evaluate, entry)(model, *args)
+    # asked for explicitly, the CPU runs the plain versions
+    getattr(evaluate, entry)(model, *args, device="cpu")
+
+
+def test_kernel_build_needs_the_card(no_cuda):
+    with pytest.raises(RuntimeError, match="CUDA"):
+        _build.load("prototype_head")
+
+
+def test_every_kernel_has_its_source_and_a_launch_count():
+    for name in _build.KERNELS:
+        assert os.path.exists(os.path.join(_build.CSRC, f"{name}.cu"))
+    _build.LAUNCHES["prototype_head"] += 3
+    _build.reset_launches()
+    assert set(_build.LAUNCHES.values()) == {0}
+
+
+# C type of an extern "C" parameter or result → the ctypes type a
+# wrapper must declare (undeclared, ctypes passes a 32-bit int and cuts
+# a pointer, and refuses a float)
+def _ctype(decl: str):
+    decl = re.sub(r"\bconst\b", "", decl).strip()
+    if "*" in decl:
+        return ctypes.c_void_p
+    return {"int": ctypes.c_int, "int64_t": ctypes.c_int64,
+            "float": ctypes.c_float, "size_t": ctypes.c_size_t}[decl.split()[0]]
+
+
+def _c_signatures(name):
+    """{function: (result ctype, [parameter ctypes])} of the extern "C"
+    launchers in csrc/<name>.cu."""
+    with open(os.path.join(_build.CSRC, f"{name}.cu")) as f:
+        src = f.read()
+    body = src[src.index('extern "C" {'):]
+    sigs = {}
+    for ret, fn, params in re.findall(
+            r"^(int|size_t)\s+(adlm_\w+)\(([^)]*)\)\s*\{", body, re.M):
+        types = [_ctype(p.rsplit(None, 1)[0] + ("*" if "*" in p else ""))
+                 for p in params.split(",") if p.strip()]
+        sigs[fn] = (_ctype(ret), types)
+    return sigs
+
+
+class _FakeFn:
+    def __init__(self):
+        self.argtypes = None
+        self.restype = ctypes.c_int  # ctypes' default
+
+
+class _FakeLib:
+    def __init__(self):
+        self.fns = {}
+
+    def __getattr__(self, fn):
+        return self.fns.setdefault(fn, _FakeFn())
+
+
+@pytest.mark.parametrize("name", _build.KERNELS)
+def test_ctypes_signatures_match_the_c_sources(monkeypatch, name):
+    """Each wrapper declares every launcher it calls exactly as the C
+    source defines it (the kernels themselves run only on the card)."""
+    module = importlib.import_module(
+        {"prototype_head": "adlm_tpu_torch.ops.prototype",
+         "upsample_argmin": "adlm_tpu_torch.ops.upsample_argmin"}[name])
+    fake = _FakeLib()
+    monkeypatch.setattr(_build, "load", lambda n: fake)
+    module._lib()
+    sigs = _c_signatures(name)
+    assert f"adlm_{name}" in fake.fns
+    declared = {fn: f for fn, f in fake.fns.items() if sigs[fn][1]}
+    assert f"adlm_{name}" in declared
+    for fn, f in declared.items():
+        assert f.restype is sigs[fn][0], fn
+        assert f.argtypes == sigs[fn][1], fn
+    module._lib()  # a second use keeps the declarations
+    assert all(f.argtypes == sigs[fn][1] for fn, f in declared.items())
