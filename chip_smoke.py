@@ -61,7 +61,7 @@ H, W = 1024, 2048
 TIE_SHARE = 1e-5
 PURITY_CELL_SHARE = 1e-3
 N_RANDOM = 100  # sampled pixels per image for the purity statistic
-# H100 SXM data-sheet peaks (the on-chip-measurement table)
+# H100 SXM data-sheet peaks: dense FP32 FLOP/s and HBM3 bytes/s
 PEAK_F32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
 REPLACES = {
