@@ -21,10 +21,12 @@
 //
 // Design (simple first): one thread per output pixel, a CTA per
 // kTH x kTW output tile.  The CTA stages the source pixels its tile
-// reads (ext_h x ext_w, computed on the host from the same f32
-// coordinates) for a chunk of pc prototypes in shared memory, P-major,
-// loaded with consecutive threads on consecutive prototypes; each
-// thread keeps its running (min, argmin) in registers across chunks.
+// reads (its first and last rows' taps, from the same src_coord) for a
+// chunk of pc prototypes in shared memory, P-major, loaded with
+// consecutive threads on consecutive prototypes; each thread keeps its
+// running (min, argmin) in registers across chunks.  The launcher sizes
+// the planes by a bound on any tile's extent (stage_extent), so the
+// coordinate rule exists once, on the device.
 //
 // Bound on an H100: the separable form of the blend needs
 // 3·P·W·(h + H) f32 operations per image plus P·H·W compares, on
@@ -41,6 +43,8 @@ namespace {
 
 constexpr int kTW = 32;
 constexpr int kTH = 8;
+// shared memory staged per block (the default limit, no opt-in)
+constexpr int kStageBytes = 48 * 1024;
 
 __device__ __forceinline__ float widen(float v) { return v; }
 __device__ __forceinline__ float widen(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -58,15 +62,19 @@ upsample_argmin_kernel(const T* __restrict__ dist, int32_t* __restrict__ out,
                        float scale_x, int ext_h, int ext_w, int pc) {
   extern __shared__ float tile[];  // (pc, ext_h, ext_w)
   const int b = blockIdx.z;
-  const int oy = blockIdx.y * kTH + threadIdx.y;
-  const int ox = blockIdx.x * kTW + threadIdx.x;
+  const int by = blockIdx.y * kTH, bx = blockIdx.x * kTW;
+  const int oy = by + threadIdx.y;
+  const int ox = bx + threadIdx.x;
   const int tid = threadIdx.y * kTW + threadIdx.x;
 
-  // the tile's source origin: the taps of its first output row / column
-  const int ty0 = static_cast<int>(floorf(src_coord(blockIdx.y * kTH, scale_y, h)));
-  const int tx0 = static_cast<int>(floorf(src_coord(blockIdx.x * kTW, scale_x, w)));
-  const int rows = min(ext_h, h - ty0);
-  const int cols = min(ext_w, w - tx0);
+  // the source rows / columns the tile reads: from the low tap of its
+  // first output row / column to the high tap of its last
+  const int ty0 = static_cast<int>(floorf(src_coord(by, scale_y, h)));
+  const int tx0 = static_cast<int>(floorf(src_coord(bx, scale_x, w)));
+  const int ty1 = static_cast<int>(floorf(src_coord(min(by + kTH - 1, H - 1), scale_y, h)));
+  const int tx1 = static_cast<int>(floorf(src_coord(min(bx + kTW - 1, W - 1), scale_x, w)));
+  const int rows = min(ty1 + 1, h - 1) - ty0 + 1;
+  const int cols = min(tx1 + 1, w - 1) - tx0 + 1;
 
   // this pixel's taps and weights (threads past the edge compute the
   // last pixel's and write nothing)
@@ -120,15 +128,30 @@ upsample_argmin_kernel(const T* __restrict__ dist, int32_t* __restrict__ out,
 
 extern "C" {
 
+// Rows (or columns) of shared memory that hold the source extent of
+// any tile of `tile` outputs.  The coordinates of its first and last
+// outputs lie span = (tile - 1) * n_in / n_out apart, so the tile reads
+// at most ceil(span) + 2 rows (the floors, plus the last output's high
+// tap); one more row absorbs the f32 rounding of the coordinates.
+static int stage_extent(int tile, int n_in, int n_out) {
+  const long long span = (static_cast<long long>(tile - 1) * n_in + n_out - 1) / n_out;
+  return static_cast<int>(span + 3 < n_in ? span + 3 : n_in);
+}
+
 // dist: (b, h, w, p) f32 or bf16 (bf16 != 0), contiguous; out: (b, H, W)
-// int32.  scale_y / scale_x: float32(h / H), float32(w / W).  ext_h,
-// ext_w: the largest source extent of one kTH x kTW output tile; pc:
-// prototypes staged per chunk (pc * ext_h * ext_w floats of shared
-// memory).  Returns a cudaError_t (0 on a successful launch).
+// int32.  Returns a cudaError_t (0 on a successful launch).
 int adlm_upsample_argmin(const void* dist, int bf16, int32_t* out, int b, int h,
-                         int w, int p, int H, int W, float scale_y, float scale_x,
-                         int ext_h, int ext_w, int pc, void* stream) {
+                         int w, int p, int H, int W, void* stream) {
   if (b <= 0 || H <= 0 || W <= 0) return cudaSuccess;
+  if (h <= 0 || w <= 0 || p <= 0) return cudaErrorInvalidValue;
+  // float32(h / H), as the plain version computes it
+  const float scale_y = static_cast<float>(static_cast<double>(h) / H);
+  const float scale_x = static_cast<float>(static_cast<double>(w) / W);
+  const int ext_h = stage_extent(kTH, h, H);
+  const int ext_w = stage_extent(kTW, w, W);
+  const int fit = kStageBytes / static_cast<int>(sizeof(float) * ext_h * ext_w);
+  const int pc = fit < p ? fit : p;
+  if (pc < 1) return cudaErrorInvalidValue;  // one tile reads too much source
   const size_t smem = sizeof(float) * static_cast<size_t>(pc) * ext_h * ext_w;
   const dim3 grid((W + kTW - 1) / kTW, (H + kTH - 1) / kTH, b);
   const dim3 block(kTW, kTH);
@@ -144,8 +167,6 @@ int adlm_upsample_argmin(const void* dist, int bf16, int32_t* out, int b, int h,
   }
   return cudaGetLastError();
 }
-
-int adlm_upsample_argmin_tile() { return kTH * 1000 + kTW; }
 
 const char* adlm_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

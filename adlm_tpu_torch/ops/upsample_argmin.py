@@ -17,9 +17,10 @@ reference's nearest prototype per label pixel: bilinearly upsample the
   ``resize_bilinear`` when the map is bf16 and ``exact`` is off).  On
   the card it is the kernel's oracle, called with ``exact=True``.
 * ``upsampled_nearest_integer``: the phase-decomposed plain path for
-  integer upsampling factors.
-* ``upsampled_nearest``: the dispatch — the integer path where it
-  applies, else the kernel for a CUDA tensor and the scan for a CPU one.
+  integer upsampling factors of a CPU map.
+* ``upsampled_nearest``: the dispatch — every CUDA map goes to the
+  kernel; a CPU map takes the integer path where it applies, else the
+  scan.
 """
 
 from __future__ import annotations
@@ -28,7 +29,6 @@ import ctypes
 import math
 from typing import Tuple
 
-import numpy as np
 import torch
 
 from adlm_tpu_torch.ops import _build
@@ -38,8 +38,6 @@ _F32 = torch.float32
 # a prototype-chunk pad value that never wins the argmin; finite, so the
 # zero-weight taps of the blend stay 0 instead of NaN
 _PAD = 1e30
-# shared memory the kernel stages per block (no opt-in needed)
-_STAGE_BYTES = 48 * 1024
 
 
 def upsampled_nearest_integer(dist: torch.Tensor, sy: int, sx: int
@@ -151,24 +149,9 @@ def _lib() -> ctypes.CDLL:
     f = lib.adlm_upsample_argmin
     if f.argtypes is None:  # first use: declare the C signature
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        f.argtypes = [vp, ci, vp, ci, ci, ci, ci, ci, ci, ctypes.c_float,
-                      ctypes.c_float, ci, ci, ci, vp]
+        f.argtypes = [vp, ci, vp, ci, ci, ci, ci, ci, ci, vp]
         f.restype = ci
-        lib.adlm_upsample_argmin_tile.restype = ci
     return lib
-
-
-def tile_extent(n_out: int, n_in: int, tile: int) -> int:
-    """Most source rows (or columns) one ``tile`` of output rows reads,
-    from the same f32 coordinates as the kernel."""
-    scale = np.float32(n_in / n_out)
-    s = np.clip((np.arange(n_out, dtype=np.float32) + np.float32(0.5)) * scale
-                - np.float32(0.5), np.float32(0.0), np.float32(n_in - 1))
-    lo = np.floor(s).astype(np.int64)
-    hi = np.minimum(lo + 1, n_in - 1)
-    first = np.arange(0, n_out, tile)
-    last = np.minimum(first + tile - 1, n_out - 1)
-    return int((hi[last] - lo[first]).max()) + 1
 
 
 def upsampled_argmin_cuda(dist: torch.Tensor, size: Tuple[int, int]
@@ -184,20 +167,12 @@ def upsampled_argmin_cuda(dist: torch.Tensor, size: Tuple[int, int]
     B, h, w, P = dist.shape
     H, W = (int(s) for s in size)
     lib = _lib()
-    th, tw = divmod(lib.adlm_upsample_argmin_tile(), 1000)
-    ext_h, ext_w = tile_extent(H, h, th), tile_extent(W, w, tw)
-    pc = min(P, _STAGE_BYTES // (4 * ext_h * ext_w))
-    if pc < 1:
-        raise ValueError(f"an {th}x{tw} output tile reads {ext_h}x{ext_w} "
-                         f"source pixels, more than one block stages "
-                         f"({(h, w)} → {(H, W)})")
     dist = dist.contiguous()
     out = torch.empty((B, H, W), dtype=torch.int32, device=dist.device)
     with torch.cuda.device(dist.device):
         status = lib.adlm_upsample_argmin(
             dist.data_ptr(), int(dist.dtype == torch.bfloat16), out.data_ptr(),
-            B, h, w, P, H, W, float(np.float32(h / H)), float(np.float32(w / W)),
-            ext_h, ext_w, pc, _build.stream_ptr(dist))
+            B, h, w, P, H, W, _build.stream_ptr(dist))
     _build.check(lib, status, "upsample_argmin")
     _build.LAUNCHES["upsample_argmin"] += 1
     return out
@@ -209,15 +184,15 @@ def upsampled_nearest(dist: torch.Tensor, size: Tuple[int, int],
     ``argmin(resize_bilinear(dist, size), -1)`` (reference
     eval_valid.py:172-174), as (B, H, W) int32.
 
-    Integer factors whose f32 maps fit 64Mi elements take the phase
-    path.  Otherwise a CUDA tensor goes to the kernel (exact f32 blend
-    whatever ``exact`` says) and a CPU tensor to the chunked scan.
+    A CUDA map goes to the kernel (exact f32 blend whatever ``exact``
+    says).  A CPU map with integer factors whose f32 maps fit 64Mi
+    elements takes the phase path, any other the chunked scan.
     """
+    if dist.is_cuda:
+        return upsampled_argmin_cuda(dist, size)
     B, h, w, P = dist.shape
     H, W = size
     if (H % h == 0 and W % w == 0 and (H // h) * (W // w) <= 256
             and B * h * w * P <= 64 * 1024 * 1024):
         return upsampled_nearest_integer(dist, H // h, W // w)
-    if dist.is_cuda:
-        return upsampled_argmin_cuda(dist, size)
     return upsampled_argmin_reference(dist, size, chunk, exact)

@@ -18,7 +18,8 @@ non-zero and prints no result:
    bf16, with and without distances, log and linear;
 3. kernel 2 (upsample + argmin) vs the plain exact-f32 scan:
    (2,129,257,190) → (2,1024,2048) in f32 and bf16, an all-equal tie
-   map, ragged shapes; 0 mismatches allowed;
+   map, ragged, downsampling and integer-scale shapes, each through
+   ``upsampled_nearest`` (which must launch the kernel); 0 mismatches;
 4. the slice: ``SegEvaluator(with_stats=True, stats_upsampled=True)``
    on uint8 batches normalized on the device, in f32 and bf16, plus one
    ``make_overlay_fn`` call, with the launch counts reset just before
@@ -56,10 +57,11 @@ import traceback
 
 SEED = 0
 H, W = 1024, 2048
-# tie budgets of the slice comparison (see compare_eval): a share of
-# the pixels, and a share of the sampled (pixel, K) purity cells
+# tie budget of the slice comparison (see compare_eval): a share of
+# the pixels
 TIE_SHARE = 1e-5
-PURITY_CELL_SHARE = 1e-3
+# the head check's tolerance on d, which the sampled distances inherit
+D_RTOL, D_ATOL = 1e-5, 1e-4
 N_RANDOM = 100  # sampled pixels per image for the purity statistic
 # H100 SXM data-sheet peaks: dense FP32 FLOP/s and HBM3 bytes/s
 PEAK_F32_FLOPS = 67e12
@@ -143,7 +145,7 @@ def check_head(report) -> None:
                         derr = (got_d - want_d).abs().max().item()
                         flips = int((got_d.argmin(-1) != want_d.argmin(-1)).sum())
                         line += f" d max_abs={derr:.3e} argmin_mismatch_rows={flips}"
-                        ok &= torch.allclose(got_d, want_d, rtol=1e-5, atol=1e-4)
+                        ok &= torch.allclose(got_d, want_d, rtol=D_RTOL, atol=D_ATOL)
                         if dtype == torch.float32:
                             ok &= flips <= TIE_SHARE * N
                     else:
@@ -155,7 +157,7 @@ def check_head(report) -> None:
                     if dtype == torch.float32:
                         worst = max(worst, err.max().item())
     report["prototype_head"]["max_abs_err"] = worst
-    log("  tolerance: logits rtol 1e-4 atol 1e-3, d rtol 1e-5 atol 1e-4, "
+    log(f"  tolerance: logits rtol 1e-4 atol 1e-3, d rtol {D_RTOL:g} atol {D_ATOL:g}, "
         f"f32 argmin mismatches <= {TIE_SHARE:g} of rows")
 
 
@@ -165,9 +167,10 @@ def check_head(report) -> None:
 
 def check_upsample(report) -> None:
     import torch
+    from adlm_tpu_torch.ops import _build
     from adlm_tpu_torch.ops.upsample_argmin import (
-        upsampled_argmin_cuda,
         upsampled_argmin_reference,
+        upsampled_nearest,
     )
 
     g = torch.Generator(device="cuda").manual_seed(SEED + 1)
@@ -178,10 +181,14 @@ def check_upsample(report) -> None:
         ("all-equal tie", torch.ones(1, 33, 65, 7, device="cuda"), (257, 513)),
         ("ragged P=37", torch.rand(1, 37, 71, 37, device="cuda", generator=g), (300, 555)),
         ("downsample P=19", torch.rand(1, 65, 97, 19, device="cuda", generator=g), (33, 47)),
+        ("integer x8 P=19", torch.rand(2, 16, 32, 19, device="cuda", generator=g), (128, 256)),
     ]
     for name, d, size in cases:
         with torch.inference_mode():
-            got = upsampled_argmin_cuda(d, size)
+            before = _build.LAUNCHES["upsample_argmin"]
+            got = upsampled_nearest(d, size)  # the dispatch: a CUDA map
+            if _build.LAUNCHES["upsample_argmin"] != before + 1:
+                raise AssertionError(f"upsampled_nearest did not take the kernel ({name})")
             want = upsampled_argmin_reference(d, size, chunk=16, exact=True)
             torch.cuda.synchronize()
         bad = int((got != want).sum())
@@ -259,6 +266,27 @@ def plain_versions():
         pp.prototype_head, ev.upsampled_nearest = saved
 
 
+@contextlib.contextmanager
+def purity_inputs():
+    """Keep what each ``_topk_purity`` call sorts (the sampled distances
+    and predicted classes), so that the comparison can name the near-tie
+    behind every purity cell that changed."""
+    import adlm_tpu_torch.interpret.evaluate as ev
+
+    seen = []
+    orig = ev._topk_purity
+
+    def record(sample_d, sample_pred, proto_class):
+        seen.append((sample_d.cpu(), sample_pred.cpu()))
+        return orig(sample_d, sample_pred, proto_class)
+
+    ev._topk_purity = record
+    try:
+        yield seen
+    finally:
+        ev._topk_purity = orig
+
+
 def run_eval(model, batches, pc, mean_std):
     from adlm_tpu_torch.interpret.evaluate import SegEvaluator
 
@@ -266,9 +294,11 @@ def run_eval(model, batches, pc, mean_std):
                       normalize=mean_std, n_random_pixels=N_RANDOM, seed=SEED)
     outs = []
     for img, lab in batches:
-        o = ev.update(pc, img, lab)
+        with purity_inputs() as seen:
+            o = ev.update(pc, img, lab)
         outs.append({k: v.cpu() for k, v in o.items()
                      if k not in ("pred", "stat_pred", "nearest_proto")})
+        outs[-1]["sample_d"], outs[-1]["sample_pred"] = seen[0]
         P = pc.numel()
         near = o["nearest_proto"]
         if (o["pred"].shape != lab.shape or near.shape != lab.shape
@@ -284,6 +314,42 @@ def run_eval(model, batches, pc, mean_std):
     return ev.results(), outs
 
 
+def purity_cells(a, b, proto_class):
+    """The (pixel, K) purity cells of one batch that differ between two
+    runs, and those of them that no near-tie explains.
+
+    Cell (pixel, K) counts the pixel's predicted class among its K
+    nearest sampled prototypes.  With the same predicted class, a cell
+    differs only if the two top-K sets do: some a is in run 1's set but
+    not run 2's and some b the other way round, so d1(a) ≤ d1(b) and
+    d2(b) ≤ d2(a), and run 1's sorted gap between places K and K + 1 is
+    at most d1(b) − d1(a) ≤ |d1(a) − d2(a)| + |d1(b) − d2(b)|.  A changed
+    cell whose gap is wider than twice the head check's d tolerance
+    (D_ATOL + D_RTOL·|d|, at the pixel's largest |d|) is unexplained.
+    Pixels whose predicted class differs count against the pixel budget
+    instead.
+
+    Returns (changed cells, unexplained cells, pixels whose class
+    differs, largest gap of a changed cell).
+    """
+    import torch
+
+    d1, d2 = a["sample_d"], b["sample_d"]
+    pred_flip = a["sample_pred"] != b["sample_pred"]                # (B, n)
+    o1 = torch.argsort(d1, dim=-1, stable=True)
+    o2 = torch.argsort(d2, dim=-1, stable=True)
+    c1 = (proto_class[o1] == a["sample_pred"][..., None]).cumsum(-1)
+    c2 = (proto_class[o2] == b["sample_pred"][..., None]).cumsum(-1)
+    changed = (c1 != c2) & ~pred_flip[..., None]                    # (B, n, P)
+    s1 = d1.gather(-1, o1)
+    gap = torch.cat([s1[..., 1:] - s1[..., :-1],
+                     torch.full_like(s1[..., :1], math.inf)], dim=-1)
+    tie = 2 * (D_ATOL + D_RTOL * d1.abs().amax(-1, keepdim=True))   # (B, n, 1)
+    worst = gap[changed].max().item() if bool(changed.any()) else 0.0
+    unexplained = int((changed & (gap > tie)).sum())
+    return int(changed.sum()), unexplained, int(pred_flip.sum()), worst
+
+
 def compare_eval(tag, got, want, n_pixels) -> None:
     """Kernels vs plain versions on the same batches.  The two heads sum
     in other orders (d differs by ~1e-5), so near-ties may flip:
@@ -292,29 +358,34 @@ def compare_eval(tag, got, want, n_pixels) -> None:
       ``correct``/``intersection`` by at most 1 and ``union``/
       ``agree_counts`` by at most 2: budgets TIE_SHARE of the pixels,
       twice that for the latter two; ``total`` must be equal;
-    * two sampled distances within the error swapping places in the
-      purity sort change the same-class count of one (pixel, K) cell,
-      moving ``topk_purity[K]`` by 100 / (n·K): budget PURITY_CELL_SHARE
-      of the sampled (pixel, K) cells, counted exactly from the
-      difference.
+    * ``topk_purity``: the sampled distances it sorts must agree within
+      the head check's d tolerance, and every (pixel, K) cell that
+      changed must sit on a near-tie of them (``purity_cells``); sampled
+      pixels whose predicted class flipped count against the pixel
+      budget.
     """
     import torch
+    from adlm_tpu_torch.models.ppnet import default_proto_class
 
     budget = math.ceil(TIE_SHARE * n_pixels)
     limits = {"intersection": budget, "correct": budget, "total": 0,
               "union": 2 * budget, "agree_counts": 2 * budget}
+    pc = default_proto_class(190, 19, device="cpu")
     (res_k, outs_k), (res_p, outs_p) = got, want
     for i, (a, b) in enumerate(zip(outs_k, outs_p)):
         diffs = {k: int((a[k].long() - b[k].long()).abs().sum()) for k in limits}
         dp = (a["topk_purity"] - b["topk_purity"]).abs()
-        B, P = dp.shape
-        ks = torch.arange(1, P + 1, dtype=torch.float64)
-        cells = int(torch.round((dp.double() * ks * N_RANDOM / 100.0).sum()))
-        cell_budget = math.ceil(PURITY_CELL_SHARE * B * N_RANDOM * P)
+        cells, unexplained, flips, gap = purity_cells(a, b, pc)
+        d_err = (a["sample_d"] - b["sample_d"]).abs().max().item()
+        d_ok = bool(torch.allclose(a["sample_d"], b["sample_d"],
+                                   rtol=D_RTOL, atol=D_ATOL))
         log(f"  slice {tag} batch {i}: |diff| {diffs} (budget {budget} px, "
-            f"x2 for union/agree_counts), topk_purity max_abs={dp.max().item():.2e} "
-            f"cells={cells} (budget {cell_budget} of {B * N_RANDOM * P})")
-        if any(diffs[k] > v for k, v in limits.items()) or cells > cell_budget:
+            f"x2 for union/agree_counts), sampled d max_abs={d_err:.2e}, "
+            f"topk_purity max_abs={dp.max().item():.2e}: {cells} of "
+            f"{a['sample_d'].numel()} cells changed (largest gap {gap:.2e}), "
+            f"{unexplained} not on a near-tie, sampled class flips {flips}")
+        if (any(diffs[k] > v for k, v in limits.items()) or not d_ok
+                or unexplained or flips > budget):
             raise AssertionError(f"slice {tag}: kernels and plain versions "
                                  "disagree beyond the tie budget")
     log(f"  slice {tag}: mIoU kernels={res_k['mean_iou']:.6f} "

@@ -6,7 +6,8 @@ with the exact f32 blend (``_upsampled_argmin_scan(exact=True)``) and
 the Pallas kernel in interpret mode (``upsampled_argmin_pallas(...,
 interpret=True)``) on the shapes of tests/test_upsample_argmin.py, the
 all-equal tie case and the exact-flag case.  The integer-scale path
-equals ``_upsampled_nearest_integer``.  The bf16 fast path (bf16 resize,
+equals ``_upsampled_nearest_integer`` and serves CPU maps only: every
+CUDA map goes to the kernel.  The bf16 fast path (bf16 resize,
 no ``exact``) differs from JAX's bf16 resize in rounding: ≥ 99% agree.
 """
 
@@ -22,8 +23,8 @@ from adlm_tpu.interpret.evaluate import (
 )
 from adlm_tpu.ops.upsample_argmin import upsampled_argmin_pallas
 
+from adlm_tpu_torch.ops import upsample_argmin as port_ua
 from adlm_tpu_torch.ops.upsample_argmin import (
-    tile_extent,
     upsampled_argmin_cuda,
     upsampled_argmin_reference,
     upsampled_nearest,
@@ -115,18 +116,26 @@ def test_dispatch_takes_the_scan_on_cpu():
         upsampled_argmin_cuda(torch.from_numpy(d), (33, 47))
 
 
-@pytest.mark.parametrize("n_in,n_out", [(129, 1024), (257, 2048), (9, 33),
-                                        (33, 17), (5, 10)])
-def test_tile_extent_covers_every_tile(n_in, n_out):
-    """The kernel stages ext source rows per output tile: ext must cover
-    every tile's taps (checked against the plain coordinates)."""
-    for tile in (8, 32):
-        ext = tile_extent(n_out, n_in, tile)
-        s = np.clip((np.arange(n_out, dtype=np.float32) + np.float32(0.5))
-                    * np.float32(n_in / n_out) - np.float32(0.5),
-                    0, n_in - 1).astype(np.float32)
-        lo = np.floor(s).astype(int)
-        hi = np.minimum(lo + 1, n_in - 1)
-        need = max(hi[min(t + tile, n_out) - 1] - lo[t] + 1
-                   for t in range(0, n_out, tile))
-        assert ext == need
+class _CudaLike(torch.Tensor):
+    """A CPU tensor that reports itself on the card, to follow the
+    dispatch without one."""
+
+    @property
+    def is_cuda(self):
+        return True
+
+
+@pytest.mark.parametrize("shape,size", [
+    ((1, 5, 5, 3), (10, 10)),        # integer scale: the CPU phase path
+    ((2, 5, 7, 6), (10, 21)),
+    ((1, 4, 4, 9), (32, 32)),
+    ((2, 9, 13, 7), (33, 47)),       # ragged: the CPU scan
+    ((1, 65, 97, 19), (33, 47)),     # downsampling
+])
+def test_dispatch_sends_every_cuda_map_to_the_kernel(monkeypatch, shape, size):
+    calls = []
+    monkeypatch.setattr(port_ua, "upsampled_argmin_cuda",
+                        lambda d, s: calls.append((type(d), s)) or "kernel")
+    d = torch.rand(shape).as_subclass(_CudaLike)
+    assert upsampled_nearest(d, size, exact=True) == "kernel"
+    assert calls == [(_CudaLike, size)]
