@@ -17,8 +17,10 @@ non-zero and prints no result:
    flagship shape (N = 2·129·257 rows, C=64, P=190, K=19), f32 and
    bf16, with and without distances, log and linear;
 3. kernel 2 (upsample + argmin) vs the plain exact-f32 scan:
-   (2,129,257,190) → (2,1024,2048) in f32 and bf16, an all-equal tie
-   map, ragged, downsampling and integer-scale shapes, each through
+   (2,129,257,190) → (2,1024,2048) in f32 and bf16, the batch-8 bf16
+   map the eval runs, an all-equal tie map, a map quantised to three
+   levels (ties across chunk and tile edges), ragged, downsampling,
+   small-factor and integer-scale shapes, each through
    ``upsampled_nearest`` (which must launch the kernel); 0 mismatches;
 4. the slice: ``SegEvaluator(with_stats=True, stats_upsampled=True)``
    on uint8 batches normalized on the device, in f32 and bf16, plus one
@@ -63,9 +65,18 @@ TIE_SHARE = 1e-5
 # the head check's tolerance on d, which the sampled distances inherit
 D_RTOL, D_ATOL = 1e-5, 1e-4
 N_RANDOM = 100  # sampled pixels per image for the purity statistic
-# H100 SXM data-sheet peaks: dense FP32 FLOP/s and HBM3 bytes/s
+# H100 SXM data-sheet peaks: dense FP32 FLOP/s (an FMA counts two) and
+# HBM3 bytes/s
 PEAK_F32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
+# f32 lane-instructions per second: one per FP32 lane per clock, 132 SMs
+# x 128 lanes x 1.98 GHz boost (H100 SXM data sheet and Hopper
+# architecture white paper).  The bound of work whose operations cannot
+# fuse into FMAs (separate multiplies and adds, compares).
+PEAK_F32_OPS = 33.5e12
+# the upsample-argmin kernel of PR 1 (direct 4-tap blend), f32 batch 2,
+# on "NVIDIA H100 80GB HBM3, 700.00 W" (PERF.md)
+PR1_UPSAMPLE_MS = 0.7077
 REPLACES = {
     "prototype_head": "adlm_tpu/ops/prototype.py:110",
     "upsample_argmin": "adlm_tpu/ops/upsample_argmin.py:79",
@@ -102,9 +113,10 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(flops: float, nbytes: float):
-    """(least ms on the card, what bounds it) from the data-sheet peaks."""
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_HBM_BYTES
+def bound(ops: float, nbytes: float, peak_ops: float):
+    """(least ms on the card, what bounds it) from the data-sheet peaks:
+    ``ops`` at ``peak_ops`` per second, ``nbytes`` at the HBM rate."""
+    t_ops, t_bytes = ops / peak_ops, nbytes / PEAK_HBM_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -182,6 +194,18 @@ def check_upsample(report) -> None:
         ("ragged P=37", torch.rand(1, 37, 71, 37, device="cuda", generator=g), (300, 555)),
         ("downsample P=19", torch.rand(1, 65, 97, 19, device="cuda", generator=g), (33, 47)),
         ("integer x8 P=19", torch.rand(2, 16, 32, 19, device="cuda", generator=g), (128, 256)),
+        ("flagship b8 bf16", (torch.rand(8, 129, 257, 190, device="cuda", generator=g) * 10
+                              ).to(torch.bfloat16), (H, W)),
+        # three levels: most outputs tie with several prototypes, across
+        # prototype chunks and output tiles
+        ("near-tie 3 levels", torch.randint(0, 3, (2, 33, 65, 70), device="cuda",
+                                            generator=g).float(), (257, 513)),
+        # H, W off the 64x32 output tile, P off the prototype chunk (64)
+        ("ragged P=97", torch.rand(3, 41, 83, 97, device="cuda", generator=g), (333, 679)),
+        # x3: thread rows that span three tap pairs; odd h*w*P puts bf16
+        # images at odd element offsets
+        ("x3 bf16 P=37", torch.rand(2, 23, 45, 37, device="cuda", generator=g
+                                    ).to(torch.bfloat16), (70, 134)),
     ]
     for name, d, size in cases:
         with torch.inference_mode():
@@ -192,7 +216,7 @@ def check_upsample(report) -> None:
             want = upsampled_argmin_reference(d, size, chunk=16, exact=True)
             torch.cuda.synchronize()
         bad = int((got != want).sum())
-        log(f"  upsample_argmin {name:16s} {tuple(d.shape)} -> {size}: "
+        log(f"  upsample_argmin {name:17s} {tuple(d.shape)} -> {size}: "
             f"mismatches={bad} of {got.numel()}")
         if bad:
             raise AssertionError(f"upsample_argmin kernel disagrees ({name})")
@@ -475,19 +499,22 @@ def time_kernels(report, card: str) -> None:
                 flops = 2.0 * N * P * (C + K)
                 nbytes = (N * C * xd.element_size() + 4 * (P * C + P * K + N * K)
                           + (4 * N * P if emit else 0))
-                b_ms, b_by = bound(flops, nbytes)
+                b_ms, b_by = bound(flops, nbytes, PEAK_F32_FLOPS)
                 rows.append(("prototype_head", str(dtype)[6:], emit, ms, plain, b_ms, b_by))
             dd = dist.to(dtype)
             ms = cuda_ms(lambda: upsampled_argmin_cuda(dd, (H, W)), 20)
             plain = cuda_ms(lambda: upsampled_argmin_reference(dd, (H, W), 16, True), 3, 1)
-            flops = B * (3.0 * P * W * (h + H) + P * H * W)
+            # separable blend (x pass over h rows, y pass over H) and
+            # compares: single f32 instructions, none fuses
+            ops = B * (3.0 * P * W * (h + H) + P * H * W)
             nbytes = B * (h * w * P * dd.element_size() + 4 * H * W)
-            b_ms, b_by = bound(flops, nbytes)
+            b_ms, b_by = bound(ops, nbytes, PEAK_F32_OPS)
             rows.append(("upsample_argmin", str(dtype)[6:], None, ms, plain, b_ms, b_by))
     for name, dt, emit, ms, plain, b_ms, b_by in rows:
         extra = "" if emit is None else f" dist={emit!s:5s}"
+        was = f"  (PR 1 kernel {PR1_UPSAMPLE_MS} ms f32)" if name == "upsample_argmin" else ""
         log(f"  {name:16s} {dt:8s}{extra} kernel {ms:.4f} ms  plain {plain:.4f} ms  "
-            f"bound {b_ms:.4f} ms ({b_by})  [{card}]")
+            f"bound {b_ms:.4f} ms ({b_by}){was}  [{card}]")
     # the kernels line reports the f32 shape the stats eval runs
     for name, dt, emit, ms, plain, b_ms, b_by in rows:
         if dt == "float32" and emit in (True, None):

@@ -57,6 +57,42 @@ def test_plain_version_equals_jax_scan_and_pallas(shape, size):
         scan)
 
 
+# The inputs the CUDA kernel's tiling is sensitive to, as the card checks
+# them at full size: values on three levels, so that most outputs tie
+# with several prototypes across prototype chunks and output tiles; and
+# H, W, P off every tile and chunk width.
+TILING_CASES = [
+    ("near_tie", (2, 9, 17, 23), (65, 129)),
+    ("ragged", (1, 11, 21, 29), (83, 163)),
+]
+
+
+@pytest.mark.parametrize("kind,shape,size", TILING_CASES)
+def test_plain_version_equals_jax_on_ties_and_ragged_tiles(kind, shape, size):
+    rng = np.random.RandomState(7)
+    if kind == "near_tie":
+        d = rng.randint(0, 3, shape).astype(np.float32)
+    else:
+        d = rng.rand(*shape).astype(np.float32)
+    got = upsampled_argmin_reference(torch.from_numpy(d), size, chunk=4)
+    scan = np.asarray(_upsampled_argmin_scan(jnp.asarray(d), size, chunk=4,
+                                             exact=True))
+    np.testing.assert_array_equal(got.numpy(), scan)
+    pallas = np.asarray(upsampled_argmin_pallas(
+        jnp.asarray(d), size, th=16, tw=128, c=8, interpret=True, exact=True))
+    np.testing.assert_array_equal(got.numpy(), pallas)
+    if kind == "near_tie":  # ties are common, and the first one wins
+        y0, y1, wy = port_ua._src_coords(size[0], shape[1], "cpu")
+        x0, x1, wx = port_ua._src_coords(size[1], shape[2], "cpu")
+        t = torch.from_numpy(d)
+        fx = t[:, :, x0] * (1.0 - wx[:, None]) + t[:, :, x1] * wx[:, None]
+        full = fx[:, y0] * (1.0 - wy[:, None, None]) + fx[:, y1] * wy[:, None, None]
+        ties = (full == full.min(-1, keepdim=True).values).sum(-1) > 1
+        assert ties.float().mean() > 0.1
+        first = (full == full.min(-1, keepdim=True).values).int().argmax(-1)
+        np.testing.assert_array_equal(first.numpy(), scan)
+
+
 def test_first_occurrence_tie_break():
     d = torch.ones((1, 4, 4, 5))
     assert (upsampled_argmin_reference(d, (8, 9), chunk=2) == 0).all()
