@@ -85,13 +85,9 @@ def _lib() -> ctypes.CDLL:
                       ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                       ctypes.c_float, vp]
         f.restype = ctypes.c_int
-        lib.adlm_prototype_head_smem.argtypes = [ctypes.c_int] * 3
+        lib.adlm_prototype_head_smem.argtypes = [ctypes.c_int] * 4
         lib.adlm_prototype_head_smem.restype = ctypes.c_size_t
     return lib
-
-
-# the shared memory one CTA may opt in to on sm_90 (232,448 bytes)
-_MAX_SMEM = 232448
 
 
 def prototype_head_cuda(x: torch.Tensor, prototypes: torch.Tensor,
@@ -116,21 +112,26 @@ def prototype_head_cuda(x: torch.Tensor, prototypes: torch.Tensor,
         raise ValueError(f"prototypes {tuple(prototypes.shape)} vs x C={C}, "
                          f"weight P={P}")
     lib = _lib()
-    smem = lib.adlm_prototype_head_smem(C, P, K)
-    if smem > _MAX_SMEM:
-        raise ValueError(f"prototype head needs {smem} B of shared memory "
-                         f"per block (C={C}, P={P}, K={K}); the card has "
-                         f"{_MAX_SMEM}")
+    bf16 = int(x.dtype == torch.bfloat16)
+    if not lib.adlm_prototype_head_smem(C, P, K, bf16):
+        raise ValueError(f"the prototype-head kernel does not take C={C}, "
+                         f"P={P}, K={K}: it needs C a multiple of 8, P <= 256, "
+                         "K <= 64, and tiles that fit in a block's shared "
+                         "memory")
     x2d = x.reshape(-1, C).contiguous()
+    if x2d.data_ptr() % 16:  # the kernel reads rows in 16-byte pieces
+        x2d = x2d.clone()
     n = x2d.shape[0]
     protos = prototypes.to(_F32).contiguous()
+    if protos.data_ptr() % 16:
+        protos = protos.clone()
     w = last_layer_weight.to(_F32).contiguous()
     logits = torch.empty((n, K), dtype=_F32, device=x.device)
     dist = (torch.empty((n, P), dtype=_F32, device=x.device)
             if return_distances else None)
     with torch.cuda.device(x.device):
         status = lib.adlm_prototype_head(
-            x2d.data_ptr(), int(x.dtype == torch.bfloat16), protos.data_ptr(),
+            x2d.data_ptr(), bf16, protos.data_ptr(),
             w.data_ptr(), logits.data_ptr(),
             dist.data_ptr() if dist is not None else None,
             n, C, P, K, int(activation == "linear"), float(epsilon),

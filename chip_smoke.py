@@ -15,7 +15,9 @@ non-zero and prints no result:
    from ``adlm_tpu_torch/csrc``);
 2. kernel 1 (prototype head) vs ``prototype_head_reference`` at the
    flagship shape (N = 2·129·257 rows, C=64, P=190, K=19), f32 and
-   bf16, with and without distances, log and linear;
+   bf16, with and without distances, log and linear; then the batch-8
+   bf16 rows the eval runs, every other preset's (C, P, K) and a ragged
+   shape (``HEAD_CASES``), and a shape the kernel refuses;
 3. kernel 2 (upsample + argmin) vs the plain exact-f32 scan:
    (2,129,257,190) → (2,1024,2048) in f32 and bf16, the batch-8 bf16
    map the eval runs, an all-equal tie map, a map quantised to three
@@ -52,6 +54,7 @@ import contextlib
 import copy
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -65,17 +68,26 @@ TIE_SHARE = 1e-5
 # the head check's tolerance on d, which the sampled distances inherit
 D_RTOL, D_ATOL = 1e-5, 1e-4
 N_RANDOM = 100  # sampled pixels per image for the purity statistic
-# H100 SXM data-sheet peaks: dense FP32 FLOP/s (an FMA counts two) and
-# HBM3 bytes/s
-PEAK_F32_FLOPS = 67e12
+# H100 SXM data-sheet peak of HBM3 bytes/s
 PEAK_HBM_BYTES = 3.35e12
 # f32 lane-instructions per second: one per FP32 lane per clock, 132 SMs
 # x 128 lanes x 1.98 GHz boost (H100 SXM data sheet and Hopper
-# architecture white paper).  The bound of work whose operations cannot
-# fuse into FMAs (separate multiplies and adds, compares).
+# architecture white paper); the data sheet's 67 TFLOP/s counts each of
+# them, an FMA, as two.  Both kernels' bounds count lane-instructions.
 PEAK_F32_OPS = 33.5e12
-# the upsample-argmin kernel of PR 1 (direct 4-tap blend), f32 batch 2,
-# on "NVIDIA H100 80GB HBM3, 700.00 W" (PERF.md)
+# f32 lane-instructions per (row, prototype) pair of the head besides
+# its C + K FMAs, a count of the function's own work, not of any kernel:
+# 3 for d = max(x2 - 2·dot + p2, 0) (FFMA, FADD, FMNMX), then for the
+# log activation 2 adds, CUDA's IEEE f32 division and logf, whose
+# fast paths are DIV_SASS and LOGF_SASS instructions (cuobjdump -sass of
+# one-line probe kernels for sm_90a: tools/epilogue_sass.py).  The
+# linear activation is the d update and a negation.
+DIV_SASS, LOGF_SASS = 10, 26
+HEAD_EPILOGUE_OPS = {"log": 3 + 2 + DIV_SASS + LOGF_SASS, "linear": 4}
+# the port's first kernels (head: one (row, prototype) pair per thread
+# step; upsample-argmin: direct 4-tap blend), f32 batch 2, on "NVIDIA
+# H100 80GB HBM3, 700.00 W" (PERF.md)
+PR1_HEAD_MS = 0.3992
 PR1_UPSAMPLE_MS = 0.7077
 REPLACES = {
     "prototype_head": "adlm_tpu/ops/prototype.py:110",
@@ -125,52 +137,98 @@ def bound(ops: float, nbytes: float, peak_ops: float):
 # phase 2: prototype head
 # ---------------------------------------------------------------------------
 
+# phase 2 cases: (name, N, C, P, K, dtypes, activations, huge).  The
+# flagship rows at batch 2 and the batch-8 bf16 rows the eval runs;
+# every other preset's (C, P, K) (core/config.py: pascal_*, mds_new,
+# cells, smoke); N off the 64-row tile with P and K off their thread
+# tiles; and (huge) every 7th row at 1e10, d ~ 6e21 > 2^60, whose
+# quotients leave the kernel's fast division: the threads holding them
+# redo their activations with "/", their ordinary rows too.
+_DTYPES, _ACTS = ("float32", "bfloat16"), ("log", "linear")
+HEAD_CASES = [
+    ("flagship b2", 2 * 129 * 257, 64, 190, 19, _DTYPES, _ACTS, False),
+    ("flagship b8", 8 * 129 * 257, 64, 190, 19, ("bfloat16",), ("log",), False),
+    ("pascal P=210", 2 * 129 * 257, 64, 210, 21, _DTYPES, _ACTS, False),
+    ("ragged P=97", 1001, 64, 97, 7, _DTYPES, _ACTS, False),
+    ("mds_new P=30", 3001, 64, 30, 3, _DTYPES, _ACTS, False),
+    ("cells P=50", 3001, 64, 50, 5, _DTYPES, _ACTS, False),
+    ("smoke C=8", 3001, 8, 6, 3, _DTYPES, _ACTS, False),
+    ("huge d rows", 3001, 64, 190, 19, _DTYPES, ("log",), True),
+]
+
+
 def check_head(report) -> None:
     import torch
     from adlm_tpu_torch.core.device import ieee_f32
+    from adlm_tpu_torch.ops import _build
     from adlm_tpu_torch.ops.prototype import (
+        _lib,
         prototype_head_cuda,
         prototype_head_reference,
     )
 
-    N, C, P, K = 2 * 129 * 257, 64, 190, 19
+    smem = {dt: _lib().adlm_prototype_head_smem(64, 190, 19, int(dt == "bfloat16"))
+            for dt in _DTYPES}
+    log(f"  shared memory per CTA at C=64, P=190, K=19: {smem} B")
     g = torch.Generator(device="cuda").manual_seed(SEED)
-    x = torch.rand(N, C, device="cuda", generator=g)
-    protos = torch.rand(P, C, device="cuda", generator=g)
-    w = torch.randn(P, K, device="cuda", generator=g)
     worst = 0.0
-    for dtype in (torch.float32, torch.bfloat16):
-        xd, pd, wd = x.to(dtype), protos.to(dtype), w.to(dtype)
-        for act in ("log", "linear"):
-            with torch.inference_mode(), ieee_f32():
-                want_l, want_d = prototype_head_reference(xd, pd, wd, act)
-                for emit in (True, False):
-                    got_l, got_d = prototype_head_cuda(xd, pd, wd, act,
-                                                       return_distances=emit)
-                    torch.cuda.synchronize()
-                    err = (got_l - want_l).abs()
-                    rel = (err / want_l.abs().clamp_min(1e-3)).max().item()
-                    line = (f"  head {str(dtype)[6:]:8s} {act:6s} dist={emit!s:5s} "
-                            f"logits max_abs={err.max().item():.3e} max_rel={rel:.3e}")
-                    ok = torch.allclose(got_l, want_l, rtol=1e-4, atol=1e-3)
-                    if emit:
-                        derr = (got_d - want_d).abs().max().item()
-                        flips = int((got_d.argmin(-1) != want_d.argmin(-1)).sum())
-                        line += f" d max_abs={derr:.3e} argmin_mismatch_rows={flips}"
-                        ok &= torch.allclose(got_d, want_d, rtol=D_RTOL, atol=D_ATOL)
-                        if dtype == torch.float32:
-                            ok &= flips <= TIE_SHARE * N
-                    else:
-                        ok &= got_d is None
-                    log(line)
-                    if not ok:
-                        raise AssertionError("prototype head kernel disagrees "
-                                             "with its plain version")
-                    if dtype == torch.float32:
-                        worst = max(worst, err.max().item())
+    for name, N, C, P, K, dtypes, acts, huge in HEAD_CASES:
+        x = torch.rand(N, C, device="cuda", generator=g)
+        protos = torch.rand(P, C, device="cuda", generator=g)
+        w = torch.randn(P, K, device="cuda", generator=g)
+        if huge:
+            x[::7] = 1e10
+        for dt in dtypes:
+            dtype = getattr(torch, dt)
+            xd, pd, wd = x.to(dtype), protos.to(dtype), w.to(dtype)
+            for act in acts:
+                with torch.inference_mode(), ieee_f32():
+                    want_l, want_d = prototype_head_reference(xd, pd, wd, act)
+                    for emit in (True, False):
+                        before = _build.LAUNCHES["prototype_head"]
+                        got_l, got_d = prototype_head_cuda(xd, pd, wd, act,
+                                                           return_distances=emit)
+                        torch.cuda.synchronize()
+                        if _build.LAUNCHES["prototype_head"] != before + 1:
+                            raise AssertionError("prototype_head_cuda did not "
+                                                 f"launch the kernel ({name})")
+                        err = (got_l - want_l).abs()
+                        rel = (err / want_l.abs().clamp_min(1e-3)).max().item()
+                        line = (f"  head {name:12s} {dt:8s} {act:6s} dist={emit!s:5s} "
+                                f"logits max_abs={err.max().item():.3e} max_rel={rel:.3e}")
+                        ok = torch.allclose(got_l, want_l, rtol=1e-4, atol=1e-3)
+                        if emit:
+                            derr = (got_d - want_d).abs().max().item()
+                            flips = int((got_d.argmin(-1) != want_d.argmin(-1)).sum())
+                            line += f" d max_abs={derr:.3e} argmin_mismatch_rows={flips}"
+                            ok &= torch.allclose(got_d, want_d, rtol=D_RTOL, atol=D_ATOL)
+                            if dtype == torch.float32:
+                                ok &= flips == 0
+                        else:
+                            ok &= got_d is None
+                        log(line)
+                        if not ok:
+                            raise AssertionError("prototype head kernel disagrees "
+                                                 f"with its plain version ({name})")
+                        if dtype == torch.float32 and name == "flagship b2":
+                            worst = max(worst, err.max().item())
+                del want_l, want_d, got_l, got_d
+        del x, protos, w
     report["prototype_head"]["max_abs_err"] = worst
     log(f"  tolerance: logits rtol 1e-4 atol 1e-3, d rtol {D_RTOL:g} atol {D_ATOL:g}, "
-        f"f32 argmin mismatches <= {TIE_SHARE:g} of rows")
+        "0 f32 argmin mismatches")
+    before = _build.LAUNCHES["prototype_head"]
+    try:  # a shape the kernel does not take raises before any launch
+        prototype_head_cuda(torch.rand(64, 64, device="cuda"),
+                            torch.rand(257, 64, device="cuda"),
+                            torch.rand(257, 3, device="cuda"))
+    except ValueError as e:
+        log(f"  P=257 refused: {e}")
+    else:
+        raise AssertionError("the head kernel took P=257")
+    if _build.LAUNCHES["prototype_head"] != before:
+        raise AssertionError("a refused head shape launched the kernel")
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -491,15 +549,19 @@ def time_kernels(report, card: str) -> None:
     dist = torch.rand(B, h, w, P, device="cuda", generator=g) * 10
     rows = []
     with torch.inference_mode(), ieee_f32():
+        # context for the distance product alone (never called by the port)
+        mm = cuda_ms(lambda: torch.matmul(x, protos.t()), 50)
+        log(f"  torch.matmul(x, P.T) f32 IEEE ({N}x{C} . {C}x{P}) {mm:.4f} ms  [{card}]")
         for dtype in (torch.float32, torch.bfloat16):
             xd, pd, wd = x.to(dtype), protos.to(dtype), wt.to(dtype)
             for emit in (True, False):
                 ms = cuda_ms(lambda: prototype_head_cuda(xd, pd, wd, "log", 1e-4, emit), 50)
                 plain = cuda_ms(lambda: prototype_head_reference(xd, pd, wd, "log"), 20)
-                flops = 2.0 * N * P * (C + K)
+                # f32 lane-instructions: C + K FMAs and the epilogue per pair
+                ops = N * P * (C + K + HEAD_EPILOGUE_OPS["log"])
                 nbytes = (N * C * xd.element_size() + 4 * (P * C + P * K + N * K)
                           + (4 * N * P if emit else 0))
-                b_ms, b_by = bound(flops, nbytes, PEAK_F32_FLOPS)
+                b_ms, b_by = bound(ops, nbytes, PEAK_F32_OPS)
                 rows.append(("prototype_head", str(dtype)[6:], emit, ms, plain, b_ms, b_by))
             dd = dist.to(dtype)
             ms = cuda_ms(lambda: upsampled_argmin_cuda(dd, (H, W)), 20)
@@ -512,7 +574,8 @@ def time_kernels(report, card: str) -> None:
             rows.append(("upsample_argmin", str(dtype)[6:], None, ms, plain, b_ms, b_by))
     for name, dt, emit, ms, plain, b_ms, b_by in rows:
         extra = "" if emit is None else f" dist={emit!s:5s}"
-        was = f"  (PR 1 kernel {PR1_UPSAMPLE_MS} ms f32)" if name == "upsample_argmin" else ""
+        was = {"prototype_head": PR1_HEAD_MS, "upsample_argmin": PR1_UPSAMPLE_MS}[name]
+        was = f"  (first kernel {was} ms f32)"
         log(f"  {name:16s} {dt:8s}{extra} kernel {ms:.4f} ms  plain {plain:.4f} ms  "
             f"bound {b_ms:.4f} ms ({b_by}){was}  [{card}]")
     # the kernels line reports the f32 shape the stats eval runs
@@ -655,8 +718,11 @@ def main() -> int:
         outs = _build.build_all(verbose_ptxas=True)
         for name, out in outs.items():
             for ln in out.splitlines():
-                if "registers" in ln or "smem" in ln or "spill" in ln:
-                    log(f"  {name}: {ln.strip()}")
+                inst = re.search(r"([a-z_]*kernel)I(\w+?)EEv", ln)
+                if "Compiling entry" in ln and inst:  # the template instance
+                    log(f"  {name}: {inst.group(1)}<{inst.group(2)}> (mangled arguments)")
+                elif "registers" in ln or "smem" in ln or "spill" in ln:
+                    log(f"  {name}:   {ln.strip()}")
         log(f"  built {sorted(outs) or 'nothing (cached)'} in "
             f"{time.perf_counter() - t0:.1f} s")
 

@@ -69,11 +69,7 @@ def _head_inputs(seed, dtype, lead=(2, 9, 11), C=64, P=30, K=5):
     return x, p, w
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("activation", ["log", "linear"])
-@pytest.mark.parametrize("return_distances", [True, False])
-def test_prototype_head_matches_jax(dtype, activation, return_distances):
-    x, p, w = _head_inputs(len(dtype) + len(activation), dtype)
+def _check_head_against_jax(x, p, w, dtype, activation, return_distances=True):
     tdt, jdt = compute_dtype(dtype), jnp.dtype(dtype)
     logits, d = port_proto.prototype_head(
         torch.from_numpy(x).to(tdt), torch.from_numpy(p).to(tdt),
@@ -82,6 +78,7 @@ def test_prototype_head_matches_jax(dtype, activation, return_distances):
         jnp.asarray(x, jdt), jnp.asarray(p, jdt), jnp.asarray(w), activation,
         1e-4, True)
     assert logits.dtype == torch.float32
+    assert logits.shape == (*x.shape[:-1], w.shape[1])
     np.testing.assert_allclose(logits.numpy(), np.asarray(want_logits),
                                rtol=1e-4, atol=1e-3)
     if not return_distances:
@@ -91,6 +88,28 @@ def test_prototype_head_matches_jax(dtype, activation, return_distances):
                                rtol=1e-5, atol=1e-4)
     np.testing.assert_array_equal(d.argmin(-1).numpy(),
                                   np.asarray(want_d).argmin(-1))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("activation", ["log", "linear"])
+@pytest.mark.parametrize("return_distances", [True, False])
+def test_prototype_head_matches_jax(dtype, activation, return_distances):
+    x, p, w = _head_inputs(len(dtype) + len(activation), dtype)
+    _check_head_against_jax(x, p, w, dtype, activation, return_distances)
+
+
+# shapes off the card kernel's tiles: N off its 64-row tile, P off its
+# 64-prototype and K off its 4-class tiles (ragged); and the pascal
+# presets' P=210, K=21, which take its widest prototype tile
+@pytest.mark.parametrize("shape", [((1001,), 97, 7), ((3, 7, 13), 210, 21)],
+                         ids=["ragged", "pascal"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("activation", ["log", "linear"])
+def test_prototype_head_matches_jax_at_kernel_edge_shapes(shape, dtype,
+                                                          activation):
+    lead, P, K = shape
+    x, p, w = _head_inputs(P + K, dtype, lead=lead, P=P, K=K)
+    _check_head_against_jax(x, p, w, dtype, activation)
 
 
 def test_plain_l2_ops_match_jax():
