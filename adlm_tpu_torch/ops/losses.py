@@ -1,0 +1,125 @@
+"""ProtoSeg losses (counterpart of ``adlm_tpu.ops.losses``).
+
+* ``cross_entropy_ignore`` — per-patch CE with void masking (reference
+  segmentation/module.py:156-165 drops void pixels before CE).
+* ``kld_prototype_loss`` — the prototype-diversity loss as one masked
+  log-softmax and one batched product, where the reference loops over
+  images × classes × prototype pairs (module.py:167-208).
+* ``masked_l1`` — L1 on off-class last-layer weights (module.py:213-218).
+
+``groups=G`` splits the rows (CE) or images (KLD) into G equal
+contiguous groups and averages the per-group means: the loss of the
+fused-accumulation step, gradient-identical to averaging G microbatch
+losses.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+_F32 = torch.float32
+_NEG_INF = -1e30
+
+
+def cross_entropy_ignore(logits: torch.Tensor, labels: torch.Tensor,
+                         valid: Optional[torch.Tensor] = None,
+                         groups: Optional[int] = None
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mean softmax cross-entropy over valid positions.
+
+    Args:
+      logits: (N, C) float.
+      labels: (N,) int in [0, C); ignored where ``valid`` is False.
+      valid: (N,) bool, or None for all-valid.
+      groups: None for one mean over all valid positions, or G for the
+        mean over G contiguous groups of each group's valid-mean.
+
+    Returns:
+      (scalar loss, scalar n_correct): n_correct counts valid argmax hits
+      (reference module.py:210-227).
+    """
+    logits = logits.to(_F32)
+    n = logits.shape[0]
+    if valid is None:
+        valid = torch.ones(n, dtype=torch.bool, device=logits.device)
+    safe = torch.clamp(labels.long(), 0, logits.shape[-1] - 1)
+    logz = torch.logsumexp(logits, dim=-1)
+    ll = logits.gather(-1, safe[:, None])[:, 0]
+    ce = torch.where(valid, logz - ll, 0.0)
+    if groups is None:
+        loss = ce.sum() / torch.clamp(valid.sum(), min=1)
+    else:
+        g_sum = ce.reshape(groups, -1).sum(1)
+        g_n = valid.reshape(groups, -1).sum(1)
+        loss = (g_sum / torch.clamp(g_n, min=1)).mean()
+    pred = torch.argmax(logits, dim=-1)
+    n_correct = (valid & (pred == safe)).sum()
+    return loss, n_correct
+
+
+def kld_prototype_loss(activations: torch.Tensor, labels: torch.Tensor,
+                       proto_class: torch.Tensor,
+                       groups: Optional[int] = None) -> torch.Tensor:
+    """Symmetric-KLD prototype-diversity loss.
+
+    For each image and each class present in it, the activations of that
+    class's prototypes over the class's pixels are distributions
+    (log-softmax over pixels); each same-class prototype pair gives a
+    symmetric KL divergence, and the loss is ``mean(exp(−KLD))`` over the
+    valid (image, class, pair) triples.  A pair is valid when the image
+    has ≥ 2 pixels of the class (reference module.py:185-189).
+
+    Args:
+      activations: (B, N, P) patch activations over flattened patches.
+      labels: (B, N) int; a value matching no prototype class (void = −1)
+        adds to no distribution.
+      proto_class: (P,) class id per prototype.
+      groups: None for one mean over the batch, or G for the mean over G
+        contiguous groups of images of each group's pair-mean (0 for a
+        group without a valid pair).
+
+    Returns:
+      scalar loss, 0.0 when no valid pair exists.
+    """
+    P = activations.shape[-1]
+    acts = activations.to(_F32).transpose(1, 2)                   # (B, P, N)
+    proto_class = proto_class.to(labels.device)
+    mask = labels[:, None, :] == proto_class[None, :, None]      # (B, P, N)
+    pix_count = mask.sum(-1)                                     # (B, P)
+
+    ls = torch.log_softmax(torch.where(mask, acts, _NEG_INF), dim=-1)
+    ls_safe = torch.where(mask, ls, 0.0)
+    p = torch.where(mask, torch.exp(ls), 0.0)
+    # H[b,j] = Σ_n p_j·ls_j, cross[b,j,i] = Σ_n p_j·ls_i
+    ent = (p * ls_safe).sum(-1)                                  # (B, P)
+    cross = torch.bmm(p, ls_safe.transpose(1, 2))                # (B, P, P)
+    kld1 = ent[:, :, None] - cross            # KL(ls_i ‖ ls_j) at [j, i]
+    sym = 0.5 * (kld1 + kld1.transpose(1, 2))
+
+    same_class = proto_class[:, None] == proto_class[None, :]
+    upper = torch.triu(torch.ones(P, P, dtype=torch.bool,
+                                  device=labels.device), diagonal=1)
+    valid = (same_class & upper)[None] & (pix_count[:, :, None] >= 2)
+    pair_vals = torch.where(valid, torch.exp(-sym), 0.0)
+    if groups is None:
+        count = valid.sum()
+        return torch.where(count > 0,
+                           pair_vals.sum() / torch.clamp(count, min=1), 0.0)
+    g_sum = pair_vals.reshape(groups, -1).sum(1)
+    g_count = valid.reshape(groups, -1).sum(1)
+    g_loss = torch.where(g_count > 0, g_sum / torch.clamp(g_count, min=1), 0.0)
+    return g_loss.mean()
+
+
+def masked_l1(last_layer_weight: torch.Tensor,
+              proto_class: torch.Tensor) -> torch.Tensor:
+    """L1 norm of the last-layer weights outside each prototype's own
+    class; the weight is (P, K), the JAX package's layout (reference
+    module.py:213-218 masks with ``1 − identityᵀ``)."""
+    K = last_layer_weight.shape[1]
+    own = proto_class.to(last_layer_weight.device)[:, None] == torch.arange(
+        K, device=last_layer_weight.device)[None, :]
+    mask = 1.0 - own.to(_F32)
+    return (last_layer_weight.to(_F32) * mask).abs().sum()

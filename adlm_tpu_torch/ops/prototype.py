@@ -13,8 +13,11 @@ Prototypes are 1x1 kernels in every shipped config, so the reference's
 ``d`` only when asked; a CPU tensor goes to the plain PyTorch version
 ``prototype_head_reference``, which is also the kernel's oracle.
 
-The head's backward waits for the training slice: a call that would
-need a gradient through the kernel raises.
+When a gradient is needed, the call goes through ``_PrototypeHead``, a
+``torch.autograd.Function`` on either device: its forward is the same
+dispatch, its backward is ``prototype_head_backward``, plain PyTorch to
+the JAX package's custom VJP (``_head_bwd``), which is plain XLA there
+too.  So the CPU tests hold the backward that the card runs.
 """
 
 from __future__ import annotations
@@ -142,6 +145,90 @@ def prototype_head_cuda(x: torch.Tensor, prototypes: torch.Tensor,
     return logits, (dist.reshape(*lead, P) if dist is not None else None)
 
 
+def _head_forward(x: torch.Tensor, prototypes: torch.Tensor,
+                  last_layer_weight: torch.Tensor, activation: str,
+                  epsilon: float, return_distances: bool
+                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """CUDA tensors to the kernel, CPU tensors to the plain version."""
+    if x.is_cuda:
+        return prototype_head_cuda(x, prototypes, last_layer_weight,
+                                   activation, epsilon, return_distances)
+    logits, d = prototype_head_reference(x, prototypes, last_layer_weight,
+                                         activation, epsilon)
+    return logits, (d if return_distances else None)
+
+
+def prototype_head_backward(x: torch.Tensor, prototypes: torch.Tensor,
+                            last_layer_weight: torch.Tensor,
+                            g_logits: Optional[torch.Tensor],
+                            g_dist: Optional[torch.Tensor],
+                            activation: str = "log", epsilon: float = EPSILON
+                            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(gx, gp, gw) of the head, cast to the inputs' dtypes: the JAX
+    package's ``_head_bwd`` (adlm_tpu/ops/prototype.py:260-288).
+
+    ``d`` is recomputed in f32 from ``x`` and the prototypes; the relu
+    of the forward passes the gradient where ``d > 0`` only (JAX's mask;
+    autograd through ``torch.clamp`` would pass it at ``d == 0`` too).
+    ``g_logits`` or ``g_dist`` may be None (no gradient reached it).
+    """
+    xf = x.to(_F32)
+    p = prototypes.to(_F32)
+    w = last_layer_weight.to(_F32)
+    d = l2_distances(xf, p)                                     # (..., P)
+    if g_logits is None:
+        d_bar = torch.zeros_like(d)
+    else:
+        if activation == "log":
+            # act = log(d+1) - log(d+eps); dact/dd = 1/(d+1) - 1/(d+eps)
+            dact_dd = 1.0 / (d + 1.0) - 1.0 / (d + epsilon)
+        else:
+            dact_dd = -torch.ones_like(d)
+        d_bar = torch.matmul(g_logits.to(_F32), w.t()) * dact_dd
+    if g_dist is not None:
+        d_bar = d_bar + g_dist.to(_F32)
+    d_bar = torch.where(d > 0.0, d_bar, 0.0)
+    rows_bar = d_bar.reshape(-1, d_bar.shape[-1])               # (N, P)
+    rows_x = xf.reshape(-1, xf.shape[-1])                       # (N, C)
+    # d = x2 - 2 x.p + p2  =>  gx = 2 (x Σ_p d_bar - d_bar P),
+    # gp = 2 (p Σ_n d_bar - d_barᵀ x)
+    gx = 2.0 * (xf * d_bar.sum(-1, keepdim=True)
+                - torch.matmul(d_bar, p))
+    gp = 2.0 * (p * rows_bar.sum(0)[:, None]
+                - torch.matmul(rows_bar.t(), rows_x))
+    if g_logits is None:
+        gw = torch.zeros_like(w)
+    else:
+        act = distance_to_similarity(d, activation, epsilon)
+        gw = torch.matmul(act.reshape(-1, act.shape[-1]).t(),
+                          g_logits.reshape(-1, g_logits.shape[-1]).to(_F32))
+    return (gx.to(x.dtype), gp.to(prototypes.dtype),
+            gw.to(last_layer_weight.dtype))
+
+
+class _PrototypeHead(torch.autograd.Function):
+    """The head with its gradient.  Like ``jax.custom_vjp`` in the JAX
+    package, it saves only the inputs and recomputes ``d`` backward."""
+
+    @staticmethod
+    def forward(ctx, x, prototypes, last_layer_weight, activation, epsilon,
+                return_distances):
+        ctx.save_for_backward(x, prototypes, last_layer_weight)
+        ctx.activation, ctx.epsilon = activation, epsilon
+        ctx.set_materialize_grads(False)
+        return _head_forward(x, prototypes, last_layer_weight, activation,
+                             epsilon, return_distances)
+
+    @staticmethod
+    def backward(ctx, g_logits, g_dist):
+        x, prototypes, w = ctx.saved_tensors
+        gx, gp, gw = prototype_head_backward(
+            x, prototypes, w, g_logits, g_dist, ctx.activation, ctx.epsilon)
+        need = ctx.needs_input_grad
+        return (gx if need[0] else None, gp if need[1] else None,
+                gw if need[2] else None, None, None, None)
+
+
 def prototype_head(x: torch.Tensor, prototypes: torch.Tensor,
                    last_layer_weight: torch.Tensor, activation: str = "log",
                    epsilon: float = EPSILON, return_distances: bool = True
@@ -158,17 +245,12 @@ def prototype_head(x: torch.Tensor, prototypes: torch.Tensor,
       (logits (..., K), distances (..., P) or None), float32.
 
     CUDA tensors go to the kernel, CPU tensors to the plain version.
-    The kernel has no backward yet (training slice): with autograd
-    recording and any input requiring a gradient, this raises.
+    With autograd recording and an input that requires a gradient, the
+    call goes through ``_PrototypeHead`` (same forward, plain backward).
     """
-    if x.is_cuda:
-        if torch.is_grad_enabled() and any(
-                t.requires_grad for t in (x, prototypes, last_layer_weight)):
-            raise NotImplementedError(
-                "the prototype-head kernel has no backward yet; call it "
-                "under torch.inference_mode() or torch.no_grad()")
-        return prototype_head_cuda(x, prototypes, last_layer_weight,
-                                   activation, epsilon, return_distances)
-    logits, d = prototype_head_reference(x, prototypes, last_layer_weight,
-                                         activation, epsilon)
-    return logits, (d if return_distances else None)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, prototypes, last_layer_weight)):
+        return _PrototypeHead.apply(x, prototypes, last_layer_weight,
+                                    activation, epsilon, return_distances)
+    return _head_forward(x, prototypes, last_layer_weight, activation,
+                         epsilon, return_distances)

@@ -13,11 +13,15 @@ loads with ``strict=True``:
   ``scale/bias`` → ``add_on_layers.presigmoid_ln.{weight,bias}``;
 * prototypes (P, C) → (P, C, 1, 1) plus the constant ``ones``;
 * last layer (P, K) → ``last_layer.weight`` (K, P).
+
+Without ``constants`` it maps a tree shaped like ``params`` alone onto
+the port's parameter names, with the same transposes: a JAX gradient
+tree becomes ``{name: grad}`` for ``model.named_parameters()``.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Iterator, Mapping, Tuple
+from typing import Any, Dict, Iterator, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -58,20 +62,22 @@ def _param_key(path: Tuple[str, ...]) -> Tuple[str, Tuple[int, ...]]:
 
 
 def state_dict_from_jax(params: Mapping[str, Any],
-                        constants: Mapping[str, Any]
+                        constants: Optional[Mapping[str, Any]] = None
                         ) -> Dict[str, torch.Tensor]:
-    """The port's PPNet state_dict from the JAX PPNet's variables."""
+    """The port's PPNet state_dict from the JAX PPNet's variables; with
+    ``constants=None``, the parameter entries only (e.g. of gradients)."""
     out: Dict[str, torch.Tensor] = {}
     for path, v in _leaves(params):
         if path == ("prototype_vectors",):
             out["prototype_vectors"] = _tensor(v[:, :, None, None])
-            out["ones"] = torch.ones(v.shape + (1, 1), dtype=torch.float32)
+            if constants is not None:
+                out["ones"] = torch.ones(v.shape + (1, 1), dtype=torch.float32)
         elif path == ("last_layer",):
             out["last_layer.weight"] = _tensor(v.T)
         else:
             key, perm = _param_key(path)
             out[key] = _tensor(np.transpose(v, perm) if perm else v)
-    for path, v in _leaves(constants):
+    for path, v in _leaves(constants or {}):
         if len(path) < 2 or path[-2] != "bn" or path[-1] not in _BN:
             raise KeyError(f"unknown constant {'/'.join(path)}")
         out[".".join(path[:-1]) + "." + _BN[path[-1]]] = _tensor(v)

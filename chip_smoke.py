@@ -32,7 +32,16 @@ non-zero and prints no result:
 5. timings (CUDA events for the kernels, host clock + synchronize for
    eval images/s at batch 2 and 8);
 6. a ``torch.profiler`` window over eval batches: device time by kernel
-   and the device's busy share.
+   and the device's busy share;
+7. the training slice: three flagship joint steps (batch 2 x iter_size
+   5 windows of 513x513, f32, IEEE) through ``make_train_step`` with
+   the head kernel, then the same three from the same start with the
+   head's forward patched to its plain version (the backward is the
+   same code in both), compared step by step and gradient by gradient;
+   exactly 5 head launches per step and none of the upsample-argmin;
+   then seconds per joint step in f32, bf16 and bf16 with fused
+   accumulation, the head's forward and plain backward at the training
+   rows, and a ``torch.profiler`` window over one f32 and one bf16 step.
 
 Precision: f32 runs with TF32 off for convolutions and matmuls (the
 entry points' ``ieee_f32`` scope; the comparisons here run in the same
@@ -89,6 +98,16 @@ HEAD_EPILOGUE_OPS = {"log": 3 + 2 + DIV_SASS + LOGF_SASS, "linear": 4}
 # H100 80GB HBM3, 700.00 W" (PERF.md)
 PR1_HEAD_MS = 0.3992
 PR1_UPSAMPLE_MS = 0.7077
+# phase 7: the flagship's training windows, and the tolerances of the
+# kernel-vs-plain-forward comparison.  The two runs differ only in the
+# head's forward (d within D_ATOL), so the metrics agree to about 1e-6
+# and the gradients to about 1e-5; Adam moves every entry by about ±lr
+# from step 1, and an entry whose gradient sits at rounding noise may
+# step the other way, which reaches steps 2 and 3 as tiny metric changes
+TRAIN_ITER, TRAIN_BS, TRAIN_HW, TRAIN_STEPS = 5, 2, 513, 3
+TRAIN_RTOL = 1e-4        # loss, cross_entropy, kld_loss, l1, grad_norm
+TRAIN_GRAD_REL = 1e-3    # each step-1 gradient tensor, relative L2
+TRAIN_TIE_SHARE = 1e-4   # n_correct, a share of the valid patches
 REPLACES = {
     "prototype_head": "adlm_tpu/ops/prototype.py:110",
     "upsample_argmin": "adlm_tpu/ops/upsample_argmin.py:79",
@@ -618,23 +637,66 @@ def time_eval(model32, card: str) -> None:
         torch.cuda.empty_cache()
 
 
-def profile_eval(model32, card: str, B: int = 8, iters: int = 2) -> None:
-    """Where an eval batch spends its device time: one ``torch.profiler``
-    window over ``iters`` upsampled-stats batches per dtype.  Prints the
-    device time by kernel and the busy share (device time over the
-    window's host time, which includes the profiler's own overhead).
-    A profiler that records no device time is reported, not fatal: the
-    kernels are held by the phases before."""
+def device_profile(fn, iters: int):
+    """One ``torch.profiler`` window over ``iters`` calls of ``fn``:
+    (rows of (device ms per call, launches per call, kernel name), most
+    time first; host ms per call).  The rows are empty when the
+    profiler recorded no device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from adlm_tpu_torch.core.device import cast_params
-    from adlm_tpu_torch.interpret.evaluate import make_inference_fn
-    from adlm_tpu_torch.models.ppnet import default_proto_class
 
     def device_us(e) -> float:
         return getattr(e, "self_device_time_total",
                        getattr(e, "self_cuda_time_total", 0.0))
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / iters
+    rows = sorted(((device_us(e) / 1e3 / iters, e.count / iters, e.key)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and device_us(e) > 0),
+                  reverse=True)
+    return rows, wall_ms
+
+
+def profile_line(rows, wall_ms: float) -> str:
+    """Device time, busy share (device time over the window's host time,
+    which includes the profiler's own overhead) and the kernel groups."""
+    def group(*keys):
+        return sum(r[0] for r in rows if any(k in r[2].lower() for k in keys))
+
+    total = sum(r[0] for r in rows)
+    # cuDNN's IEEE-f32 backward kernels are dgrad_engine / wgrad_alg0_engine
+    convs = group("conv", "xmma", "gemm", "cutlass", "nvjet", "dgrad", "wgrad")
+    elementwise = group("elementwise")
+    layout = group("nhwctonchw", "nchwtonhwc")
+    return (f"device {total:.2f} ms/batch of {wall_ms:.2f} ms host (busy "
+            f"{total / wall_ms:.1%}); conv/gemm {convs:.2f} ms ({convs / total:.1%}), "
+            f"elementwise {elementwise:.2f} ms ({elementwise / total:.1%}), "
+            f"layout transposes {layout:.2f} ms ({layout / total:.1%}), "
+            f"prototype head {group('head_kernel'):.3f} ms, upsample-argmin "
+            f"{group('upsample_argmin_kernel'):.3f} ms")
+
+
+def log_rows(rows, n: int = 12) -> None:
+    total = sum(r[0] for r in rows)
+    for ms, cnt, name in rows[:n]:
+        log(f"    {ms:9.3f} ms {ms / total:6.1%} x{cnt:5.1f}  {name[:100]}")
+
+
+def profile_eval(model32, card: str, B: int = 8, iters: int = 2) -> None:
+    """Where an eval batch spends its device time: one ``torch.profiler``
+    window over ``iters`` upsampled-stats batches per dtype.  A profiler
+    that records no device time is reported, not fatal: the kernels are
+    held by the phases before."""
+    import torch
+    from adlm_tpu_torch.core.device import cast_params
+    from adlm_tpu_torch.interpret.evaluate import make_inference_fn
+    from adlm_tpu_torch.models.ppnet import default_proto_class
 
     mean_std = ((0.485, 0.456, 0.406), (0.229, 0.224, 0.225))
     pc = default_proto_class(190, 19, device="cuda")
@@ -648,34 +710,254 @@ def profile_eval(model32, card: str, B: int = 8, iters: int = 2) -> None:
                                normalize=mean_std)
         fn(pc, img, lab, *uv)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(iters):
-                fn(pc, img, lab, *uv)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3 / iters
-        rows = sorted(((device_us(e) / 1e3 / iters, e.count / iters, e.key)
-                       for e in prof.key_averages()
-                       if e.device_type == DeviceType.CUDA and device_us(e) > 0),
-                      reverse=True)
+        rows, wall_ms = device_profile(lambda: fn(pc, img, lab, *uv), iters)
         if not rows:
             log(f"  profile {dt}: the profiler recorded no device time "
                 "(not measured)")
             continue
-        total = sum(r[0] for r in rows)
-        ours = {k: sum(r[0] for r in rows if k in r[2])
-                for k in ("head_kernel", "upsample_argmin_kernel")}
-        convs = sum(r[0] for r in rows
-                    if any(s in r[2].lower() for s in ("conv", "xmma", "gemm", "cutlass")))
-        log(f"  profile {dt} batch {B} stats_upsampled: device {total:.2f} ms/batch "
-            f"of {wall_ms:.2f} ms host (busy {total / wall_ms:.1%}); conv/gemm "
-            f"{convs:.2f} ms ({convs / total:.1%}), prototype head "
-            f"{ours['head_kernel']:.3f} ms, upsample-argmin "
-            f"{ours['upsample_argmin_kernel']:.3f} ms  [{card}]")
-        for ms, n, name in rows[:12]:
-            log(f"    {ms:9.3f} ms {ms / total:6.1%} x{n:5.1f}  {name[:100]}")
+        log(f"  profile {dt} batch {B} stats_upsampled: {profile_line(rows, wall_ms)}"
+            f"  [{card}]")
+        log_rows(rows)
     del img, lab
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the training slice
+# ---------------------------------------------------------------------------
+
+def make_train_batch(cfg, seed: int):
+    """One joint window: (TRAIN_ITER, TRAIN_BS, 513, 513, 3) images
+    normalized on the device from seeded uint8 frames (structure at
+    several scales plus noise), and (TRAIN_ITER, TRAIN_BS, 513, 513)
+    labels in 0..19 (0 = void) drawn as blocks of about 30 pixels, so
+    that every class present covers at least 2 patches of the 65x65
+    output grid (the KLD term's pairs need 2)."""
+    import torch
+    import torch.nn.functional as F
+    from adlm_tpu_torch.ops.normalize import normalize
+
+    n, hw = TRAIN_ITER * TRAIN_BS, TRAIN_HW
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    coarse = torch.rand(n, 3, 12, 12, device="cuda", generator=g)
+    img = F.interpolate(coarse, size=(hw, hw), mode="bilinear",
+                        align_corners=False) * 200
+    img = img + torch.rand(n, 3, hw, hw, device="cuda", generator=g) * 55
+    img = img.clamp(0, 255).to(torch.uint8).permute(0, 2, 3, 1).contiguous()
+    images = normalize(img, (cfg.data.mean, cfg.data.std))
+    blocks = torch.randint(0, 20, (n, 1, 17, 17), device="cuda", generator=g)
+    labels = F.interpolate(blocks.float(), size=(hw, hw), mode="nearest")
+    labels = labels[:, 0].to(torch.uint8)
+    return (images.reshape(TRAIN_ITER, TRAIN_BS, hw, hw, 3),
+            labels.reshape(TRAIN_ITER, TRAIN_BS, hw, hw))
+
+
+@contextlib.contextmanager
+def plain_head_forward():
+    """Route the head's forward, with or without a gradient, through its
+    plain version; the backward (``prototype_head_backward``) is the
+    same code either way."""
+    import adlm_tpu_torch.ops.prototype as pm
+
+    def head(x, p, w, act="log", eps=1e-4, return_distances=True):
+        logits, d = pm.prototype_head_reference(x, p, w, act, eps)
+        return logits, (d if return_distances else None)
+
+    saved = pm.prototype_head_cuda
+    pm.prototype_head_cuda = head
+    try:
+        yield
+    finally:
+        pm.prototype_head_cuda = saved
+
+
+def run_training(model, cfg, images, labels, steps: int):
+    """``steps`` joint steps through the user's entry points: per-step
+    metrics (floats) and the step-1 gradients."""
+    import torch
+    from adlm_tpu_torch.train.protoseg import init_protoseg_state, make_train_step
+
+    max_steps = cfg.train.joint_steps
+    state = init_protoseg_state(model, cfg, 1, max_steps)
+    step = make_train_step(model, cfg, 1, max_steps)
+    metrics, grads1 = [], None
+    for i in range(steps):
+        state, m = step(state, images, labels)
+        metrics.append({k: float(v) for k, v in m.items()})
+        if i == 0:
+            grads1 = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+    torch.cuda.synchronize()
+    return metrics, grads1
+
+
+def compare_training(got, want, n_patches: int) -> None:
+    """Kernel run vs plain-forward run, step by step (TRAIN_RTOL, the
+    n_correct tie budget) and step-1 gradient by gradient
+    (TRAIN_GRAD_REL)."""
+    (mk, gk), (mp, gp) = got, want
+    budget = math.ceil(TRAIN_TIE_SHARE * n_patches)
+    bad = []
+    for i, (a, b) in enumerate(zip(mk, mp)):
+        errs = {k: abs(a[k] - b[k]) / max(abs(b[k]), 1e-30)
+                for k in ("loss", "cross_entropy", "kld_loss", "l1", "grad_norm")}
+        dn = abs(a["n_correct"] - b["n_correct"])
+        log(f"  train step {i + 1}: loss {a['loss']:.6f} (plain {b['loss']:.6f}), "
+            f"ce {a['cross_entropy']:.6f}, kld {a['kld_loss']:.6f}, l1 {a['l1']:.4f}, "
+            f"grad_norm {a['grad_norm']:.6f}; rel err "
+            + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+            + f" (tolerance {TRAIN_RTOL:g}); n_correct {a['n_correct']:.0f} vs "
+            f"{b['n_correct']:.0f} of {a['n_patches']:.0f} (budget {budget})")
+        if any(v > TRAIN_RTOL for v in errs.values()) or dn > budget:
+            bad.append(f"step {i + 1}")
+        if not all(math.isfinite(v) for v in a.values()):
+            bad.append(f"step {i + 1} not finite")
+    rel = {n: ((gk[n] - gp[n]).norm() / gp[n].norm().clamp_min(1e-30)).item()
+           for n in gp}
+    worst = max(rel, key=rel.get)
+    log(f"  step-1 gradients: {len(rel)} tensors, largest relative L2 error "
+        f"{rel[worst]:.2e} ({worst}), tolerance {TRAIN_GRAD_REL:g}")
+    if rel[worst] > TRAIN_GRAD_REL:
+        bad.append("step-1 gradients")
+    if bad:
+        raise AssertionError("training with the head kernel disagrees with the "
+                             f"plain-forward run: {bad}")
+
+
+def check_training(report, model) -> None:
+    """Three flagship joint steps with the kernel, three from the same
+    start with the plain head forward; launch counts of each run."""
+    import torch
+    from adlm_tpu_torch.core.config import get_experiment
+    from adlm_tpu_torch.ops import _build
+
+    cfg = get_experiment("cityscapes_kld_imnet")
+    images, labels = make_train_batch(cfg, SEED + 6)
+    saved_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True  # the same backbone in both runs
+    try:
+        _build.reset_launches()
+        got = run_training(copy.deepcopy(model), cfg, images, labels, TRAIN_STEPS)
+        launches = dict(_build.LAUNCHES)
+        log(f"  training launches ({TRAIN_STEPS} steps): {launches}")
+        if (launches["prototype_head"] != TRAIN_ITER * TRAIN_STEPS
+                or launches["upsample_argmin"] != 0):
+            raise AssertionError(f"expected {TRAIN_ITER} head launches per step "
+                                 "and no upsample-argmin launch")
+        for name in _build.KERNELS:
+            report[name]["launches"] += launches[name]
+        _build.reset_launches()
+        with plain_head_forward():
+            want = run_training(copy.deepcopy(model), cfg, images, labels, TRAIN_STEPS)
+        if any(_build.LAUNCHES.values()):
+            raise AssertionError("the plain-forward run launched a kernel")
+    finally:
+        torch.backends.cudnn.deterministic = saved_det
+    compare_training(got, want, int(got[0][0]["n_patches"]))
+    del images, labels
+    torch.cuda.empty_cache()
+
+
+def train_variants(cfg):
+    import dataclasses
+
+    def variant(**kw):
+        return dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, **kw))
+
+    return {"float32": variant(),
+            "bfloat16": variant(compute_dtype="bfloat16"),
+            "bfloat16 fused": variant(compute_dtype="bfloat16",
+                                      fused_accumulation=True)}
+
+
+def time_training(model, card: str, iters: int = 3) -> None:
+    """Seconds per joint step (host clock + synchronize, after one warm
+    step) in f32, bf16 and bf16 with fused accumulation; then the head's
+    forward kernel and its plain backward at the training rows."""
+    import torch
+    from adlm_tpu_torch.core.config import get_experiment
+    from adlm_tpu_torch.core.device import ieee_f32
+    from adlm_tpu_torch.ops.prototype import (
+        prototype_head_backward,
+        prototype_head_cuda,
+        prototype_head_reference,
+    )
+    from adlm_tpu_torch.train.protoseg import init_protoseg_state, make_train_step
+
+    cfg = get_experiment("cityscapes_kld_imnet")
+    images, labels = make_train_batch(cfg, SEED + 7)
+    for name, vcfg in train_variants(cfg).items():
+        m = copy.deepcopy(model)
+        state = init_protoseg_state(m, vcfg, 1, vcfg.train.joint_steps)
+        step = make_train_step(m, vcfg, 1, vcfg.train.joint_steps)
+        torch.cuda.reset_peak_memory_stats()
+        step(state, images, labels)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            _, metrics = step(state, images, labels)
+        torch.cuda.synchronize()
+        s = (time.perf_counter() - t0) / iters
+        log(f"  joint step {name:15s} (2 x 5 x 513^2): {s:.4f} s/step, "
+            f"{TRAIN_ITER * TRAIN_BS / s:.2f} windows/s, peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+            f"loss {float(metrics['loss']):.4f}  [{card}]")
+        if not math.isfinite(float(metrics["loss"])):
+            raise AssertionError(f"joint step {name}: loss not finite")
+        del m, state, step
+        torch.cuda.empty_cache()
+    del images, labels
+
+    # the head at the training rows: one microbatch, 2 x 65 x 65
+    N, C, P, K = TRAIN_BS * 65 * 65, 64, 190, 19
+    g = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    x = torch.rand(N, C, device="cuda", generator=g)
+    protos = torch.rand(P, C, device="cuda", generator=g)
+    w = torch.randn(P, K, device="cuda", generator=g)
+    g_logits = torch.randn(N, K, device="cuda", generator=g)
+    g_dist = torch.randn(N, P, device="cuda", generator=g)
+    with torch.inference_mode(), ieee_f32():
+        fwd = cuda_ms(lambda: prototype_head_cuda(x, protos, w, "log", 1e-4, True), 200)
+        plain = cuda_ms(lambda: prototype_head_reference(x, protos, w, "log"), 100)
+        bwd = cuda_ms(lambda: prototype_head_backward(x, protos, w, g_logits, g_dist,
+                                                      "log", 1e-4), 100)
+    ops = N * P * (C + K + HEAD_EPILOGUE_OPS["log"])
+    nbytes = N * C * 4 + 4 * (P * C + P * K + N * K + N * P)
+    b_ms, b_by = bound(ops, nbytes, PEAK_F32_OPS)
+    log(f"  head at N={N} ({-(-N // 64)} row tiles over 132 CTAs): kernel forward "
+        f"{fwd:.4f} ms, plain forward {plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}); "
+        f"plain backward {bwd:.4f} ms  [{card}]")
+
+
+def profile_training(model, card: str) -> None:
+    """Device time of one f32 and one bf16 joint step, by kernel group,
+    and the device's busy share."""
+    import torch
+    from adlm_tpu_torch.core.config import get_experiment
+    from adlm_tpu_torch.train.protoseg import init_protoseg_state, make_train_step
+
+    cfg = get_experiment("cityscapes_kld_imnet")
+    images, labels = make_train_batch(cfg, SEED + 9)
+    variants = train_variants(cfg)
+    for name in ("float32", "bfloat16"):
+        vcfg = variants[name]
+        m = copy.deepcopy(model)
+        state = init_protoseg_state(m, vcfg, 1, vcfg.train.joint_steps)
+        step = make_train_step(m, vcfg, 1, vcfg.train.joint_steps)
+        step(state, images, labels)
+        torch.cuda.synchronize()
+        rows, wall_ms = device_profile(lambda: step(state, images, labels), 1)
+        if not rows:
+            log(f"  profile joint step {name}: the profiler recorded no device "
+                "time (not measured)")
+            continue
+        adam = sum(r[0] for r in rows if "adam" in r[2].lower()
+                   or "multi_tensor" in r[2].lower())
+        log(f"  profile joint step {name} (2 x 5 x 513^2): "
+            f"{profile_line(rows, wall_ms).replace('/batch', '/step')}, "
+            f"optimizer {adam:.2f} ms  [{card}]")
+        log_rows(rows)
+        del m, state, step
+        torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -744,6 +1026,14 @@ def main() -> int:
         time_eval(model, card)
         log(f"[6] profile of an eval batch  [{card}]")
         profile_eval(model, card)
+
+        log("[7] the training slice: flagship joint steps, 2 x 5 x 513^2, f32 "
+            "IEEE, kernel vs plain head forward")
+        t0 = time.perf_counter()
+        check_training(report, model)
+        log(f"  training check {time.perf_counter() - t0:.1f} s")
+        time_training(model, card)
+        profile_training(model, card)
     except Exception:  # report any failure and exit non-zero
         traceback.print_exc()
         log(f"FAILED after {time.perf_counter() - t_start:.1f} s")

@@ -2,7 +2,7 @@
 the CPU on its own.
 
 * Importing every ``adlm_tpu_torch`` module in a fresh interpreter loads
-  no ``jax``, ``flax`` or ``adlm_tpu`` module.
+  no ``jax``, ``flax``, ``optax`` or ``adlm_tpu`` module.
 * The entry points, built without a ``device`` on a host without CUDA,
   raise instead of running on the CPU.
 * The kernel sources the build compiles are in the package, and each
@@ -22,10 +22,11 @@ import pytest
 import torch
 
 import adlm_tpu_torch
-from adlm_tpu_torch.core.config import PPNetConfig
+from adlm_tpu_torch.core.config import DataConfig, ExperimentConfig, PPNetConfig, TrainConfig
 from adlm_tpu_torch.interpret import evaluate
 from adlm_tpu_torch.models.ppnet import PPNet
 from adlm_tpu_torch.ops import _build
+from adlm_tpu_torch.train import protoseg
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -38,11 +39,12 @@ def _port_modules():
 def test_port_imports_nothing_of_jax():
     mods = _port_modules()
     assert "adlm_tpu_torch.interpret.evaluate" in mods
+    assert "adlm_tpu_torch.train.protoseg" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'adlm_tpu'))\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'adlm_tpu'))\n"
         "print(repr(bad))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
@@ -55,22 +57,56 @@ def no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
 
 
+_TINY = PPNetConfig(num_prototypes=6, num_classes=3, prototype_channels=8,
+                    deeplab_n_features=8, deeplab_n_blocks=(1, 1, 1, 1))
+_CFG = ExperimentConfig(name="tiny", model=_TINY,
+                        data=DataConfig(window_size=(33, 33)),
+                        train=TrainConfig(iter_size=1))
+
+
 def _tiny_model():
-    return PPNet(PPNetConfig(num_prototypes=6, num_classes=3,
-                             prototype_channels=8, deeplab_n_features=8,
-                             deeplab_n_blocks=(1, 1, 1, 1)))
+    return PPNet(_TINY)
 
 
-@pytest.mark.parametrize("entry", ["make_inference_fn", "SegEvaluator",
-                                   "make_overlay_fn"])
+def _train_step(model, **kw):
+    step = protoseg.make_train_step(model, _CFG, 1, 10, **kw)
+    state = protoseg.init_protoseg_state(model, _CFG, 1, 10, device="cpu")
+    return lambda: step(state, torch.rand(1, 1, 33, 33, 3),
+                        torch.randint(0, 4, (1, 1, 33, 33)))[1]
+
+
+def _eval_step(model, **kw):
+    step = protoseg.make_eval_step(model, _CFG, **kw)
+    state = protoseg.init_protoseg_state(model, _CFG, 1, 10, device="cpu")
+    return lambda: step(state, torch.rand(2, 33, 33, 3),
+                        torch.randint(0, 4, (2, 33, 33)), 1)
+
+
+# entry point → factory(model, **device kw); a factory that returns a
+# callable is also run, to show the CPU path works end to end
+ENTRY_POINTS = {
+    "make_inference_fn": lambda m, **kw: evaluate.make_inference_fn(m, 3, **kw),
+    "SegEvaluator": lambda m, **kw: evaluate.SegEvaluator(m, 3, **kw),
+    "make_overlay_fn": lambda m, **kw: evaluate.make_overlay_fn(m, **kw),
+    "init_protoseg_state": lambda m, **kw: protoseg.init_protoseg_state(
+        m, _CFG, 1, 10, **kw),
+    "make_train_step": _train_step,
+    "make_eval_step": _eval_step,
+}
+
+
+@pytest.mark.parametrize("entry", list(ENTRY_POINTS))
 def test_entry_points_without_device_raise_on_a_host_without_cuda(
         no_cuda, entry):
     model = _tiny_model()
-    args = () if entry == "make_overlay_fn" else (3,)
     with pytest.raises(RuntimeError, match="CUDA"):
-        getattr(evaluate, entry)(model, *args)
+        ENTRY_POINTS[entry](model)
     # asked for explicitly, the CPU runs the plain versions
-    getattr(evaluate, entry)(model, *args, device="cpu")
+    out = ENTRY_POINTS[entry](model, device="cpu")
+    if entry in ("make_train_step", "make_eval_step"):
+        metrics = out()
+        assert all(bool(torch.isfinite(v).all()) for v in metrics.values())
+    assert all(p.device.type == "cpu" for p in model.parameters())
 
 
 def test_kernel_build_needs_the_card(no_cuda):
