@@ -9,7 +9,7 @@ without one — there is no silent CPU fallback.
 from __future__ import annotations
 
 import contextlib
-from typing import Iterator, Optional, Union
+from typing import Iterator, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -84,3 +84,28 @@ def to_device(x, device: torch.device, dtype: Optional[torch.dtype] = None
     t = x if isinstance(x, torch.Tensor) else torch.from_numpy(
         np.ascontiguousarray(x))
     return t.to(device=device, dtype=dtype, non_blocking=True)
+
+
+HostCopies = Tuple[List[torch.Tensor], Optional[torch.cuda.Event]]
+
+
+def to_host_async(tensors: Sequence[torch.Tensor]) -> HostCopies:
+    """Start copying ``tensors`` to the host behind the work already
+    queued on their device, and return the copies with an event that
+    marks their end (None on the CPU).  Work queued after this call does
+    not hold them up: a loop can queue batch n + 1 before it reads batch
+    n (``host_numpy``)."""
+    out = [t.to("cpu", non_blocking=True) for t in tensors]
+    if not tensors[0].is_cuda:
+        return out, None
+    ev = torch.cuda.Event()
+    ev.record(torch.cuda.current_stream(tensors[0].device))
+    return out, ev
+
+
+def host_numpy(copies: HostCopies) -> List[np.ndarray]:
+    """The arrays of ``to_host_async``, once their copies have landed."""
+    host, ev = copies
+    if ev is not None:
+        ev.synchronize()
+    return [t.numpy() for t in host]

@@ -84,13 +84,23 @@ def _lib() -> ctypes.CDLL:
     f = lib.adlm_prototype_head
     if f.argtypes is None:  # first use: declare the C signature
         vp = ctypes.c_void_p
-        f.argtypes = [vp, ctypes.c_int, vp, vp, vp, vp, ctypes.c_int64,
+        f.argtypes = [vp, ctypes.c_int, vp, vp, vp, vp, vp, ctypes.c_int64,
                       ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                       ctypes.c_float, vp]
         f.restype = ctypes.c_int
         lib.adlm_prototype_head_smem.argtypes = [ctypes.c_int] * 4
         lib.adlm_prototype_head_smem.restype = ctypes.c_size_t
+        lib.adlm_prototype_head_scratch.argtypes = [ctypes.c_int64] + [ctypes.c_int] * 4
+        lib.adlm_prototype_head_scratch.restype = ctypes.c_size_t
     return lib
+
+
+def head_route(C: int, P: int, K: int, dtype: torch.dtype) -> str:
+    """Which kernel of ``csrc/prototype_head.cu`` a CUDA call at this
+    shape launches: ``"persistent"`` (the register-tiled kernel, C a
+    multiple of 8, P <= 256, K <= 64) or ``"general"`` (any shape)."""
+    smem = _lib().adlm_prototype_head_smem(C, P, K, int(dtype == torch.bfloat16))
+    return "persistent" if smem else "general"
 
 
 def prototype_head_cuda(x: torch.Tensor, prototypes: torch.Tensor,
@@ -100,7 +110,8 @@ def prototype_head_cuda(x: torch.Tensor, prototypes: torch.Tensor,
                         ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Launch the fused head kernel on CUDA tensors.
 
-    x: (..., C) float32 or bfloat16; prototypes (P, C); weight (P, K).
+    x: (..., C) float32 or bfloat16; prototypes (P, C); weight (P, K),
+    any C, P, K >= 1 (``head_route`` says which kernel takes the shape).
     Returns logits (..., K) f32 and distances (..., P) f32 or None.
     """
     if activation not in ("log", "linear"):
@@ -116,11 +127,6 @@ def prototype_head_cuda(x: torch.Tensor, prototypes: torch.Tensor,
                          f"weight P={P}")
     lib = _lib()
     bf16 = int(x.dtype == torch.bfloat16)
-    if not lib.adlm_prototype_head_smem(C, P, K, bf16):
-        raise ValueError(f"the prototype-head kernel does not take C={C}, "
-                         f"P={P}, K={K}: it needs C a multiple of 8, P <= 256, "
-                         "K <= 64, and tiles that fit in a block's shared "
-                         "memory")
     x2d = x.reshape(-1, C).contiguous()
     if x2d.data_ptr() % 16:  # the kernel reads rows in 16-byte pieces
         x2d = x2d.clone()
@@ -132,11 +138,16 @@ def prototype_head_cuda(x: torch.Tensor, prototypes: torch.Tensor,
     logits = torch.empty((n, K), dtype=_F32, device=x.device)
     dist = (torch.empty((n, P), dtype=_F32, device=x.device)
             if return_distances else None)
+    # the general path's act and norms (none for the persistent kernel)
+    nbytes = lib.adlm_prototype_head_scratch(n, C, P, K, bf16)
+    scratch = (torch.empty(nbytes // 4, dtype=_F32, device=x.device)
+               if nbytes else None)
     with torch.cuda.device(x.device):
         status = lib.adlm_prototype_head(
             x2d.data_ptr(), bf16, protos.data_ptr(),
             w.data_ptr(), logits.data_ptr(),
             dist.data_ptr() if dist is not None else None,
+            scratch.data_ptr() if scratch is not None else None,
             n, C, P, K, int(activation == "linear"), float(epsilon),
             _build.stream_ptr(x))
     _build.check(lib, status, "prototype_head")

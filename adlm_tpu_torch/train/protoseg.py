@@ -54,14 +54,15 @@ _COUNTS = ("n_correct", "n_patches")
 class ProtoSegState:
     """What a training phase carries between steps.  ``model`` holds the
     parameters, ``optimizer`` the Adam moments of the trained groups,
-    ``lr_scale`` the phase's schedule; ``step`` counts optimizer
-    updates from 0."""
+    ``lr_scale`` the phase's schedule, built for ``max_steps``; ``step``
+    counts optimizer updates from 0."""
 
     model: nn.Module
     optimizer: torch.optim.Adam
     lr_scale: Schedule
     proto_class: torch.Tensor
     phase: int
+    max_steps: Optional[int] = None
     step: int = 0
 
 
@@ -86,7 +87,8 @@ def init_protoseg_state(model: nn.Module, cfg: ExperimentConfig, phase: int,
         proto_class = default_proto_class(cfg.model.num_prototypes,
                                           cfg.model.num_classes)
     return ProtoSegState(model=model, optimizer=opt, lr_scale=scale,
-                         proto_class=proto_class.to(dev), phase=phase)
+                         proto_class=proto_class.to(dev), phase=phase,
+                         max_steps=max_steps)
 
 
 def _single_output_loss(logits: torch.Tensor, distances: torch.Tensor,
@@ -201,8 +203,10 @@ def make_train_step(model: nn.Module, cfg: ExperimentConfig, phase: int,
     Metrics are 0-d tensors on the device: means over the window, with
     ``n_correct``/``n_patches`` as sums and ``grad_norm`` the global norm
     of the mean gradient before any clip.  ``state`` is updated in place
-    and returned.  ``max_steps`` is the phase's step budget, which the
-    state's schedule was built from."""
+    and returned.  ``max_steps`` is the phase's step budget: the state's
+    schedule was built from the one ``init_protoseg_state`` got, and a
+    state built for another budget raises ``ValueError`` (the JAX step
+    builds its schedule from its own argument, so the two must agree)."""
     dev = _prepare(model, device)
     t = cfg.train
     params = list(model.parameters())
@@ -210,6 +214,9 @@ def make_train_step(model: nn.Module, cfg: ExperimentConfig, phase: int,
     def step(state: ProtoSegState, images, labels) -> Tuple[ProtoSegState, Metrics]:
         if state.model is not model or state.phase != phase:
             raise ValueError("the state belongs to another model or phase")
+        if state.max_steps != max_steps:
+            raise ValueError(f"the state's schedule was built for max_steps="
+                             f"{state.max_steps}, this step for {max_steps}")
         with ieee_f32():
             images = to_device(images, dev)
             labels = to_device(labels, dev)

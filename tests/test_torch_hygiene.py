@@ -2,7 +2,8 @@
 the CPU on its own.
 
 * Importing every ``adlm_tpu_torch`` module in a fresh interpreter loads
-  no ``jax``, ``flax``, ``optax`` or ``adlm_tpu`` module.
+  no ``jax``, ``flax``, ``optax``, ``adlm_tpu`` or ``PIL`` module (the
+  port writes its PNG files itself).
 * The entry points, built without a ``device`` on a host without CUDA,
   raise instead of running on the CPU.
 * The kernel sources the build compiles are in the package, and each
@@ -23,7 +24,7 @@ import torch
 
 import adlm_tpu_torch
 from adlm_tpu_torch.core.config import DataConfig, ExperimentConfig, PPNetConfig, TrainConfig
-from adlm_tpu_torch.interpret import evaluate
+from adlm_tpu_torch.interpret import analysis, evaluate, nearest, prune, push
 from adlm_tpu_torch.models.ppnet import PPNet
 from adlm_tpu_torch.ops import _build
 from adlm_tpu_torch.train import protoseg
@@ -40,11 +41,12 @@ def test_port_imports_nothing_of_jax():
     mods = _port_modules()
     assert "adlm_tpu_torch.interpret.evaluate" in mods
     assert "adlm_tpu_torch.train.protoseg" in mods
+    assert "adlm_tpu_torch.interpret.push" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'optax', 'adlm_tpu'))\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'adlm_tpu', 'PIL'))\n"
         "print(repr(bad))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
@@ -75,6 +77,16 @@ def _train_step(model, **kw):
                         torch.randint(0, 4, (1, 1, 33, 33)))[1]
 
 
+def _images_and_labels(n=2):
+    return [(torch.rand(1, 33, 33, 3).numpy(),
+             torch.randint(0, 4, (1, 33, 33)).numpy()) for _ in range(n)]
+
+
+def _push(model, **kw):
+    return push.push_prototypes(model, torch.arange(6) // 2, _images_and_labels(), 3,
+                                log=lambda *_: None, **kw)
+
+
 def _eval_step(model, **kw):
     step = protoseg.make_eval_step(model, _CFG, **kw)
     state = protoseg.init_protoseg_state(model, _CFG, 1, 10, device="cpu")
@@ -92,6 +104,14 @@ ENTRY_POINTS = {
         m, _CFG, 1, 10, **kw),
     "make_train_step": _train_step,
     "make_eval_step": _eval_step,
+    "push_prototypes": _push,
+    "find_k_nearest_patches": lambda m, **kw: nearest.find_k_nearest_patches(
+        m, torch.arange(6) // 2, _images_and_labels(), 3, k=2, **kw),
+    "prune_by_purity": lambda m, **kw: prune.prune_by_purity(
+        m, torch.arange(6) // 2, _images_and_labels(), 3, k=2, prune_threshold=0,
+        log=lambda *_: None, **kw),
+    "global_analysis": lambda m, **kw: analysis.global_analysis(
+        m, torch.arange(6) // 2, _images_and_labels(), 3, k=2, **kw),
 }
 
 

@@ -240,3 +240,28 @@ def test_eval_step_with_n_valid_matches_jax():
     got_masked = teval(tstate, images, labels, 2)
     for k in METRICS + ("n_correct", "n_patches"):
         assert float(got_masked[k]) == pytest.approx(float(got2[k]), rel=1e-6), k
+
+
+def test_train_step_refuses_a_state_built_for_other_max_steps():
+    """The state records the ``max_steps`` its schedule was built for; a
+    step made for another budget raises (the JAX step would use its own
+    schedule), and the matching budget trains as before."""
+    jcfg, tcfg = _configs()
+    jm, params, constants, tm = _pair(jcfg, tcfg, seed=19)
+    max_steps = 2 * tcfg.train.iter_size
+    tstate = ttrain.init_protoseg_state(tm, tcfg, 1, max_steps, device="cpu")
+    assert tstate.max_steps == max_steps
+    images, labels = _windows(23, 1)[0]
+    with pytest.raises(ValueError, match="max_steps"):
+        ttrain.make_train_step(tm, tcfg, 1, max_steps + 1, device="cpu")(
+            tstate, images, labels)
+    assert tstate.step == 0
+    jstate = jtrain.init_protoseg_state(
+        jm, jcfg, 1, max_steps, jax.random.PRNGKey(0), jnp.zeros((1, 33, 33, 3)),
+        params=params, constants=constants, proto_class=jax_proto_class(6, 3))
+    jstate, want = jtrain.make_train_step(jm, jcfg, 1, max_steps)(
+        jstate, jnp.asarray(images), jnp.asarray(labels))
+    tstate, got = ttrain.make_train_step(tm, tcfg, 1, max_steps, device="cpu")(
+        tstate, images, labels)
+    _assert_metrics(got, want, "matching max_steps")
+    assert tstate.step == 1

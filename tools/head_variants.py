@@ -202,11 +202,14 @@ def main() -> int:
 
     def run(lib, dt: str, emit: bool) -> None:
         f = lib.adlm_prototype_head
-        f.argtypes = [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4 + [
+        # sources since the general path take a scratch pointer after dist
+        # (null here: the flagship shape takes the persistent kernel)
+        scratch = [None] if hasattr(lib, "adlm_prototype_head_scratch") else []
+        f.argtypes = [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * (4 + len(scratch)) + [
             ctypes.c_int64] + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
         status = f(xs[dt].data_ptr(), int(dt == "bf16"), protos.data_ptr(), w.data_ptr(),
-                   logits.data_ptr(), dist.data_ptr() if emit else None, N, C, P, K, 0,
-                   1e-4, stream)
+                   logits.data_ptr(), dist.data_ptr() if emit else None, *scratch,
+                   N, C, P, K, 0, 1e-4, stream)
         if status:
             raise RuntimeError(f"launch failed: CUDA error {status}")
 
