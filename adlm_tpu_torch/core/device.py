@@ -9,7 +9,7 @@ without one — there is no silent CPU fallback.
 from __future__ import annotations
 
 import contextlib
-from typing import Iterator, List, Optional, Sequence, Tuple, Union
+from typing import Callable, Iterable, Iterator, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -109,3 +109,51 @@ def host_numpy(copies: HostCopies) -> List[np.ndarray]:
     if ev is not None:
         ev.synchronize()
     return [t.numpy() for t in host]
+
+
+def pipelined_batches(step: Callable, dataset: Iterable, batch_size: int,
+                      pad: Callable, merge: Callable) -> None:
+    """Drive ``step`` over ``dataset``'s (image (1, ...), label (1, ...))
+    pairs in batches of ``batch_size``, with one batch in flight: batch
+    n + 1 is queued on the device before the host merges batch n, whose
+    results were copied out behind it.
+
+    A batch ends early where the image shape changes; a partial batch is
+    filled to ``batch_size`` with ``pad(image, label)`` items made from
+    its first.  ``step(images, labels)`` takes the concatenated batch and
+    returns (tensors to bring back, a host context); ``merge(arrays,
+    context, offset, n_real)`` is called once per batch in dataset order,
+    ``offset`` being the dataset index of the batch's first item and
+    ``n_real`` its count of items that are not padding."""
+    pending: list = []
+    offset = 0
+    inflight = None
+
+    def drain():
+        if inflight is not None:
+            copies, *rest = inflight
+            merge(host_numpy(copies), *rest)
+
+    def flush():
+        nonlocal offset, inflight
+        if not pending:
+            return
+        n_real = len(pending)
+        pending.extend(pad(*pending[0]) for _ in range(batch_size - n_real))
+        tensors, context = step(np.concatenate([p[0] for p in pending]),
+                                np.concatenate([p[1] for p in pending]))
+        copies = to_host_async(tensors)
+        drain()
+        inflight = (copies, context, offset, n_real)
+        offset += n_real
+        pending.clear()
+
+    for image, label in dataset:
+        image, label = np.asarray(image), np.asarray(label)
+        if pending and image.shape != pending[0][0].shape:
+            flush()
+        pending.append((image, label))
+        if len(pending) == batch_size:
+            flush()
+    flush()
+    drain()

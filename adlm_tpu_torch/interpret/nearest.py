@@ -27,10 +27,9 @@ from torch import nn
 
 from adlm_tpu_torch.core.device import (
     DeviceLike,
-    host_numpy,
     ieee_f32,
+    pipelined_batches,
     to_device,
-    to_host_async,
 )
 from adlm_tpu_torch.interpret.evaluate import _images_nchw, _prepare
 from adlm_tpu_torch.ops.normalize import normalize as normalize_images
@@ -182,41 +181,16 @@ def find_k_nearest_patches(
 
     if batch_size > 1:
         fn = _nearest_step(model, num_classes, dev, raw_normalize)
-        buf: list = []
-        # one batch in flight: the next batch is queued on the device
-        # before the host merges the current one
-        inflight: list = []
 
-        def drain():
-            if not inflight:
-                return
-            ids_, n_real, copies = inflight.pop()
-            mind, labs, pi, pj = host_numpy(copies)
+        def merge_batch(arrays, _, off, n_real):
+            mind, labs, pi, pj = arrays
             for b in range(n_real):            # dataset order
-                merge(ids_[b], mind[b], labs[b], pi[b], pj[b])
+                merge(off + b, mind[b], labs[b], pi[b], pj[b])
 
-        def flush():
-            if not buf:
-                return
-            n_real = len(buf)
-            while len(buf) < batch_size:       # pad to a fixed shape
-                buf.append(buf[0])
-            images = np.concatenate([b[1] for b in buf])
-            labels = np.concatenate([b[2] for b in buf])
-            copies = to_host_async(list(fn(proto_class, images, labels)))
-            ids_ = [b[0] for b in buf]
-            buf.clear()
-            drain()
-            inflight.append((ids_, n_real, copies))
-
-        for img_idx, (image, label) in enumerate(dataset):
-            if buf and np.asarray(image).shape != buf[0][1].shape:
-                flush()                        # ragged shapes: new batch
-            buf.append((img_idx, np.asarray(image), np.asarray(label)))
-            if len(buf) == batch_size:
-                flush()
-        flush()
-        drain()
+        # a partial batch is padded with its first image
+        pipelined_batches(lambda im, lab: (list(fn(proto_class, im, lab)), None),
+                          dataset, batch_size, lambda im, lab: (im, lab),
+                          merge_batch)
     else:
         fn = _nearest_step(model, num_classes, dev)
         for img_idx, (image, label) in enumerate(dataset):

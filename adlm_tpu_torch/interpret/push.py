@@ -37,10 +37,9 @@ from torch import nn
 
 from adlm_tpu_torch.core.device import (
     DeviceLike,
-    host_numpy,
     ieee_f32,
+    pipelined_batches,
     to_device,
-    to_host_async,
 )
 from adlm_tpu_torch.interpret.evaluate import _images_nchw, _prepare
 from adlm_tpu_torch.models.ppnet import prune_params
@@ -77,22 +76,29 @@ def patch_class_bits(label: torch.Tensor, grid_hw: Tuple[int, int],
     cls = torch.clamp(label - 1, 0, num_classes - 1)
     one = torch.ones((), dtype=torch.int32, device=dev)
     bits = torch.where(label > 0, torch.bitwise_left_shift(one, cls), 0)
-    # pixel-row → grid-row block boundaries, from the shapes
-    pi = (np.arange(H) * h) // H
-    pj = (np.arange(W) * w) // W
-    starts_i = np.searchsorted(pi, np.arange(h))
-    ends_i = np.searchsorted(pi, np.arange(h), side="right")
-    starts_j = np.searchsorted(pj, np.arange(w))
-    ends_j = np.searchsorted(pj, np.arange(w), side="right")
     y = torch.zeros(bits.shape[:-2] + (h, W), dtype=torch.int32, device=dev)
-    for k in range(int((ends_i - starts_i).max())):
-        idx = torch.from_numpy(np.minimum(starts_i + k, ends_i - 1)).to(dev)
+    for idx in _block_gathers(H, h, dev):
         y = y | bits.index_select(-2, idx)
     e = torch.zeros(bits.shape[:-2] + (h, w), dtype=torch.int32, device=dev)
-    for k in range(int((ends_j - starts_j).max())):
-        idx = torch.from_numpy(np.minimum(starts_j + k, ends_j - 1)).to(dev)
+    for idx in _block_gathers(W, w, dev):
         e = e | y.index_select(-1, idx)
     return e
+
+
+def _block_gathers(n_px: int, n_grid: int, dev: torch.device) -> torch.Tensor:
+    """(m, n_grid) pixel indices whose k-th row takes the k-th pixel of
+    every grid cell's block (its last pixel where the block is shorter
+    than m).  The block of cell c holds the pixels p with
+    (p·n_grid)//n_px == c, i.e. ceil(c·n_px/n_grid) ≤ p <
+    ceil((c+1)·n_px/n_grid).  Built on ``dev`` from the shapes alone: a
+    host copy per gather would wait for the work queued before it."""
+    edges = [-(-c * n_px // n_grid) for c in range(n_grid + 1)]
+    m = max(b - a for a, b in zip(edges, edges[1:]))
+    c = torch.arange(n_grid, device=dev)
+    starts = (c * n_px + n_grid - 1) // n_grid
+    ends = torch.clamp(((c + 1) * n_px + n_grid - 1) // n_grid, max=n_px)
+    k = torch.arange(m, device=dev)[:, None]
+    return torch.minimum(starts + k, ends - 1)
 
 
 def patch_class_eligibility(label: torch.Tensor, grid_hw: Tuple[int, int],
@@ -267,19 +273,16 @@ def push_prototypes(
                              "get_item= random access and run_dir=")
         step = _push_step(model, num_classes, dev,
                           raw_normalize if raw_uint8 else None)
-        pending_imgs: list = []
-        pending_labs: list = []
-        offset = 0
-        # one batch stays in flight: batch n+1 is queued on the device
-        # before the host merges batch n, whose results were copied out
-        # behind it
-        inflight: list = []
 
-        def merge(copies, grid, n_real, off, lab_shape):
-            mind, bi, pi, pj, fmap = host_numpy(copies)
+        def batch(images, labels):
+            outs, (h, w), _ = step(proto_class, images, labels)
+            return ([o.float() if o.is_floating_point() else o for o in outs],
+                    (labels.shape[1] / h, labels.shape[2] / w))
+
+        def merge(arrays, patch_hw, off, n_real):
+            mind, bi, pi, pj, fmap = arrays
+            patch_h, patch_w = patch_hw
             improved = (mind < global_min) & (mind < _INF_HOST) & (bi < n_real)
-            h, w = grid
-            patch_h, patch_w = lab_shape[1] / h, lab_shape[2] / w
             for j in np.where(improved)[0]:
                 global_min[j] = mind[j]
                 global_fmap[j] = fmap[j]
@@ -287,38 +290,11 @@ def push_prototypes(
                                *_rf_box(pi[j], pj[j], patch_h, patch_w), pc_host[j]]
                 bound_boxes[j] = rf_boxes[j]
 
-        def flush():
-            nonlocal offset
-            if not pending_imgs:
-                return
-            n_real = len(pending_imgs)
-            # pad a partial batch with all-void (ineligible) images, so
-            # every call has the (batch_size, H, W) shape
-            while len(pending_imgs) < batch_size:
-                pending_imgs.append(np.zeros_like(pending_imgs[0]))
-                pending_labs.append(np.zeros_like(pending_labs[0]))
-            images = np.concatenate(pending_imgs, axis=0)
-            labels = np.concatenate(pending_labs, axis=0)
-            outs, grid, _ = step(proto_class, images, labels)
-            copies = to_host_async([o.float() if o.is_floating_point() else o
-                                    for o in outs])
-            if inflight:
-                merge(*inflight.pop())
-            inflight.append((copies, grid, n_real, offset, labels.shape))
-            offset += n_real
-            pending_imgs.clear()
-            pending_labs.clear()
-
-        for image, label in dataset:
-            if pending_imgs and image.shape[1:] != pending_imgs[0].shape[1:]:
-                flush()
-            pending_imgs.append(image)
-            pending_labs.append(label)
-            if len(pending_imgs) == batch_size:
-                flush()
-        flush()
-        if inflight:
-            merge(*inflight.pop())
+        # a partial batch is padded with all-void (ineligible) images, so
+        # every call has the (batch_size, H, W) shape
+        pipelined_batches(batch, dataset, batch_size,
+                          lambda im, lab: (np.zeros_like(im), np.zeros_like(lab)),
+                          merge)
 
         if save_visualizations:
             # second pass: re-forward only the winner images (≤P) to

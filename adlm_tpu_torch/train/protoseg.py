@@ -62,7 +62,7 @@ class ProtoSegState:
     lr_scale: Schedule
     proto_class: torch.Tensor
     phase: int
-    max_steps: Optional[int] = None
+    max_steps: Optional[int]
     step: int = 0
 
 

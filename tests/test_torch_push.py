@@ -157,6 +157,23 @@ def test_patch_class_bits_matches_jax(shape, grid, C):
         port_push.patch_class_bits(torch.from_numpy(label), grid, 32)
 
 
+@pytest.mark.parametrize("n_px", [1, 7, 33, 97, 513, 1024, 2048])
+def test_block_gathers_follow_the_integer_rule(n_px):
+    """The pixel blocks that ``patch_class_bits`` gathers, built from the
+    shapes on the device, are those of the rule (p·h)//H (found with
+    ``np.searchsorted``) at every grid size up to ``n_px``: the
+    flagship's 1024 → 129 and 2048 → 257 included."""
+    pix = np.arange(n_px)
+    for n_grid in range(1, n_px + 1):
+        cell = (pix * n_grid) // n_px
+        starts = np.searchsorted(cell, np.arange(n_grid))
+        ends = np.searchsorted(cell, np.arange(n_grid), side="right")
+        want = np.stack([np.minimum(starts + k, ends - 1)
+                         for k in range(int((ends - starts).max()))])
+        got = port_push._block_gathers(n_px, n_grid, torch.device("cpu"))
+        np.testing.assert_array_equal(got.numpy(), want, err_msg=f"{n_px} -> {n_grid}")
+
+
 @pytest.mark.parametrize("batch_size", [1, 2])
 def test_push_matches_jax(pair, tmp_path, batch_size):
     """Both paths, with dedup: five images, so batch 2 ends on a padded
