@@ -55,7 +55,23 @@ non-zero and prints no result:
    images/s in f32 and bf16 over 40 frames (the five cycled, 20 full
    batches), a ``torch.profiler`` window over one push and one scan
    batch in each dtype, and the head's general path timed at the
-   classification shape.
+   classification shape;
+9. the data slice: twelve seeded 1024x2048 Cityscapes-layout frames
+   written in the preprocessed layout to a temporary directory; the
+   host C++ augment against its numpy version on 16 draws (two padded
+   with the mean); ``superbatch_iterator`` in thread and process mode
+   (8 jobs each) and with ``start_window = 2`` against the serial
+   stream, bit for bit, and each mode's samples/s; every window
+   ``device_prefetch`` delivers against its host window, f32 and bf16
+   wires; the flagship from the port's own initializers calibrated from
+   scratch (``calibrate_frozen_bn`` on 4 windows, checked against the
+   stop rule, then ``standardize_presigmoid`` and
+   ``init_prototypes_from_data`` on 8 items); three f32 joint windows
+   fed through ``BatchLoader`` -> ``device_prefetch`` against the same
+   windows preloaded on the card (equal metrics under cuDNN
+   deterministic, 5 head launches per window); then seconds per window
+   loader-fed against preloaded in f32, bf16 and bf16 fused, and a
+   ``torch.profiler`` window over one loader-fed bf16 window.
 
 Precision: f32 runs with TF32 off for convolutions and matmuls (the
 entry points' ``ieee_f32`` scope; the comparisons here run in the same
@@ -1374,6 +1390,422 @@ def time_interpretation(model, frames, card: str, iters: int = 2) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 9: the data slice
+# ---------------------------------------------------------------------------
+
+# twelve seeded Cityscapes-layout frames in the preprocessed layout
+# (~100 MB in a temporary directory), read through the flagship's
+# DataConfig into its joint windows (TRAIN_ITER x TRAIN_BS x 513^2)
+DATA_FRAMES, DATA_JOBS = 12, 8
+AUGMENT_DRAWS = 16        # the last two scale the frame below the window
+AUGMENT_ATOL = 1e-6       # image tolerance of tests/test_torch_data.py
+LOADER_WINDOWS = 6        # per loader mode; the rate counts windows 2..6
+PREFETCH_WINDOWS = 6      # per wire dtype
+CAL_WINDOWS, PROTO_ITEMS = 4, 8
+BN_LIVE_VAR = 1e-3        # a BN channel with a larger output var is live
+PRESIGMOID_TOL = 1e-2     # |mean| and |std - 1| of the folded tensor
+FED_STEPS = 3             # loader-fed windows held against preloaded ones
+FED_TIME_WINDOWS = 8      # timed windows per variant and feed: more than
+                          # the loader and the prefetch hold ahead (2 + 2)
+
+
+def write_dataset(root: str, n: int, seed: int) -> None:
+    """``n`` seeded frames in the preprocessed layout (``all_images.json``,
+    ``img_with_margin_0/train/*.npy``, ``annotations/train/*.npy``): (H,
+    W, 3) uint8 images with structure at two scales (64-pixel blocks plus
+    noise) and (H, W) uint8 raw Cityscapes ids 0..33 in 30-pixel blocks,
+    so that the class table maps a real share of the pixels to void."""
+    import json
+    import os
+
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    img_dir = os.path.join(root, "img_with_margin_0", "train")
+    ann_dir = os.path.join(root, "annotations", "train")
+    os.makedirs(img_dir)
+    os.makedirs(ann_dir)
+    ids = [f"frame{i:02d}" for i in range(n)]
+    for name in ids:
+        coarse = rng.randint(0, 200, (H // 64, W // 64, 3)).astype(np.uint8)
+        img = np.repeat(np.repeat(coarse, 64, 0), 64, 1)
+        img += rng.randint(0, 56, (H, W, 3)).astype(np.uint8)
+        np.save(os.path.join(img_dir, name + ".npy"), img)
+        blocks = rng.randint(0, 34, (-(-H // 30), -(-W // 30))).astype(np.uint8)
+        np.save(os.path.join(ann_dir, name + ".npy"),
+                np.repeat(np.repeat(blocks, 30, 0), 30, 1)[:H, :W])
+    with open(os.path.join(root, "all_images.json"), "w") as f:
+        json.dump({"train": ids}, f)
+
+
+def check_augment(ds) -> None:
+    """The host C++ augment against its numpy version on one frame
+    (memory-mapped, raw ids through the class LUT) over AUGMENT_DRAWS
+    draws of scale, crop and flip; labels exact, images within
+    AUGMENT_ATOL."""
+    import random
+
+    import numpy as np
+    from adlm_tpu_torch import native
+
+    cfg = ds.cfg
+    image, label = ds._load_raw(ds.img_ids[0], convert=False, mmap=True)
+    lut = ds.table.convert_lut()
+    wh, ww = cfg.window_size
+    rng = random.Random(SEED)
+    worst, secs, n_pad, void = 0.0, [0.0, 0.0], 0, 0.0
+    for k in range(AUGMENT_DRAWS):
+        s = (rng.uniform(*cfg.scales) if k < AUGMENT_DRAWS - 2
+             else (0.4, 0.2)[k - AUGMENT_DRAWS + 2])
+        nh, nw = int(H * s), int(W * s)
+        start = (rng.randint(0, max(nh - wh, 0)), rng.randint(0, max(nw - ww, 0)))
+        args = (image, label, s, (wh, ww), start, rng.random() < 0.5,
+                cfg.mean, cfg.std)
+        outs = []
+        for i, fn in enumerate((native.augment_sample, native.augment_sample_plain)):
+            t0 = time.perf_counter()
+            outs.append(fn(*args, label_lut=lut))
+            secs[i] += time.perf_counter() - t0
+        (img, lab), (img_p, lab_p) = outs
+        if not np.array_equal(lab, lab_p):
+            raise AssertionError(f"augment draw {k} (scale {s:.3f}): labels differ "
+                                 f"at {int((lab != lab_p).sum())} pixels")
+        err = float(np.abs(img - img_p).max())
+        if err > AUGMENT_ATOL:
+            raise AssertionError(f"augment draw {k} (scale {s:.3f}): images differ "
+                                 f"by {err:.3e} > {AUGMENT_ATOL:g}")
+        worst = max(worst, err)
+        n_pad += nh < wh or nw < ww
+        void += float((lab == 0).mean()) / AUGMENT_DRAWS
+    if n_pad < 2:
+        raise AssertionError("no augment draw padded the window")
+    log(f"  augment: {AUGMENT_DRAWS} draws ({n_pad} padded with the mean) C++ vs numpy: "
+        f"labels equal, images max abs err {worst:.2e} (tolerance {AUGMENT_ATOL:g}); "
+        f"void share {void:.3f}; C++ {secs[0] / AUGMENT_DRAWS * 1e3:.2f} ms, numpy "
+        f"{secs[1] / AUGMENT_DRAWS * 1e3:.2f} ms per {wh}x{ww} window  [host CPU]")
+
+
+def loader_windows(ds, cfg, n_jobs: int, mode: str, steps: int,
+                   start_window: int = 0):
+    """The windows of ``superbatch_iterator`` and the seconds spent
+    producing windows 2.. (the first includes the pool's start)."""
+    from adlm_tpu_torch.data.pipeline import superbatch_iterator
+
+    it = superbatch_iterator(ds, TRAIN_ITER, TRAIN_BS, steps, seed=cfg.train.random_seed,
+                             n_jobs=n_jobs, start_window=start_window, mode=mode)
+    out, secs = [], 0.0
+    try:
+        for _ in range(start_window, steps):
+            t0 = time.perf_counter()
+            window = next(it)
+            if out:
+                secs += time.perf_counter() - t0
+            out.append(window)
+    finally:
+        it.close()
+    return out, secs
+
+
+def same_windows(got, want, what: str) -> None:
+    import numpy as np
+
+    if len(got) != len(want):
+        raise AssertionError(f"{what}: {len(got)} windows, expected {len(want)}")
+    for i, ((gi, gl), (wi, wl)) in enumerate(zip(got, want)):
+        if not (gi.dtype == wi.dtype and np.array_equal(gi, wi)
+                and np.array_equal(gl, wl)):
+            raise AssertionError(f"{what}: window {i} differs from the serial stream")
+
+
+def check_loader(ds, cfg) -> None:
+    """Thread and process modes against the serial stream, bit for bit,
+    and ``start_window`` against its windows; the loader alone in
+    samples/s per mode."""
+    import os
+
+    per = TRAIN_ITER * TRAIN_BS
+    serial, secs = loader_windows(ds, cfg, 1, "thread", LOADER_WINDOWS)
+    rates = {"serial": (LOADER_WINDOWS - 1) * per / secs}
+    for mode in ("thread", "process"):
+        got, secs = loader_windows(ds, cfg, DATA_JOBS, mode, LOADER_WINDOWS)
+        same_windows(got, serial, f"{mode} x{DATA_JOBS}")
+        rates[f"{mode} x{DATA_JOBS}"] = (LOADER_WINDOWS - 1) * per / secs
+    resumed, _ = loader_windows(ds, cfg, DATA_JOBS, "thread", 4, start_window=2)
+    same_windows(resumed, serial[2:4], "start_window=2")
+    wh, ww = ds.cfg.window_size
+    log(f"  loader: thread x{DATA_JOBS} and process x{DATA_JOBS} equal the serial stream "
+        f"over {LOADER_WINDOWS} windows of {TRAIN_ITER} x {TRAIN_BS} x {wh}x{ww}, "
+        "start_window=2 equals its windows 2-3")
+    log("  loader alone, samples/s over windows 2.." + str(LOADER_WINDOWS) + ": "
+        + ", ".join(f"{k} {v:.1f}" for k, v in rates.items())
+        + f"  (os.cpu_count() {os.cpu_count()})  [host CPU]")
+
+
+def check_prefetch(ds, cfg) -> None:
+    """Every window ``device_prefetch`` delivers, with the loader (thread
+    x8 behind a BatchLoader) and the prefetch running ahead at depth 2,
+    equals its host window on the card, for the f32 and bf16 wires."""
+    import torch
+    from adlm_tpu_torch.data.pipeline import BatchLoader, device_prefetch, superbatch_iterator
+    from adlm_tpu_torch.train.pipeline import ship_dtypes
+
+    for name, vcfg in train_variants(cfg).items():
+        if name == "bfloat16 fused":
+            continue   # the same wire as bfloat16
+        dtypes = ship_dtypes(vcfg)
+        host = []
+
+        def recorded(it):
+            for window in it:
+                host.append(window)
+                yield window
+
+        loader = BatchLoader(superbatch_iterator(
+            ds, TRAIN_ITER, TRAIN_BS, PREFETCH_WINDOWS, seed=cfg.train.random_seed,
+            n_jobs=DATA_JOBS))
+        try:
+            n = ahead = 0
+            for i, (img, lab) in enumerate(device_prefetch(recorded(loader), depth=2,
+                                                           dtypes=dtypes)):
+                ahead = max(ahead, len(host) - i - 1)
+                hi, hl = host[i]
+                if not (img.dtype == dtypes[0] and lab.dtype == dtypes[1]
+                        and torch.equal(img, torch.from_numpy(hi).to("cuda").to(dtypes[0]))
+                        and torch.equal(lab, torch.from_numpy(hl).to("cuda").to(dtypes[1]))):
+                    raise AssertionError(f"device_prefetch window {i} ({name} wire) "
+                                         "differs from its host window")
+                n += 1
+        finally:
+            loader.close()
+        if n != PREFETCH_WINDOWS or ahead != 2:
+            raise AssertionError(f"device_prefetch gave {n} windows, {ahead} ahead")
+        log(f"  device_prefetch ({name} wire: {dtypes[0]}, {dtypes[1]}): {n} windows, "
+            f"{ahead} staged ahead of the consumer, each equal to its host window")
+
+
+def calibrated_flagship(ds, cfg, card: str):
+    """The flagship from the port's own initializers (identity frozen BNs,
+    as from scratch), calibrated on CAL_WINDOWS training windows, its
+    pre-sigmoid tensor standardized, and its prototypes drawn from
+    PROTO_ITEMS items; each step held to its rule."""
+    import numpy as np
+    import torch
+    from adlm_tpu_torch.models.calibrate import (
+        STOP_MEAN,
+        STOP_VAR,
+        bn_output_moments,
+        calibrate_frozen_bn,
+        init_prototypes_from_data,
+        standardize_presigmoid,
+    )
+    from adlm_tpu_torch.models.ppnet import PPNet, default_proto_class
+
+    seed = cfg.train.random_seed
+    model = PPNet(cfg.model, generator=torch.Generator().manual_seed(SEED + 13)).cuda()
+    cal = np.stack([ds.get_train_item(i, sample_seed=seed + i)[0]
+                    for i in range(CAL_WINDOWS)])
+    sub = lambda m: log("    " + m)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    info = calibrate_frozen_bn(model, cal, log=sub)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    log(f"  bn-calibrate: {info['sweeps']} sweeps, {info['forwards']} forwards of "
+        f"{CAL_WINDOWS} x 513^2 (f32 IEEE) in {secs:.2f} s, "
+        f"{secs / info['forwards'] * 1e3:.1f} ms per update  [{card}]")
+    moments = bn_output_moments(model, cal)
+    worst_m = worst_v = 0.0
+    dead = live_bns = 0
+    for name, (mean, var) in moments.items():
+        live = var > BN_LIVE_VAR
+        dead += int((~live).sum())
+        if live.any():
+            live_bns += 1
+            worst_m = max(worst_m, float(np.abs(mean[live]).max()))
+            worst_v = max(worst_v, float(np.abs(var[live] - 1).max()))
+    log(f"  after calibration: {len(moments)} BNs ({live_bns} with live channels, "
+        f"{dead} dead channels), live outputs max |mean| {worst_m:.2e}, max |var-1| "
+        f"{worst_v:.2e} (stop rule {STOP_MEAN}, {STOP_VAR})")
+    if worst_m >= STOP_MEAN or worst_v >= STOP_VAR or live_bns != len(moments):
+        raise AssertionError("a calibrated BN output breaks the stop rule")
+    pre = standardize_presigmoid(model, cal, log=sub)
+    if max(pre["post_abs_mean"], pre["post_abs_std_minus_1"]) > PRESIGMOID_TOL:
+        raise AssertionError(f"pre-sigmoid tensor not standardized: {pre}")
+    items = [ds.get_train_item(i, sample_seed=seed + i) for i in range(PROTO_ITEMS)]
+    pc = default_proto_class(cfg.model.num_prototypes, cfg.model.num_classes, device="cuda")
+    before = model.prototypes().detach().clone()
+    pv = init_prototypes_from_data(model, pc, np.stack([im for im, _ in items]),
+                                   np.stack([lb for _, lb in items]), seed=seed, log=sub)
+    n_set = int((pv != before).any(1).sum())
+    if not bool(torch.isfinite(pv).all()) or n_set == 0:
+        raise AssertionError("prototype init from data failed")
+    log(f"  init: pre-sigmoid folded (tolerance {PRESIGMOID_TOL:g}), {n_set} of "
+        f"{pv.shape[0]} prototypes drawn from feature cells  [{card}]")
+    return model
+
+
+def preloaded_windows(windows, dtypes):
+    import torch
+
+    return [(torch.from_numpy(img).to("cuda", dtypes[0]),
+             torch.from_numpy(lab).to("cuda", dtypes[1])) for img, lab in windows]
+
+
+def fed_loader(ds, cfg, steps: int, dtypes):
+    """(BatchLoader over thread x8 windows, its device_prefetch)."""
+    from adlm_tpu_torch.data.pipeline import BatchLoader, device_prefetch, superbatch_iterator
+
+    loader = BatchLoader(superbatch_iterator(ds, TRAIN_ITER, TRAIN_BS, steps,
+                                             seed=cfg.train.random_seed, n_jobs=DATA_JOBS))
+    return loader, device_prefetch(loader, depth=2, dtypes=dtypes)
+
+
+def check_fed_training(report, model, ds, cfg) -> None:
+    """FED_STEPS f32 joint windows from the calibrated state fed through
+    BatchLoader -> device_prefetch, against the same windows preloaded
+    as tensors on the card: the same metrics, bit for bit, under cuDNN
+    deterministic; 5 head launches per window in the fed run."""
+    import torch
+    from adlm_tpu_torch.ops import _build
+    from adlm_tpu_torch.train.pipeline import ship_dtypes
+    from adlm_tpu_torch.train.protoseg import init_protoseg_state, make_train_step
+
+    dtypes = ship_dtypes(cfg)
+
+    def run(feed):
+        m = copy.deepcopy(model)
+        state = init_protoseg_state(m, cfg, 1, cfg.train.joint_steps)
+        step = make_train_step(m, cfg, 1, cfg.train.joint_steps)
+        out = []
+        for img, lab in feed:
+            state, metrics = step(state, img, lab)
+            out.append({k: float(v) for k, v in metrics.items()})
+        torch.cuda.synchronize()
+        return out
+
+    saved_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        loader, feed = fed_loader(ds, cfg, FED_STEPS, dtypes)
+        try:
+            _build.reset_launches()
+            fed = run(feed)
+            launches = dict(_build.LAUNCHES)
+        finally:
+            loader.close()
+        windows, _ = loader_windows(ds, cfg, DATA_JOBS, "thread", FED_STEPS)
+        want = run(preloaded_windows(windows, dtypes))
+    finally:
+        torch.backends.cudnn.deterministic = saved_det
+    log(f"  loader-fed training launches ({FED_STEPS} windows): {launches}")
+    if (launches["prototype_head"] != TRAIN_ITER * FED_STEPS
+            or launches["upsample_argmin"] != 0 or len(fed) != FED_STEPS):
+        raise AssertionError(f"expected {TRAIN_ITER} head launches per window and no "
+                             "upsample-argmin launch")
+    for name in _build.KERNELS:
+        report[name]["launches"] += launches[name]
+    for i, (a, b) in enumerate(zip(fed, want)):
+        log(f"  fed window {i + 1}: loss {a['loss']:.6f}, ce {a['cross_entropy']:.6f}, "
+            f"kld {a['kld_loss']:.6f}, n_correct {a['n_correct']:.0f} of "
+            f"{a['n_patches']:.0f}, grad_norm {a['grad_norm']:.6f}; preloaded "
+            + ("equal in every metric" if a == b else f"DIFFERS: {b}"))
+        if a != b or not all(math.isfinite(v) for v in a.values()):
+            raise AssertionError(f"loader-fed window {i + 1} differs from the preloaded one")
+
+
+def time_fed_training(model, ds, cfg, card: str) -> None:
+    """Seconds per joint window fed by the loader (thread x8 ->
+    device_prefetch) against the same windows preloaded on the card, in
+    f32, bf16 and bf16 fused (host clock + synchronize over
+    FED_TIME_WINDOWS windows after one warm window each); a
+    ``torch.profiler`` window over one loader-fed bf16 window."""
+    import torch
+    from adlm_tpu_torch.train.pipeline import ship_dtypes
+    from adlm_tpu_torch.train.protoseg import init_protoseg_state, make_train_step
+
+    n = FED_TIME_WINDOWS
+    for name, vcfg in train_variants(cfg).items():
+        dtypes = ship_dtypes(vcfg)
+        m = copy.deepcopy(model)
+        state = init_protoseg_state(m, vcfg, 1, vcfg.train.joint_steps)
+        step = make_train_step(m, vcfg, 1, vcfg.train.joint_steps)
+
+        def timed(windows):
+            """(seconds per window, of which waiting for the next one)"""
+            step(state, *next(windows))
+            torch.cuda.synchronize()
+            wait = 0.0
+            t0 = time.perf_counter()
+            for _ in range(n):
+                t1 = time.perf_counter()
+                window = next(windows)
+                wait += time.perf_counter() - t1
+                step(state, *window)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) / n, wait / n
+
+        host, _ = loader_windows(ds, vcfg, DATA_JOBS, "thread", n + 1)
+        s_pre, _ = timed(iter(preloaded_windows(host, dtypes)))
+        del host
+        profiled = name == "bfloat16"
+        loader, feed = fed_loader(ds, vcfg, n + 1 + profiled, dtypes)
+        try:
+            s_fed, s_wait = timed(feed)
+            if profiled:
+                rows, wall_ms = device_profile(lambda: step(state, *next(feed)), 1)
+        finally:
+            loader.close()
+        log(f"  joint window {name:15s} (2 x 5 x 513^2): loader-fed {s_fed:.4f} s "
+            f"({s_wait:.4f} s of it waiting for the window), preloaded {s_pre:.4f} s "
+            f"({s_fed / s_pre:.3f}x), {TRAIN_ITER * TRAIN_BS / s_fed:.1f} samples/s fed  "
+            f"[{card}]")
+        if profiled:
+            log(f"  profile of one loader-fed {name} window: "
+                + (profile_line(rows, wall_ms).replace("/batch", "/window") if rows else
+                   "the profiler recorded no device time (not measured)") + f"  [{card}]")
+            if rows:
+                log_rows(rows, 6)
+        del m, state, step
+        torch.cuda.empty_cache()
+
+
+def check_data_slice(report, card: str) -> None:
+    """Phase 9: write the dataset, hold the augment, the loader modes and
+    the prefetch, calibrate the flagship from scratch, and train it on
+    loader-fed windows."""
+    import shutil
+    import tempfile
+
+    from adlm_tpu_torch import native
+    from adlm_tpu_torch.core.config import get_experiment
+    from adlm_tpu_torch.data.dataset import SegmentationDataset
+
+    cfg = get_experiment("cityscapes_kld_imnet")
+    root = tempfile.mkdtemp(prefix="adlm_data_")
+    try:
+        t0 = time.perf_counter()
+        write_dataset(root, DATA_FRAMES, SEED + 12)
+        t1 = time.perf_counter()
+        native.build()
+        log(f"  wrote {DATA_FRAMES} frames {H}x{W} in {t1 - t0:.1f} s; host library "
+            f"{native.library_path()[len(native.BUILD_DIR) + 1:]} ready in "
+            f"{time.perf_counter() - t1:.1f} s (g++)")
+        ds = SegmentationDataset(cfg.data, "train", data_path=root)
+        check_augment(ds)
+        check_loader(ds, cfg)
+        check_prefetch(ds, cfg)
+        t0 = time.perf_counter()
+        model = calibrated_flagship(ds, cfg, card)
+        log(f"  init phase {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        check_fed_training(report, model, ds, cfg)
+        log(f"  fed training check {time.perf_counter() - t0:.1f} s")
+        time_fed_training(model, ds, cfg, card)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -1454,6 +1886,13 @@ def main() -> int:
         frames = check_interpretation(report, model)
         log(f"  interpretation check {time.perf_counter() - t0:.1f} s")
         time_interpretation(model, frames, card)
+        del model, frames
+
+        log("[9] the data slice: dataset on disk, host augment, loader modes, device "
+            "prefetch, from-scratch init and loader-fed flagship joint windows")
+        t0 = time.perf_counter()
+        check_data_slice(report, card)
+        log(f"  data slice phase {time.perf_counter() - t0:.1f} s")
     except Exception:  # report any failure and exit non-zero
         traceback.print_exc()
         log(f"FAILED after {time.perf_counter() - t_start:.1f} s")

@@ -3,7 +3,9 @@ the CPU on its own.
 
 * Importing every ``adlm_tpu_torch`` module in a fresh interpreter loads
   no ``jax``, ``flax``, ``optax``, ``adlm_tpu`` or ``PIL`` module (the
-  port writes its PNG files itself).
+  port writes its PNG files and resamples like PIL itself), and
+  importing the data modules loads no ``torch`` (the loader's spawned
+  workers import them).
 * The entry points, built without a ``device`` on a host without CUDA,
   raise instead of running on the CPU.
 * The kernel sources the build compiles are in the package, and each
@@ -24,12 +26,25 @@ import torch
 
 import adlm_tpu_torch
 from adlm_tpu_torch.core.config import DataConfig, ExperimentConfig, PPNetConfig, TrainConfig
+from adlm_tpu_torch.data import pipeline
 from adlm_tpu_torch.interpret import analysis, evaluate, nearest, prune, push
+from adlm_tpu_torch.models import calibrate
 from adlm_tpu_torch.models.ppnet import PPNet
 from adlm_tpu_torch.ops import _build
 from adlm_tpu_torch.train import protoseg
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The tiny convs run op by op.  With a thread pool per op, parallel
+    test workers on a busy host wait on each other's threads, and the
+    calibration's hundred small forwards take many times longer."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(saved)
 
 
 def _port_modules():
@@ -42,12 +57,28 @@ def test_port_imports_nothing_of_jax():
     assert "adlm_tpu_torch.interpret.evaluate" in mods
     assert "adlm_tpu_torch.train.protoseg" in mods
     assert "adlm_tpu_torch.interpret.push" in mods
+    for m in ("data.constants", "data.dataset", "data.pipeline", "native",
+              "models.calibrate", "train.pipeline"):
+        assert f"adlm_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'adlm_tpu', 'PIL'))\n"
         "print(repr(bad))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout
+
+
+def test_data_modules_import_no_torch():
+    code = (
+        "import sys\n"
+        "import adlm_tpu_torch.data.pipeline, adlm_tpu_torch.data.dataset\n"
+        "import adlm_tpu_torch.data.constants, adlm_tpu_torch.native\n"
+        "print(repr(sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('torch', 'jax', 'PIL'))))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
@@ -112,6 +143,17 @@ ENTRY_POINTS = {
         log=lambda *_: None, **kw),
     "global_analysis": lambda m, **kw: analysis.global_analysis(
         m, torch.arange(6) // 2, _images_and_labels(), 3, k=2, **kw),
+    "device_prefetch": lambda m, **kw: list(pipeline.device_prefetch(
+        iter(_images_and_labels()), **kw)),
+    "calibrate_frozen_bn": lambda m, **kw: calibrate.calibrate_frozen_bn(
+        m, torch.rand(2, 33, 33, 3).numpy(), max_sweeps=1, **kw),
+    "bn_output_moments": lambda m, **kw: calibrate.bn_output_moments(
+        m, torch.rand(2, 33, 33, 3).numpy(), **kw),
+    "standardize_presigmoid": lambda m, **kw: calibrate.standardize_presigmoid(
+        m, torch.rand(2, 33, 33, 3).numpy(), log=lambda *_: None, **kw),
+    "init_prototypes_from_data": lambda m, **kw: calibrate.init_prototypes_from_data(
+        m, torch.arange(6) // 2, torch.rand(2, 33, 33, 3).numpy(),
+        torch.randint(0, 4, (2, 33, 33)).numpy(), log=lambda *_: None, **kw),
 }
 
 
