@@ -154,3 +154,39 @@ def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float,
     keep = norm < max_norm
     for g in grads:
         g.copy_(torch.where(keep, g, g / norm.to(g.dtype) * max_norm))
+
+
+AdamByName = Dict[str, Dict[str, torch.Tensor]]
+
+
+def adam_state_by_name(opt: torch.optim.Adam, model: nn.Module) -> AdamByName:
+    """The optimizer's per-parameter state keyed by parameter name
+    (``{name: {"step", "exp_avg", "exp_avg_sq"}}``), not by the
+    optimizer's integer ids: a checkpoint of it describes itself, and a
+    model rebuilt with another prototype count takes it back by name."""
+    names = {id(p): n for n, p in model.named_parameters()}
+    return {names[id(p)]: {k: v.detach() for k, v in opt.state[p].items()}
+            for g in opt.param_groups for p in g["params"] if p in opt.state}
+
+
+def load_adam_state(opt: torch.optim.Adam, model: nn.Module,
+                    by_name: AdamByName) -> None:
+    """Put ``by_name`` (``adam_state_by_name``) into ``opt``: every
+    parameter it trains must have an entry of the parameter's shape.
+    The moments take the parameter's device, dtype and memory format,
+    as the optimizer's own ``zeros_like`` would give them."""
+    names = {id(p): n for n, p in model.named_parameters()}
+    for g in opt.param_groups:
+        for p in g["params"]:
+            name = names[id(p)]
+            if name not in by_name:
+                raise KeyError(f"no Adam state for {name}")
+            src = by_name[name]
+            state = {"step": src["step"].detach().to("cpu", torch.float32).clone()}
+            for k in ("exp_avg", "exp_avg_sq"):
+                if tuple(src[k].shape) != tuple(p.shape):
+                    raise ValueError(f"{name}.{k}: shape {tuple(src[k].shape)}, "
+                                     f"parameter {tuple(p.shape)}")
+                state[k] = torch.empty_like(p, memory_format=torch.preserve_format
+                                            ).copy_(src[k])
+            opt.state[p] = state

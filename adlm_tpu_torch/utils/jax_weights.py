@@ -17,11 +17,19 @@ loads with ``strict=True``:
 Without ``constants`` it maps a tree shaped like ``params`` alone onto
 the port's parameter names, with the same transposes: a JAX gradient
 tree becomes ``{name: grad}`` for ``model.named_parameters()``.
+
+``adam_state_from_jax(opt_state, model, cfg, phase)`` carries a JAX
+training state's optimizer across: each trained group's optax
+``ScaleByAdamState`` becomes the ``torch.optim.Adam`` state of the
+group's parameters, keyed by parameter name (``count`` → ``step``,
+``mu`` → ``exp_avg``, ``nu`` → ``exp_avg_sq``; ``mu`` and ``nu`` are
+params-shaped trees, mapped as gradients are).  It is the by-name form
+the port's checkpoints keep (``train/optimizer.py::adam_state_by_name``).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Iterator, Mapping, Optional, Tuple
+from typing import Any, Dict, Iterator, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -81,4 +89,52 @@ def state_dict_from_jax(params: Mapping[str, Any],
         if len(path) < 2 or path[-2] != "bn" or path[-1] not in _BN:
             raise KeyError(f"unknown constant {'/'.join(path)}")
         out[".".join(path[:-1]) + "." + _BN[path[-1]]] = _tensor(v)
+    return out
+
+
+_ADAM_KEYS = {"count", "mu", "nu"}
+
+
+def _adam_nodes(tree: Any) -> List[Mapping[str, Any]]:
+    """Every mapping with exactly the keys of optax's ``ScaleByAdamState``
+    in a nested-mapping optimizer state, in walk order."""
+    if not isinstance(tree, Mapping):
+        return []
+    if set(tree) == _ADAM_KEYS:
+        return [tree]
+    return [node for k in tree for node in _adam_nodes(tree[k])]
+
+
+def adam_state_from_jax(opt_state: Mapping[str, Any], model: torch.nn.Module,
+                        cfg: Any, phase: int) -> Dict[str, Dict[str, torch.Tensor]]:
+    """The port's by-name Adam state from the JAX optimizer state of a
+    ``phase`` of ``cfg`` (an ``ExperimentConfig``) for ``model`` (the
+    port's PPNet).
+
+    ``opt_state`` is the optax state as nested mappings of numpy arrays
+    (named tuples as ``{field: value}``, tuples as ``{"0": ..., ...}``,
+    masked-out leaves as empty mappings).  Each ``ScaleByAdamState`` in
+    it is one trained group; together they must cover exactly the
+    parameters the port's optimizer trains in that phase.  Returns
+    ``{name: {"step", "exp_avg", "exp_avg_sq"}}``."""
+    from adlm_tpu_torch.train.optimizer import label_params, phase_groups
+
+    trained_labels = phase_groups(cfg.train, phase)
+    trained = {n for n, lab in label_params(model).items() if lab in trained_labels}
+    params = dict(model.named_parameters())
+    out: Dict[str, Dict[str, torch.Tensor]] = {}
+    for node in _adam_nodes(opt_state):
+        step = torch.tensor(float(np.asarray(node["count"])), dtype=torch.float32)
+        mu, nu = state_dict_from_jax(node["mu"]), state_dict_from_jax(node["nu"])
+        for name, m in mu.items():
+            if name in out:
+                raise ValueError(f"{name} is in two Adam states")
+            shape = params[name].shape
+            out[name] = {"step": step.clone(), "exp_avg": m.reshape(shape),
+                         "exp_avg_sq": nu[name].reshape(shape)}
+    if set(out) != trained:
+        raise ValueError(
+            f"the JAX Adam states cover {len(out)} parameters, the port's "
+            f"phase {phase} trains {len(trained)}: missing "
+            f"{sorted(trained - set(out))[:4]}, extra {sorted(set(out) - trained)[:4]}")
     return out

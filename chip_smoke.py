@@ -91,6 +91,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import copy
+import io
 import json
 import math
 import re
@@ -541,7 +542,7 @@ def purity_cells(a, b, proto_class):
     return int(changed.sum()), unexplained, int(pred_flip.sum()), worst
 
 
-def compare_eval(tag, got, want, n_pixels) -> None:
+def compare_eval(tag, got, want, n_pixels, proto_class=None) -> None:
     """Kernels vs plain versions on the same batches.  The two heads sum
     in other orders (d differs by ~1e-5), so near-ties may flip:
 
@@ -561,7 +562,8 @@ def compare_eval(tag, got, want, n_pixels) -> None:
     budget = math.ceil(TIE_SHARE * n_pixels)
     limits = {"intersection": budget, "correct": budget, "total": 0,
               "union": 2 * budget, "agree_counts": 2 * budget}
-    pc = default_proto_class(190, 19, device="cpu")
+    pc = (default_proto_class(190, 19, device="cpu") if proto_class is None
+          else proto_class.cpu())
     (res_k, outs_k), (res_p, outs_p) = got, want
     for i, (a, b) in enumerate(zip(outs_k, outs_p)):
         diffs = {k: int((a[k].long() - b[k].long()).abs().sum()) for k in limits}
@@ -1409,33 +1411,39 @@ FED_TIME_WINDOWS = 8      # timed windows per variant and feed: more than
                           # the loader and the prefetch hold ahead (2 + 2)
 
 
-def write_dataset(root: str, n: int, seed: int) -> None:
+def write_dataset(root: str, n: int, seed: int, n_val: int = 0) -> None:
     """``n`` seeded frames in the preprocessed layout (``all_images.json``,
-    ``img_with_margin_0/train/*.npy``, ``annotations/train/*.npy``): (H,
-    W, 3) uint8 images with structure at two scales (64-pixel blocks plus
-    noise) and (H, W) uint8 raw Cityscapes ids 0..33 in 30-pixel blocks,
-    so that the class table maps a real share of the pixels to void."""
+    ``img_with_margin_0/train/*.npy``, ``annotations/train/*.npy``), and
+    ``n_val`` more in a ``val`` split: (H, W, 3) uint8 images with
+    structure at two scales (64-pixel blocks plus noise) and (H, W) uint8
+    raw Cityscapes ids 0..33 in 30-pixel blocks, so that the class table
+    maps a real share of the pixels to void."""
     import json
     import os
 
     import numpy as np
 
     rng = np.random.RandomState(seed)
-    img_dir = os.path.join(root, "img_with_margin_0", "train")
-    ann_dir = os.path.join(root, "annotations", "train")
-    os.makedirs(img_dir)
-    os.makedirs(ann_dir)
-    ids = [f"frame{i:02d}" for i in range(n)]
-    for name in ids:
-        coarse = rng.randint(0, 200, (H // 64, W // 64, 3)).astype(np.uint8)
-        img = np.repeat(np.repeat(coarse, 64, 0), 64, 1)
-        img += rng.randint(0, 56, (H, W, 3)).astype(np.uint8)
-        np.save(os.path.join(img_dir, name + ".npy"), img)
-        blocks = rng.randint(0, 34, (-(-H // 30), -(-W // 30))).astype(np.uint8)
-        np.save(os.path.join(ann_dir, name + ".npy"),
-                np.repeat(np.repeat(blocks, 30, 0), 30, 1)[:H, :W])
+    ids = {}
+    for split, count in (("train", n), ("val", n_val)):
+        if not count:
+            continue
+        img_dir = os.path.join(root, "img_with_margin_0", split)
+        ann_dir = os.path.join(root, "annotations", split)
+        os.makedirs(img_dir)
+        os.makedirs(ann_dir)
+        ids[split] = [f"{'frame' if split == 'train' else split}{i:02d}"
+                      for i in range(count)]
+        for name in ids[split]:
+            coarse = rng.randint(0, 200, (H // 64, W // 64, 3)).astype(np.uint8)
+            img = np.repeat(np.repeat(coarse, 64, 0), 64, 1)
+            img += rng.randint(0, 56, (H, W, 3)).astype(np.uint8)
+            np.save(os.path.join(img_dir, name + ".npy"), img)
+            blocks = rng.randint(0, 34, (-(-H // 30), -(-W // 30))).astype(np.uint8)
+            np.save(os.path.join(ann_dir, name + ".npy"),
+                    np.repeat(np.repeat(blocks, 30, 0), 30, 1)[:H, :W])
     with open(os.path.join(root, "all_images.json"), "w") as f:
-        json.dump({"train": ids}, f)
+        json.dump(ids, f)
 
 
 def check_augment(ds) -> None:
@@ -1806,6 +1814,444 @@ def check_data_slice(report, card: str) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 10: a training run through the command line
+# ---------------------------------------------------------------------------
+
+# the flagship (cityscapes_kld_imnet) with its schedule cut to 3 warmup,
+# 3 joint and 2 last-layer windows of 2 x 5 x 513^2, from the port's own
+# initializers calibrated from scratch, on seeded Cityscapes-layout frames
+RUN_TRAIN_FRAMES, RUN_VAL_FRAMES = 12, 2
+RUN_SCHEDULE = dict(warmup_steps=15, joint_steps=15, finetune_steps=10)
+RUN_HALT = 4              # windows before the halt: the joint phase's first
+RUN_PRUNE = ("--k", "6", "--threshold", "1")   # threshold 1, as phase 8
+RUN_TEST_IMAGES = 2
+RUN_EVAL_BS = 2
+
+
+@contextlib.contextmanager
+def run_probes():
+    """Seconds of every training stage, bn-calibrate/proto-init and push,
+    seconds and bytes of every checkpoint save, and the time the first
+    window of each train command started, recorded around the pipeline's
+    own functions (each closed by a synchronize)."""
+    import os
+
+    import torch
+    import adlm_tpu_torch.core.checkpoint as ck
+    import adlm_tpu_torch.interpret.push as push_mod
+    import adlm_tpu_torch.models.calibrate as cal
+    import adlm_tpu_torch.train.pipeline as pipe
+    import adlm_tpu_torch.train.protoseg as ps
+
+    rec = {"stages": [], "saves": [], "first_window": None}
+
+    def timed(fn, name_of):
+        def wrapper(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            rec["stages"].append((name_of(*args, **kwargs), time.perf_counter() - t0))
+            return out
+        return wrapper
+
+    def save(self, stage, kind, payload):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = saved["save"](self, stage, kind, payload)
+        rec["saves"].append((stage, kind, time.perf_counter() - t0,
+                             os.path.getsize(os.path.join(path, ck.PAYLOAD))))
+        return path
+
+    def make_train_step(*args, **kwargs):
+        step = saved["make_train_step"](*args, **kwargs)
+
+        def first(state, images, labels):
+            if rec["first_window"] is None:
+                torch.cuda.synchronize()
+                rec["first_window"] = time.perf_counter()
+            return step(state, images, labels)
+        return first
+
+    saved = {"save": ck.CheckpointStore.save, "_run_phase": pipe._run_phase,
+             "push_prototypes": push_mod.push_prototypes,
+             "make_train_step": ps.make_train_step,
+             **{n: getattr(cal, n) for n in ("calibrate_frozen_bn", "standardize_presigmoid",
+                                             "init_prototypes_from_data")}}
+    ck.CheckpointStore.save = save
+    pipe._run_phase = timed(saved["_run_phase"], lambda m, c, phase, *a, **kw:
+                            kw.get("stage_key") or pipe.STAGE_BY_PHASE[phase])
+    push_mod.push_prototypes = timed(saved["push_prototypes"], lambda *a, **kw: "push event")
+    ps.make_train_step = make_train_step
+    for n in ("calibrate_frozen_bn", "standardize_presigmoid", "init_prototypes_from_data"):
+        setattr(cal, n, timed(saved[n], lambda *a, **kw: "init (bn-calibrate, proto-init)"))
+    try:
+        yield rec
+    finally:
+        ck.CheckpointStore.save = saved["save"]
+        pipe._run_phase = saved["_run_phase"]
+        push_mod.push_prototypes = saved["push_prototypes"]
+        ps.make_train_step = saved["make_train_step"]
+        for n in ("calibrate_frozen_bn", "standardize_presigmoid", "init_prototypes_from_data"):
+            setattr(cal, n, saved[n])
+
+
+def run_command(argv, rec, launches_by_cmd):
+    """One CLI command in-process, its launches counted from 0."""
+    import torch
+    from adlm_tpu_torch import cli
+    from adlm_tpu_torch.ops import _build
+
+    tag = " ".join([argv[0]] + [a for a in argv[1:] if a in (
+        "U", "H", "push", "pruned", "--halt-after", "--resume", "--pruned")])
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    rec["first_window"] = None
+    out = io.StringIO()   # the run's own log lines; their tail on a failure
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            cli.main(list(argv))
+    except BaseException:
+        log("\n".join(out.getvalue().splitlines()[-40:]))
+        raise
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    launches_by_cmd.append((tag, launches))
+    start = (rec["first_window"] - t0) if rec["first_window"] is not None else None
+    log(f"  {tag}: {secs:.2f} s, launches {launches}"
+        + (f", first window started {start:.2f} s after the call" if start is not None else ""))
+    return secs, start
+
+
+def same_payload(a, b):
+    """The entries in which two checkpoint payloads differ (bit for bit)."""
+    import torch
+
+    bad = [k for k in ("step", "phase", "max_steps") if a.get(k) != b.get(k)]
+    if not torch.equal(a["proto_class"], b["proto_class"]):
+        bad.append("proto_class")
+    sa, sb = a["state_dict"], b["state_dict"]
+    bad += [k for k in sorted(set(sa) | set(sb))
+            if k not in sa or k not in sb or not torch.equal(sa[k], sb[k])]
+    oa, ob = a.get("opt", {}), b.get("opt", {})
+    bad += [f"opt {n}.{k}" for n in sorted(set(oa) | set(ob))
+            for k in ("step", "exp_avg", "exp_avg_sq")
+            if n not in oa or n not in ob or not torch.equal(oa[n][k], ob[n][k])]
+    return bad
+
+
+def read_png(path: str):
+    """The (H, W) pixels of an 8-bit greyscale PNG whose scanlines use
+    filter 0 (what ``interpret/visualize.py::write_png`` writes)."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise AssertionError(f"{path} is not a PNG")
+    pos, idat, head = 8, b"", None
+    while pos < len(data):
+        n, tag = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        if tag == b"IHDR":
+            head = struct.unpack(">IIBB", body[:10])
+        elif tag == b"IDAT":
+            idat += body
+        pos += 12 + n
+    w, h, depth, color = head
+    if depth != 8 or color != 0:
+        raise AssertionError(f"{path}: depth {depth}, color type {color}")
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, w + 1)
+    if rows[:, 0].any():
+        raise AssertionError(f"{path}: a scanline filter other than 0")
+    return rows[:, 1:]
+
+
+class _RecordedEvaluators:
+    """Patch ``SegEvaluator`` so that every update keeps what
+    ``compare_eval`` holds (counts, purity and its sampled inputs)."""
+
+    def __enter__(self):
+        import adlm_tpu_torch.interpret.evaluate as ev
+
+        self.module, self.orig = ev, ev.SegEvaluator
+        self.instances, self.outs = [], []
+        rec = self
+
+        class Recording(ev.SegEvaluator):
+            def __init__(self, *args, **kwargs):
+                super().__init__(*args, **kwargs)
+                rec.instances.append(self)
+
+            def update(self, proto_class, images, labels):
+                with purity_inputs() as seen:
+                    o = super().update(proto_class, images, labels)
+                out = {k: v.cpu() for k, v in o.items()
+                       if k not in ("pred", "stat_pred", "nearest_proto")}
+                out["sample_d"], out["sample_pred"] = seen[0]
+                rec.outs.append(out)
+                return o
+
+        ev.SegEvaluator = Recording
+        return self
+
+    def __exit__(self, *exc):
+        self.module.SegEvaluator = self.orig
+
+
+def check_run_eval(run_dir: str, data_root: str, cli_eval) -> None:
+    """eval-valid's counts and statistics against a direct SegEvaluator
+    over the same checkpoint with the plain versions patched in, within
+    phase 4's tie budget (``compare_eval``); its files against its own
+    results."""
+    import json
+    import os
+
+    import numpy as np
+    from adlm_tpu_torch import cli
+    from adlm_tpu_torch.data.dataset import SegmentationDataset
+    from adlm_tpu_torch.interpret.stats import ProtoStatsAccumulator
+
+    cfg, payload, model = cli._load_stage(run_dir, "push", "last", "cuda")
+    pc = payload["proto_class"]
+    K = cfg.model.num_classes
+    ds = SegmentationDataset(cfg.data, "val", data_path=data_root, is_eval=True)
+    with _RecordedEvaluators() as plain, plain_versions():
+        ev = plain.module.SegEvaluator(model, K, with_stats=True, stats_upsampled=True,
+                                       normalize=(cfg.data.mean, cfg.data.std))
+        acc = ProtoStatsAccumulator(pc.numel(), K, pc.cpu().numpy())
+        for img, lab, n_real in ds.eval_batches(RUN_EVAL_BS, with_counts=True, raw=True):
+            o = ev.update(pc, img, lab)
+            acc.update_counts(o["agree_counts"][:n_real], o["topk_purity"][:n_real],
+                              n_images=n_real)
+    recorded, plots = cli_eval
+    (cli_ev,) = recorded.instances
+    res = cli_ev.results()
+    out_dir = os.path.join(run_dir, "evaluation", "push")
+    with open(os.path.join(out_dir, "mean_iou.txt")) as f:
+        miou = float(f.read())
+    with open(os.path.join(out_dir, "iou_scores.json")) as f:
+        ious = json.load(f)
+    if miou != res["mean_iou"] or ious != {str(k): v for k, v in res["iou_per_class"].items()}:
+        raise AssertionError("eval-valid's files differ from its evaluator's results")
+    n_pixels = RUN_VAL_FRAMES * H * W
+    compare_eval("run eval-valid", (res, recorded.outs), (ev.results(), plain.outs),
+                 n_pixels, proto_class=pc)
+    got = plots[0]["stats"]["nearest_proto_counts"]
+    want = acc.results()["nearest_proto_counts"]
+    diff = int(np.abs(got - want).sum())
+    budget = 2 * math.ceil(TIE_SHARE * n_pixels)
+    log(f"  eval-valid vs plain versions: mIoU {miou:.6f} (plain "
+        f"{ev.results()['mean_iou']:.6f}), nearest-prototype counts |diff| {diff} "
+        f"(budget {budget}), {int(want.sum())} agreeing pixels, top-K purity at K=1 "
+        f"{plots[0]['stats']['mean_top_k_purity'][0]:.3f}")
+    if diff > budget or not np.isfinite(miou):
+        raise AssertionError("eval-valid's statistics disagree with the plain versions")
+
+
+def check_run(report, card: str) -> None:
+    """Phase 10: train (unbroken U; halted and resumed H), eval-valid with
+    upsampled statistics, prune, train --pruned and eval-test through
+    ``adlm_tpu_torch.cli`` on the flagship at full width, in f32 IEEE
+    under cuDNN deterministic."""
+    import csv
+    import dataclasses
+    import json
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from adlm_tpu_torch.core import config as config_mod
+    from adlm_tpu_torch.core.checkpoint import CheckpointStore
+    from adlm_tpu_torch.data.constants import get_class_table
+    from adlm_tpu_torch.data.dataset import SegmentationDataset
+    from adlm_tpu_torch.interpret import stats as stats_mod
+    from adlm_tpu_torch.interpret.evaluate import make_inference_fn
+    from adlm_tpu_torch.ops import _build
+    from adlm_tpu_torch.ops.prototype import head_route
+
+    t_phase = time.perf_counter()
+    name = "cityscapes_kld_imnet"
+    flagship = config_mod.get_experiment(name)
+    cfg = dataclasses.replace(flagship, train=dataclasses.replace(flagship.train,
+                                                                  **RUN_SCHEDULE))
+    root = tempfile.mkdtemp(prefix="adlm_run_")
+    saved_env = os.environ.get("RESULTS_DIR")
+    saved_det = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    launches_by_cmd = []
+    plots = []
+    orig_plots = stats_mod.save_eval_plots
+    try:
+        config_mod.register_experiment(cfg)
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+        data = os.path.join(root, "data")
+        results = os.path.join(root, "runs")
+        os.environ["RESULTS_DIR"] = results
+        t0 = time.perf_counter()
+        write_dataset(data, RUN_TRAIN_FRAMES, SEED + 21, n_val=RUN_VAL_FRAMES)
+        log(f"  wrote {RUN_TRAIN_FRAMES} train and {RUN_VAL_FRAMES} val frames {H}x{W} in "
+            f"{time.perf_counter() - t0:.1f} s; schedule cut to {RUN_SCHEDULE} "
+            f"(iter_size {cfg.train.iter_size}: 3 + 3 + 2 windows)")
+        train = ["train", name, "U", "--data-path", data, "--val-every", "2",
+                 "--push-batch-size", "2", "--bn-calibrate", "--proto-init-data"]
+        run_u, run_h = os.path.join(results, "U"), os.path.join(results, "H")
+        with run_probes() as rec:
+            secs_u, _ = run_command(train, rec, launches_by_cmd)
+            stages_u, saves_u = list(rec["stages"]), list(rec["saves"])
+            rec["stages"].clear()
+            rec["saves"].clear()
+            h = train[:2] + ["H"] + train[3:]
+            run_command(h + ["--halt-after", str(RUN_HALT)], rec, launches_by_cmd)
+            torch.cuda.empty_cache()
+            secs_r, resume_start = run_command(h + ["--resume"], rec, launches_by_cmd)
+
+        # U: every stage's files, the marker, finite losses
+        store_u, store_h = CheckpointStore(run_u), CheckpointStore(run_h)
+        for stage in ("warmup", "nopush", "push"):
+            for kind in ("last", "best"):
+                if not store_u.exists(stage, kind):
+                    raise AssertionError(f"U has no {stage}_{kind}")
+        with open(os.path.join(run_u, "resume.json")) as f:
+            meta_u = json.load(f)
+        with open(os.path.join(run_h, "resume.json")) as f:
+            meta_h = json.load(f)
+        if meta_u["stage"] != "push" or not meta_u["completed"]:
+            raise AssertionError(f"U's resume.json: {meta_u}")
+        with open(os.path.join(run_u, "logs", "train_metrics.csv"), newline="") as f:
+            rows = list(csv.DictReader(f))
+        losses = [float(r["loss"]) for r in rows]
+        if not losses or not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"U logged a non-finite loss: {losses}")
+        log(f"  U: {len(rows)} logged rows, losses {['%.4f' % v for v in losses]}, "
+            f"resume.json {meta_u}")
+        with open(os.path.join(run_h, "logs", "train.log")) as f:
+            if "halting after window 1" not in f.read():
+                raise AssertionError("H did not halt inside the joint phase")
+
+        # H == U, bit for bit
+        pay_u, pay_h = store_u.restore("push", "last"), store_h.restore("push", "last")
+        bad = same_payload(pay_u, pay_h)
+        n_t = len(pay_u["state_dict"]) + 3 * len(pay_u["opt"]) + 2
+        log(f"  H (halted after {RUN_HALT} windows, resumed) vs U push_last: "
+            f"{n_t - len(bad)} of {n_t} entries equal bit for bit (state_dict, Adam "
+            f"step and moments, proto_class, step); resume.json "
+            + ("equal" if meta_h == meta_u else f"DIFFERS: {meta_h}"))
+        if bad or meta_h != meta_u:
+            raise AssertionError(f"the resumed run differs from the unbroken one: {bad[:8]}")
+        P = pay_u["proto_class"].numel()
+        log(f"  pushed model: {P} prototypes after dedup, head route "
+            f"{head_route(64, P, 19, torch.float32)}")
+
+        # eval-valid with upsampled statistics, against the plain versions
+        def record_plots(out_dir, *args, **kwargs):
+            plots.append(kwargs)
+            return orig_plots(out_dir, *args, **kwargs)
+
+        stats_mod.save_eval_plots = record_plots
+        with run_probes() as rec, _RecordedEvaluators() as recorded:
+            run_command(["eval-valid", run_u, "push", "--data-path", data, "--stats",
+                         "--stats-upsampled", "--batch-size", str(RUN_EVAL_BS),
+                         "--examples", "0"], rec, launches_by_cmd)
+        stats_mod.save_eval_plots = orig_plots
+        check_run_eval(run_u, data, (recorded, plots))
+
+        # prune, the pruned finetune, eval-test
+        with run_probes() as rec:
+            run_command(["prune", run_u, "--data-path", data, *RUN_PRUNE,
+                         "--batch-size", "2"], rec, launches_by_cmd)
+            info = np.load(os.path.join(run_u, "prune_info.npy"))
+            pruned = store_u.restore("pruned", "last")
+            keep = np.setdiff1d(np.arange(P), info[:, 0])
+            if not (pruned["state_dict"]["prototype_vectors"].shape[0] == len(keep)
+                    and pruned["proto_class"].tolist()
+                    == pay_u["proto_class"][torch.from_numpy(keep)].tolist()):
+                raise AssertionError("pruned_last does not match prune_info.npy")
+            log(f"  prune: {len(info)} of {P} prototypes pruned ({' '.join(RUN_PRUNE)}), "
+                f"P' = {len(keep)}, head route {head_route(64, len(keep), 19, torch.float32)}")
+            run_command(train[:3] + ["--pruned", "--data-path", data, "--val-every", "2"],
+                        rec, launches_by_cmd)
+            stages_p = list(rec["stages"])
+            run_command(["eval-test", run_u, "pruned", "--data-path", data,
+                         "--max-images", str(RUN_TEST_IMAGES)], rec, launches_by_cmd)
+        done = store_u.restore("pruned", "last")
+        if done["step"] != 2 or not all(bool(torch.isfinite(v).all())
+                                        for v in done["state_dict"].values()):
+            raise AssertionError("the pruned finetune did not run its 2 windows")
+        from adlm_tpu_torch import cli
+        pcfg, ppay, pmodel = cli._load_stage(run_u, "pruned", "last", "cuda")
+        ds = SegmentationDataset(pcfg.data, "val", data_path=data, is_eval=True)
+        fn = make_inference_fn(pmodel, 19, normalize=(pcfg.data.mean, pcfg.data.std))
+        lut = get_class_table(pcfg.data.class_table).submission_lut(19)
+        pred_dir = os.path.join(run_u, "evaluation", "pruned", "test_predictions")
+        for i, (img, lab) in enumerate(ds.eval_items(raw=True)):
+            if i == RUN_TEST_IMAGES:
+                break
+            want = lut[fn(ppay["proto_class"], img, lab)["pred"][0].cpu().numpy()]
+            got = read_png(os.path.join(pred_dir, ds.img_ids[i] + ".png"))
+            if got.shape != (H, W) or not np.array_equal(got, want):
+                raise AssertionError(f"prediction PNG {i} differs from submission_lut[pred]")
+        log(f"  eval-test: {RUN_TEST_IMAGES} PNGs decode to submission_lut of the pruned "
+            f"model's predictions ({len(np.unique(got))} ids in the last)")
+
+        # launches: kernel 1 in every command, kernel 2 once per eval-valid batch
+        n_eval_batches = -(-RUN_VAL_FRAMES // RUN_EVAL_BS)
+        for tag, counts in launches_by_cmd:
+            want_up = n_eval_batches if tag.startswith("eval-valid") else 0
+            if counts["prototype_head"] == 0 or counts["upsample_argmin"] != want_up:
+                raise AssertionError(f"{tag}: launches {counts}, expected head > 0 and "
+                                     f"{want_up} upsample-argmin")
+            for k in _build.KERNELS:
+                report[k]["launches"] += counts[k]
+        log("  launches by command: " + "; ".join(
+            f"{tag}: head {c['prototype_head']}, upsample-argmin {c['upsample_argmin']}"
+            for tag, c in launches_by_cmd))
+
+        # timings
+        by_stage = {}
+        for stage, secs in stages_u:
+            by_stage[stage] = by_stage.get(stage, 0.0) + secs
+        log(f"  U train {secs_u:.2f} s; seconds by stage (saves and validation included): "
+            + ", ".join(f"{k} {v:.2f}" for k, v in by_stage.items())
+            + f"; pruned finetune {sum(s for _, s in stages_p):.2f}  [{card}]")
+        groups = {}
+        for stage, kind, secs, nbytes in saves_u:
+            g = groups.setdefault(stage, [0, 0.0, 0])
+            g[0] += 1
+            g[1] += secs
+            g[2] = max(g[2], nbytes)
+        log("  U checkpoint saves by stage (count, mean s, MB): " + ", ".join(
+            f"{k} {n} x {s / n:.3f} s {b / 1e6:.1f} MB" for k, (n, s, b) in groups.items())
+            + f"; all {sum(s for *_, s, _ in saves_u):.2f} s for "
+            f"{sum(b for *_, b in saves_u) / 1e9:.2f} GB  [{card}]")
+        # a resume in a new process first pays the interpreter, the imports
+        # and the CUDA context: timed alone, as a child that stops there
+        t0 = time.perf_counter()
+        subprocess.run([sys.executable, "-c", "import torch, adlm_tpu_torch.cli; "
+                        "torch.ones(4, device='cuda').sum().item()"], check=True, timeout=300)
+        start_secs = time.perf_counter() - t0
+        log(f"  resume overhead: {resume_start:.2f} s in process from the call to the first "
+            f"resumed window, plus {start_secs:.2f} s for a new process to import the port "
+            f"and reach the card; resumed run {secs_r:.2f} s  [{card}]")
+    finally:
+        stats_mod.save_eval_plots = orig_plots
+        config_mod.register_experiment(flagship)
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved_det
+        if saved_env is None:
+            os.environ.pop("RESULTS_DIR", None)
+        else:
+            os.environ["RESULTS_DIR"] = saved_env
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"  run phase {time.perf_counter() - t_phase:.1f} s  [{card}]")
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -1893,6 +2339,11 @@ def main() -> int:
         t0 = time.perf_counter()
         check_data_slice(report, card)
         log(f"  data slice phase {time.perf_counter() - t0:.1f} s")
+
+        log("[10] the training run through the CLI: train (unbroken; halted and "
+            "resumed), eval-valid --stats --stats-upsampled, prune, train --pruned, "
+            "eval-test, flagship at full width, f32 IEEE")
+        check_run(report, card)
     except Exception:  # report any failure and exit non-zero
         traceback.print_exc()
         log(f"FAILED after {time.perf_counter() - t_start:.1f} s")

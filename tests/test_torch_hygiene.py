@@ -58,7 +58,9 @@ def test_port_imports_nothing_of_jax():
     assert "adlm_tpu_torch.train.protoseg" in mods
     assert "adlm_tpu_torch.interpret.push" in mods
     for m in ("data.constants", "data.dataset", "data.pipeline", "native",
-              "models.calibrate", "train.pipeline"):
+              "models.calibrate", "train.pipeline", "core.checkpoint", "cli",
+              "utils.logging", "utils.tensorboard", "utils.profiling",
+              "utils.torch_import", "utils.watchdog"):
         assert f"adlm_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
@@ -243,3 +245,47 @@ def test_ctypes_signatures_match_the_c_sources(monkeypatch, name):
         assert f.argtypes == sigs[fn][1], fn
     module._lib()  # a second use keeps the declarations
     assert all(f.argtypes == sigs[fn][1] for fn, f in declared.items())
+
+
+# command → argv after ``python -m adlm_tpu_torch.cli`` (a run directory
+# named ``run`` under RESULTS_DIR, the tiny experiment below)
+_CLI = {
+    "train": ["train", "smoke", "run"],
+    "eval-valid": ["eval-valid", "{run}", "push", "--stats"],
+    "eval-test": ["eval-test", "{run}", "push"],
+    "prune": ["prune", "{run}"],
+}
+
+
+@pytest.mark.parametrize("command", list(_CLI))
+def test_cli_commands_raise_without_a_card_and_write_nothing(
+        no_cuda, tmp_path, monkeypatch, command):
+    from adlm_tpu_torch import cli
+
+    results = tmp_path / "results"
+    results.mkdir()
+    run = results / "run"
+    if command != "train":   # an existing run directory, left as it is
+        run.mkdir()
+        (run / "config.json").write_text("{}")
+    before = sorted(p.relative_to(tmp_path) for p in tmp_path.rglob("*"))
+    monkeypatch.setenv("RESULTS_DIR", str(results))
+    argv = [a.format(run=run) for a in _CLI[command]]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main(argv)
+    assert sorted(p.relative_to(tmp_path) for p in tmp_path.rglob("*")) == before
+    # with --device cpu the same command gets past the device check
+    if command == "train":
+        with pytest.raises(FileNotFoundError):   # no dataset at this path
+            cli.main(argv + ["--device", "cpu", "--data-path", str(tmp_path / "none")])
+
+
+def test_run_protoseg_training_raises_without_a_card_and_writes_nothing(no_cuda, tmp_path):
+    from adlm_tpu_torch.train.pipeline import run_protoseg_training
+
+    run = tmp_path / "run"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_protoseg_training(_CFG, str(run), data_path=str(tmp_path))
+    assert not run.exists()
+    with pytest.raises(FileNotFoundError):   # past the device check
+        run_protoseg_training(_CFG, str(run), data_path=str(tmp_path), device="cpu")
