@@ -5,13 +5,16 @@
     python -m adlm_tpu_torch.cli eval-valid <run_dir> <stage>
     python -m adlm_tpu_torch.cli eval-test <run_dir> <stage>
     python -m adlm_tpu_torch.cli prune <run_dir>
+    python -m adlm_tpu_torch.cli unoise-train-util / unoise-train-noise
+    python -m adlm_tpu_torch.cli unoise-visualize / unoise-figures
+    python -m adlm_tpu_torch.cli prepare-unoise <source_path> <target_path>
 
 Environment: DATA_PATH (dataset root) and RESULTS_DIR (run outputs), as
 the reference's env.sh / settings.py.  Every command runs on the CUDA
 card unless ``--device cpu`` is given; without a card it raises before
 it writes anything.  A run directory written by either package's
-``train`` has the same layout and ``config.json``; the checkpoint files
-are each package's own.
+``train`` (or ``unoise-train-*``) has the same layout and config files;
+the checkpoint files are each package's own.
 """
 
 from __future__ import annotations
@@ -302,6 +305,182 @@ def cmd_prune(args):
           f"`train ... --pruned`")
 
 
+def _unoise_model(results: str, run: str, kind: str, dev, bf16: bool,
+                  depth: int = 5, cf: int = 6):
+    """The U-Net of a U-Noise run's best ``kind`` checkpoint ('utility'
+    or 'noise'), in eval mode on ``dev``; its architecture from the run's
+    ``<kind>_config.json``, else from ``depth``/``cf`` (the flags)."""
+    from adlm_tpu_torch.core.checkpoint import CheckpointStore
+    from adlm_tpu_torch.core.device import cast_params
+    from adlm_tpu_torch.train.unoise import build_unet
+
+    run_dir = os.path.join(results, run)
+    arch = os.path.join(run_dir, f"{kind}_config.json")
+    if os.path.exists(arch):
+        with open(arch) as f:
+            cfgd = json.load(f)
+        depth, cf = cfgd["depth"], cfgd["channel_factor"]
+    payload = CheckpointStore(run_dir).restore(kind, "best")
+    model = build_unet(depth, cf, dev, state_dict=payload["state_dict"]).eval()
+    return cast_params(model, "bfloat16") if bf16 else model
+
+
+def _unoise_test_split(args):
+    """The test split of the slice arrays, normalized items (H, W, 3).
+    It must be the training split (box filter first), or the "test"
+    slices would overlap the models' training data."""
+    from adlm_tpu_torch.data.unoise_data import split_datasets
+
+    imgs = np.load(args.imgs)
+    masks = np.load(args.masks)
+    boxes = (np.load(args.boxes, allow_pickle=True)
+             if args.boxes and os.path.exists(args.boxes) else None)
+    return split_datasets(imgs, masks, boxes)[2]
+
+
+def cmd_unoise_train_util(args):
+    from adlm_tpu_torch.train.unoise_pipeline import train_utility
+
+    train_utility(args)
+
+
+def cmd_unoise_train_noise(args):
+    from adlm_tpu_torch.train.unoise_pipeline import train_noise
+
+    train_noise(args)
+
+
+def cmd_unoise_visualize(args):
+    """Interpretation artifacts of trained U-Noise models: the importance
+    mask, its threshold ablation, grad-CAM, occlusion sensitivity and the
+    timing comparison (reference src/make_visualizations.py)."""
+    import torch
+
+    from adlm_tpu_torch.core.device import resolve_device
+    from adlm_tpu_torch.interpret.unoise_vis import (
+        grad_cam, interpretation_timing, occlusion_sensitivity, unoise_importance)
+    from adlm_tpu_torch.interpret.visualize import jet_colormap, upsample_cubic, write_png
+    from adlm_tpu_torch.train.unoise_pipeline import results_dir
+
+    dev = resolve_device(args.device)
+    results = results_dir()
+    util_model = _unoise_model(results, args.utility_run, "utility", dev, args.bf16)
+    noise_model = _unoise_model(results, args.noise_run, "noise", dev, args.bf16,
+                                args.depth, args.channel_factor)
+    image, mask = _unoise_test_split(args)[args.index]
+    image_t = torch.as_tensor(image[None], device=dev)
+    mask_t = torch.as_tensor(mask[None], device=dev)
+    out_dir = os.path.join(results, args.noise_run, "visualizations")
+    os.makedirs(out_dir, exist_ok=True)
+    H, W = image.shape[:2]
+    # approximate inverse of the ImageNet normalization of tiled grey
+    # slices (mean about 0.45, std about 0.225 over the channels)
+    denorm_img = np.clip(image * 0.225 + 0.45, 0, 1)
+
+    def save_heat(heat, name):
+        hn = (heat - heat.min()) / max(heat.max() - heat.min(), 1e-12)
+        if hn.shape != (H, W):
+            hn = upsample_cubic(hn, (H, W))
+        rgb = np.clip(0.5 * denorm_img + 0.5 * jet_colormap(hn), 0, 1)
+        write_png(os.path.join(out_dir, name), (rgb * 255).astype(np.uint8))
+
+    imp = unoise_importance(noise_model, image_t)[0, :, :, 0]
+    save_heat(1.0 - imp, "unoise_importance.png")
+    # threshold ablation: keep the pixels whose noise tolerance B is at
+    # most each threshold (reference make_visualizations.py:193-198)
+    for threshold in np.linspace(0.0, 1.0, 11):
+        masked = denorm_img * (imp <= threshold)[..., None]
+        write_png(os.path.join(out_dir, f"threshold_{threshold:.1f}.png"),
+                  (masked * 255).astype(np.uint8))
+    save_heat(grad_cam(util_model, image_t, x=W // 2, y=H // 2), "grad_cam.png")
+    occ = occlusion_sensitivity(util_model, image_t, mask_t, patch=args.occlusion_patch,
+                                stride=args.occlusion_stride)[0]
+    save_heat(-occ, "occlusion_sensitivity.png")
+    timing = interpretation_timing({
+        "unoise": lambda: unoise_importance(noise_model, image_t),
+        "grad_cam": lambda: grad_cam(util_model, image_t, x=W // 2, y=H // 2),
+        "occlusion": lambda: occlusion_sensitivity(
+            util_model, image_t, mask_t, patch=args.occlusion_patch,
+            stride=args.occlusion_stride),
+    })
+    print(json.dumps({"seconds_per_interpretation": timing}, indent=2))
+    with open(os.path.join(out_dir, "timing.json"), "w") as f:
+        json.dump(timing, f)
+
+
+def cmd_unoise_figures(args):
+    """Coverage-vs-dice curves (reference src/make_figures.py): the fixed
+    threshold grid and the median-mask dice@50% (make_figures.py:135-173)
+    per noise run.  ``--from-pickle`` renders a reference-format
+    results.pickle without any checkpoint; ``--save-pickle`` writes the
+    results in that format."""
+    import torch
+
+    from adlm_tpu_torch.core.device import resolve_device
+    from adlm_tpu_torch.data.unoise_data import batches
+    from adlm_tpu_torch.interpret.figures import (
+        device_threshold_sweep, dice_at_median_importance, load_results_pickle,
+        make_predict, plot_curves, save_results_pickle)
+    from adlm_tpu_torch.interpret.unoise_vis import unoise_importance
+    from adlm_tpu_torch.models.unet import num_params
+    from adlm_tpu_torch.train.unoise_pipeline import results_dir
+
+    dev = resolve_device(args.device)
+    results = results_dir()
+    out = os.path.join(results, "unoise_coverage_dice.png")
+    if args.from_pickle:
+        curves, params_per_model, at_half = load_results_pickle(args.from_pickle)
+        plot_curves(curves, out, params_per_model, dice_at_half=at_half)
+        print(json.dumps({name: {"num_params": params_per_model[name],
+                                 "dice_at_half_coverage": at_half[name]}
+                          for name in curves}, indent=2))
+        return
+    util_model = _unoise_model(results, args.utility_run, "utility", dev, args.bf16)
+    test_imgs, test_masks = next(iter(batches(_unoise_test_split(args), args.n_images)))
+    predict = make_predict(util_model)
+    curves, params_per_model, at_half, pickle_payload = {}, {}, {}, {}
+    for run in args.noise_runs.split(","):
+        # per-run architecture: sizes differ across --noise-runs
+        noise_model = _unoise_model(results, run, "noise", dev, args.bf16,
+                                    args.depth, args.channel_factor)
+        params_per_model[run] = num_params(noise_model)
+        imp = unoise_importance(noise_model, torch.as_tensor(test_imgs, device=dev))
+        dice, cov, thresholds = device_threshold_sweep(
+            predict, imp, test_imgs, test_masks, batch_size=args.sweep_batch_size,
+            device=dev)
+        at_half[run] = dice_at_median_importance(predict, imp, test_imgs, test_masks,
+                                                 batch_size=args.sweep_batch_size)
+        curves[run] = list(zip(cov, dice))
+        pickle_payload[run] = {
+            "thresholds": np.asarray(thresholds), "num_params": params_per_model[run],
+            "dice": dice, "coverage": cov, "dice_at_half_coverage": at_half[run]}
+    plot_curves(curves, out, params_per_model, dice_at_half=at_half)
+    if args.save_pickle:
+        save_results_pickle(args.save_pickle, pickle_payload)
+    print(json.dumps({run: {"curve": curves[run], "num_params": params_per_model[run],
+                            "dice_at_half_coverage": at_half[run]}
+                      for run in curves}, indent=2))
+
+
+def cmd_prepare_unoise(args):
+    from adlm_tpu_torch.core.device import resolve_device
+    from adlm_tpu_torch.data.preprocess import prepare_unoise_data
+
+    # host-only work; the device check keeps every command's contract
+    resolve_device(args.device)
+    prepare_unoise_data(args.source_path, args.target_path)
+
+
+def _add_unoise_data(p) -> None:
+    p.add_argument("--imgs", default="data/images.npy")
+    p.add_argument("--masks", default="data/masks.npy")
+    p.add_argument("--boxes", default="data/bounding_boxes.npy")
+
+
+def _add_bf16(p, what: str) -> None:
+    p.add_argument("--bf16", action="store_true", help=f"bf16 {what}")
+
+
 def _add_device(p) -> None:
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (default cuda; cpu runs "
@@ -429,6 +608,76 @@ def main(argv=None):
                          "result)")
     _add_device(pp)
     pp.set_defaults(fn=cmd_prune)
+
+    for name, fn, run in (("unoise-train-util", cmd_unoise_train_util, "unoise_util"),
+                          ("unoise-train-noise", cmd_unoise_train_noise, "unoise_noise")):
+        up = sub.add_parser(name)
+        _add_unoise_data(up)
+        up.add_argument("--run-name", default=run)
+        up.add_argument("--depth", type=int, default=5)
+        up.add_argument("--channel-factor", type=int, default=6)
+        up.add_argument("--learning-rate", type=float, default=3e-3)
+        up.add_argument("--batch-size", type=int, default=8)
+        up.add_argument("--epochs", type=int, default=100)
+        _add_bf16(up, "U-Net forward and backward (parameters cast inside the step)")
+        if name == "unoise-train-noise":
+            up.add_argument("--utility-run", default="unoise_util")
+            up.add_argument("--pretrained", default=None,
+                            help="utility run name to initialize the noise U-Net from "
+                                 "(architectures must match)")
+            up.add_argument("--pretrained-torch-ckpt", default=None,
+                            help="reference pytorch-lightning UtilityModel checkpoint "
+                                 "(.ckpt) to initialize the noise U-Net from")
+            up.add_argument("--utility-torch-ckpt", default=None,
+                            help="load the FROZEN utility model from a reference "
+                                 "pytorch-lightning checkpoint instead of "
+                                 "--utility-run (architecture from its keys)")
+            up.add_argument("--min-scale", type=float, default=1.0)
+            up.add_argument("--max-scale", type=float, default=5.0)
+            up.add_argument("--noise-coeff", type=float, default=0.001)
+        _add_device(up)
+        up.set_defaults(fn=fn)
+
+    vp = sub.add_parser("unoise-visualize")
+    _add_unoise_data(vp)
+    vp.add_argument("--utility-run", default="unoise_util")
+    vp.add_argument("--noise-run", default="unoise_noise")
+    vp.add_argument("--depth", type=int, default=5)
+    vp.add_argument("--channel-factor", type=int, default=6)
+    vp.add_argument("--index", type=int, default=0)
+    vp.add_argument("--occlusion-patch", type=int, default=10)
+    vp.add_argument("--occlusion-stride", type=int, default=4)
+    _add_bf16(vp, "interpretation forwards")
+    _add_device(vp)
+    vp.set_defaults(fn=cmd_unoise_visualize)
+
+    fp = sub.add_parser("unoise-figures")
+    _add_unoise_data(fp)
+    fp.add_argument("--utility-run", default="unoise_util")
+    fp.add_argument("--noise-runs", default="unoise_noise",
+                    help="comma-separated noise run names")
+    fp.add_argument("--depth", type=int, default=5)
+    fp.add_argument("--channel-factor", type=int, default=6)
+    fp.add_argument("--n-images", type=int, default=8)
+    fp.add_argument("--sweep-batch-size", type=int, default=32,
+                    help="per-batch dice averaging granularity "
+                         "(reference make_figures.py:128)")
+    fp.add_argument("--from-pickle", default=None,
+                    help="render a reference-format results.pickle instead of "
+                         "evaluating checkpoints")
+    fp.add_argument("--save-pickle", default=None,
+                    help="also write the results in the reference's "
+                         "results.pickle format")
+    _add_bf16(fp, "sweep forwards")
+    _add_device(fp)
+    fp.set_defaults(fn=cmd_unoise_figures)
+
+    pu = sub.add_parser("prepare-unoise",
+                        help="Pancreas NIfTI volumes -> U-Noise slice arrays")
+    pu.add_argument("source_path")
+    pu.add_argument("target_path")
+    _add_device(pu)
+    pu.set_defaults(fn=cmd_prepare_unoise)
 
     raw = list(sys.argv[1:] if argv is None else argv)
     args = p.parse_args(raw)

@@ -34,7 +34,8 @@ from typing import Any, Optional
 
 import torch
 
-STAGES = ("warmup", "nopush", "push", "pruned")
+# ProtoSeg's training stages, then U-Noise's two models
+STAGES = ("warmup", "nopush", "push", "pruned", "utility", "noise")
 KINDS = ("last", "best")
 PAYLOAD = "state.pt"
 _STAGING = ".tmp-"  # <path>.next.tmp-<id>: a write not yet finalized

@@ -9,9 +9,10 @@ an unchanged one loads the earlier build.  It runs on the host CPU, so
 building it needs no card.  A failed build raises: there is no PIL or
 pure-Python path behind it.
 
-``augment_sample_plain`` is a numpy version of the fused chain, for the
-tests and ``chip_smoke.py`` only.  U-Noise's ``remap_*`` and
-``gaussian_blur_f32`` are compiled but not bound yet.
+``augment_sample_plain`` is a numpy version of the fused chain, and
+``remap_bilinear_plain``, ``remap_nearest_plain`` and
+``gaussian_blur_plain`` are those of U-Noise's warps (``remap_*``,
+``gaussian_blur``): for the tests and ``chip_smoke.py`` only.
 """
 
 from __future__ import annotations
@@ -89,8 +90,13 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.augment_sample_fused.argtypes = [
         u8p, ctypes.c_void_p, i, i, i, i, i, i, i, i, i, i, i, i, i,
         f32p, f32p, i32p, i, f32p, i32p]
+    lib.remap_bilinear_f32.argtypes = [f32p, i, i, i, f32p, f32p, i, i, f32p]
+    lib.remap_nearest_f32.argtypes = [f32p, i, i, f32p, f32p, i, i, f32p]
+    lib.gaussian_blur_f32.argtypes = [f32p, i, i, ctypes.c_float, f32p, f32p]
     for fn in (lib.resize_bilinear_u8, lib.resize_nearest_i32,
-               lib.augment_sample, lib.augment_sample_fused):
+               lib.augment_sample, lib.augment_sample_fused,
+               lib.remap_bilinear_f32, lib.remap_nearest_f32,
+               lib.gaussian_blur_f32):
         fn.restype = None
 
 
@@ -257,3 +263,109 @@ def augment_sample_plain(img: np.ndarray, label: np.ndarray,
     if flip:
         out_img, out_label = out_img[:, ::-1].copy(), out_label[:, ::-1].copy()
     return out_img, out_label
+
+
+# ---------------------------------------------------------------------------
+# U-Noise's warps (data/warps.py): cv2.remap with BORDER_REFLECT_101, and
+# scipy's gaussian_filter(mode="constant", truncate=4)
+# ---------------------------------------------------------------------------
+
+def _maps(map_y: np.ndarray, map_x: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    if map_y.shape != map_x.shape or map_y.ndim != 2:
+        raise ValueError(f"maps must be two (H, W) arrays, got {map_y.shape} "
+                         f"and {map_x.shape}")
+    return (np.ascontiguousarray(map_y, np.float32),
+            np.ascontiguousarray(map_x, np.float32))
+
+
+def remap_bilinear(img: np.ndarray, map_y: np.ndarray,
+                   map_x: np.ndarray) -> np.ndarray:
+    """cv2.remap(INTER_LINEAR, BORDER_REFLECT_101) of a float32
+    (H, W[, C]) image at the float coordinates of the (OH, OW) maps."""
+    lib = _load()
+    map_y, map_x = _maps(map_y, map_x)
+    squeeze = img.ndim == 2
+    img3 = np.ascontiguousarray(img[..., None] if squeeze else img, np.float32)
+    h, w, c = img3.shape
+    oh, ow = map_y.shape
+    out = np.empty((oh, ow, c), np.float32)
+    lib.remap_bilinear_f32(img3.reshape(-1), h, w, c, map_y.reshape(-1),
+                           map_x.reshape(-1), oh, ow, out.reshape(-1))
+    return out[..., 0] if squeeze else out
+
+
+def remap_nearest(mask: np.ndarray, map_y: np.ndarray,
+                  map_x: np.ndarray) -> np.ndarray:
+    """cv2.remap(INTER_NEAREST, BORDER_REFLECT_101) of a float32 (H, W)
+    mask; coordinates round half to even, as ``np.round``."""
+    lib = _load()
+    map_y, map_x = _maps(map_y, map_x)
+    mask = np.ascontiguousarray(mask, np.float32)
+    if mask.ndim != 2:
+        raise ValueError(f"mask must be (H, W), got {mask.shape}")
+    h, w = mask.shape
+    oh, ow = map_y.shape
+    out = np.empty((oh, ow), np.float32)
+    lib.remap_nearest_f32(mask.reshape(-1), h, w, map_y.reshape(-1),
+                          map_x.reshape(-1), oh, ow, out.reshape(-1))
+    return out
+
+
+def gaussian_blur(src: np.ndarray, sigma: float) -> np.ndarray:
+    """Separable gaussian blur of a float32 (H, W) field with zero
+    borders, truncated at 4 sigma (scipy's ``gaussian_filter(mode=
+    "constant")``; the C code accumulates in f64)."""
+    lib = _load()
+    src = np.ascontiguousarray(src, np.float32)
+    if src.ndim != 2:
+        raise ValueError(f"field must be (H, W), got {src.shape}")
+    h, w = src.shape
+    tmp = np.empty((h, w), np.float32)
+    out = np.empty((h, w), np.float32)
+    lib.gaussian_blur_f32(src.reshape(-1), h, w, ctypes.c_float(sigma),
+                          tmp.reshape(-1), out.reshape(-1))
+    return out
+
+
+def _reflect101(coords: np.ndarray, n: int) -> np.ndarray:
+    """Mirror out-of-range integer coordinates without repeating the edge
+    (cv2.BORDER_REFLECT_101): -1 -> 1, n -> n-2."""
+    if n == 1:
+        return np.zeros_like(coords)
+    period = 2 * (n - 1)
+    c = np.abs(coords) % period
+    return np.where(c >= n, period - c, c)
+
+
+def remap_bilinear_plain(img: np.ndarray, map_y: np.ndarray,
+                         map_x: np.ndarray) -> np.ndarray:
+    """``remap_bilinear`` in numpy, the same f32 operations (the JAX
+    package's ``_sample_bilinear``)."""
+    h, w = img.shape[:2]
+    y0 = np.floor(map_y).astype(np.int64)
+    x0 = np.floor(map_x).astype(np.int64)
+    fy = (map_y - y0).astype(np.float32)
+    fx = (map_x - x0).astype(np.float32)
+    ys = [_reflect101(y0, h), _reflect101(y0 + 1, h)]
+    xs = [_reflect101(x0, w), _reflect101(x0 + 1, w)]
+    if img.ndim == 3:
+        fy, fx = fy[..., None], fx[..., None]
+    top = img[ys[0], xs[0]] * (1 - fx) + img[ys[0], xs[1]] * fx
+    bot = img[ys[1], xs[0]] * (1 - fx) + img[ys[1], xs[1]] * fx
+    return (top * (1 - fy) + bot * fy).astype(img.dtype)
+
+
+def remap_nearest_plain(mask: np.ndarray, map_y: np.ndarray,
+                        map_x: np.ndarray) -> np.ndarray:
+    """``remap_nearest`` in numpy (the JAX package's ``_sample_nearest``)."""
+    h, w = mask.shape[:2]
+    y = _reflect101(np.round(map_y).astype(np.int64), h)
+    x = _reflect101(np.round(map_x).astype(np.int64), w)
+    return mask[y, x]
+
+
+def gaussian_blur_plain(src: np.ndarray, sigma: float) -> np.ndarray:
+    """``gaussian_blur`` by scipy (f64 inside, a float32 result)."""
+    from scipy.ndimage import gaussian_filter
+
+    return gaussian_filter(src, sigma, mode="constant", cval=0)

@@ -23,8 +23,8 @@
 // has FMA (aarch64), so the numpy version augment_sample_plain and
 // the JAX package's build compute the same floats.
 //
-// U-Noise's remap_* and gaussian_blur_f32 below are compiled but not
-// bound yet: they come with the U-Noise slice.
+// U-Noise's remap_* and gaussian_blur_f32 below serve data/warps.py
+// (bound in native/__init__.py beside their numpy versions).
 
 #include <algorithm>
 #include <cmath>
@@ -239,7 +239,7 @@ void augment_sample_fused(const uint8_t* img, const void* label,
 }
 
 // ---------------------------------------------------------------------
-// U-Noise geometric warps (data/warps.py fast path): cv2.remap-style
+// U-Noise geometric warps (data/warps.py): cv2.remap-style
 // coordinate resampling with BORDER_REFLECT_101 and a separable
 // gaussian blur (scipy gaussian_filter mode="constant" semantics) for
 // the elastic displacement field.

@@ -6,6 +6,8 @@
   log-softmax and one batched product, where the reference loops over
   images × classes × prototype pairs (module.py:167-208).
 * ``masked_l1`` — L1 on off-class last-layer weights (module.py:213-218).
+* ``bce_with_logits`` and ``dice_coeff`` — U-Noise's loss and metric
+  (reference src/train_util.py:25-41, src/utils.py:2-12).
 
 ``groups=G`` splits the rows (CE) or images (KLD) into G equal
 contiguous groups and averages the per-group means: the loss of the
@@ -123,3 +125,25 @@ def masked_l1(last_layer_weight: torch.Tensor,
         K, device=last_layer_weight.device)[None, :]
     mask = 1.0 - own.to(_F32)
     return (last_layer_weight.to(_F32) * mask).abs().sum()
+
+
+def bce_with_logits(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Mean binary cross-entropy with logits (torch ``BCEWithLogitsLoss``)
+    in f32, in the stable form ``max(x, 0) − x·t + log1p(exp(−|x|))``.
+
+    Its gradient is ``σ(x) − t`` at an exact-zero logit too: ``maximum``
+    splits a tie's gradient in halves and ``abs`` has slope 0 at 0.  The
+    JAX package's gives ``−t`` there (``jnp.abs`` has slope 1 at 0), which
+    a ReLU-fed head with a zero bias meets (ROADMAP.md, Queue 3)."""
+    x = logits.to(_F32)
+    t = targets.to(_F32)
+    return (torch.maximum(x, x.new_zeros(())) - x * t
+            + torch.log1p(torch.exp(-x.abs()))).mean()
+
+
+def dice_coeff(pred: torch.Tensor, target: torch.Tensor,
+               eps: float = 1e-10) -> torch.Tensor:
+    """Global (batch-flattened) dice coefficient (reference src/utils.py:2-12)."""
+    m1 = pred.to(_F32).reshape(-1)
+    m2 = target.to(_F32).reshape(-1)
+    return 2.0 * (m1 * m2).sum() / (m1.sum() + m2.sum() + eps)

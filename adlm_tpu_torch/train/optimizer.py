@@ -126,8 +126,13 @@ def make_optimizer(cfg: TrainConfig, phase: int, max_steps: Optional[int],
         if params:
             groups.append({"params": params, "lr": lr, "weight_decay": wd,
                            "label": label, "base_lr": lr})
-    opt = torch.optim.Adam(groups, betas=(0.9, 0.999), eps=1e-8)
-    return opt, scale
+    return make_adam(groups), scale
+
+
+def make_adam(params, lr: float = 1e-3) -> torch.optim.Adam:
+    """optax's ``adam`` (betas 0.9/0.999, eps 1e-8, no decay) over
+    ``params`` (tensors or param groups with their own lr)."""
+    return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8)
 
 
 def set_lrs(opt: torch.optim.Optimizer, scale: Schedule, count: int) -> None:

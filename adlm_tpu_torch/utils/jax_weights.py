@@ -25,6 +25,11 @@ group's parameters, keyed by parameter name (``count`` → ``step``,
 ``mu`` → ``exp_avg``, ``nu`` → ``exp_avg_sq``; ``mu`` and ``nu`` are
 params-shaped trees, mapped as gradients are).  It is the by-name form
 the port's checkpoints keep (``train/optimizer.py::adam_state_by_name``).
+
+``unet_state_dict_from_jax(params, batch_stats)`` does the same for the
+JAX U-Net of U-Noise (``down{i}``, ``up{k}``, ``head``) onto
+``adlm_tpu_torch.models.unet.UNet``'s reference names; with
+``batch_stats=None`` it maps a gradient tree.
 """
 
 from __future__ import annotations
@@ -137,4 +142,41 @@ def adam_state_from_jax(opt_state: Mapping[str, Any], model: torch.nn.Module,
             f"the JAX Adam states cover {len(out)} parameters, the port's "
             f"phase {phase} trains {len(trained)}: missing "
             f"{sorted(trained - set(out))[:4]}, extra {sorted(set(out) - trained)[:4]}")
+    return out
+
+
+# U-Net: flax submodule → index in the reference's nn.Sequential
+_UNET_SEQ = {"conv0": "0", "bn0": "1", "conv1": "3", "bn1": "4"}
+_UNET_UP = {"up_conv": "1", "up_bn": "2"}
+_UNET_LEAF = {"kernel": "weight", "bias": "bias", "scale": "weight",
+              "mean": "running_mean", "var": "running_var"}
+
+
+def _unet_key(path: Tuple[str, ...], depth: int) -> str:
+    """state_dict key of one U-Net leaf (``up{k}`` is ``ups.{depth-2-k}``:
+    the reference's ``ups[0]`` is the deepest level)."""
+    top, leaf = path[0], _UNET_LEAF[path[-1]]
+    if top == "head":
+        return f"conv1x1.{leaf}"
+    if top.startswith("down"):
+        return f"downs.{top[4:]}.{_UNET_SEQ[path[1]]}.{leaf}"
+    if top.startswith("up"):
+        j = depth - 2 - int(top[2:])
+        if path[1] == "conv":
+            return f"ups.{j}.conv.{_UNET_SEQ[path[2]]}.{leaf}"
+        return f"ups.{j}.up.{_UNET_UP[path[1]]}.{leaf}"
+    raise KeyError(f"unknown U-Net leaf {'/'.join(path)}")
+
+
+def unet_state_dict_from_jax(params: Mapping[str, Any],
+                             batch_stats: Optional[Mapping[str, Any]] = None
+                             ) -> Dict[str, torch.Tensor]:
+    """The port U-Net's state_dict from the JAX U-Net's ``params`` and
+    ``batch_stats`` (conv kernels HWIO → OIHW); with ``batch_stats=None``
+    the parameter entries only (e.g. of gradients)."""
+    depth = sum(1 for k in params if str(k).startswith("down"))
+    out: Dict[str, torch.Tensor] = {}
+    for path, v in list(_leaves(params)) + list(_leaves(batch_stats or {})):
+        out[_unet_key(path, depth)] = _tensor(
+            np.transpose(v, (3, 2, 0, 1)) if path[-1] == "kernel" else v)
     return out

@@ -18,11 +18,16 @@ map onto the port's ``state_dict``:
 A key with no home, or whose shape differs from the port's tensor (the
 reference's 8 ASPP keys of the ImageNet path), is reported as
 unexpected, as the JAX package reports it.
+
+``load_unoise_checkpoint`` reads a reference U-Noise checkpoint: the
+port's U-Net carries the reference's module names, so its state_dict is
+the checkpoint's with the lightning prefix stripped.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Optional
+import math
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -100,3 +105,39 @@ def load_deeplab_backbone(target: Dict[str, torch.Tensor],
                if k.endswith("running_var") and np.any(_numpy(v) < 0)]
     return {"loaded": loaded, "unexpected_keys": unexpected,
             "negative_variance_keys": bad_var}
+
+
+UNOISE_PREFIX = {"utility": "model.", "noise": "noise_model."}
+
+
+def load_unoise_checkpoint(path: str, kind: str = "utility"
+                           ) -> Tuple[Dict[str, torch.Tensor], int, int]:
+    """(U-Net state_dict, depth, channel factor) of a reference
+    pytorch-lightning U-Noise checkpoint (counterpart of the JAX
+    package's ``load_unoise_checkpoint`` and ``_torch_unet_payload``).
+
+    ``kind`` 'utility' strips the UtilityModel's ``model.`` prefix,
+    'noise' the NoiseModel's ``noise_model.`` (reference
+    train_util.py:12-16, train_noise.py:37-44); a file without it is
+    taken as a raw U-Net state_dict.  ``num_batches_tracked`` entries are
+    dropped; depth and channel factor come from the keys.  The result
+    loads into ``models.unet.UNet(depth=..., cf=...)`` with
+    ``strict=True``.  A lightning checkpoint pickles more than tensors,
+    so the file is read with ``weights_only=False``: load only files you
+    trust.  A negative BN ``running_var`` raises."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    sd = ckpt.get("state_dict", ckpt) if isinstance(ckpt, dict) else ckpt
+    prefix = UNOISE_PREFIX[kind]
+    if not any(k.startswith(prefix) for k in sd):
+        prefix = ""  # a raw U-Net state_dict
+    out = {k[len(prefix):]: torch.as_tensor(_numpy(v)) for k, v in sd.items()
+           if k.startswith(prefix) and not k.endswith("num_batches_tracked")}
+    downs = [int(k.split(".")[1]) for k in out if k.startswith("downs.")]
+    if not downs:
+        raise ValueError(f"{path}: no U-Net keys (prefix {prefix!r}); it has "
+                         f"{sorted(sd)[:4]}...")
+    bad_var = [k for k, v in out.items() if k.endswith("running_var") and bool((v < 0).any())]
+    if bad_var:
+        raise ValueError(f"{path}: corrupt BN running_var in {bad_var[:8]}")
+    cf = int(round(math.log2(out["downs.0.0.weight"].shape[0])))
+    return out, max(downs) + 1, cf

@@ -71,7 +71,23 @@ non-zero and prints no result:
    windows preloaded on the card (equal metrics under cuDNN
    deterministic, 5 head launches per window); then seconds per window
    loader-fed against preloaded in f32, bf16 and bf16 fused, and a
-   ``torch.profiler`` window over one loader-fed bf16 window.
+   ``torch.profiler`` window over one loader-fed bf16 window;
+10. a training run through ``adlm_tpu_torch.cli`` (train unbroken, and
+   halted and resumed; eval-valid, prune, train --pruned, eval-test) on
+   the flagship with its schedule cut to 3 + 3 + 2 windows;
+11. U-Noise at the shipped width (U-Net depth 5, channel factor 6, for
+   both models; batch 8 of 256x256 slices): 200 seeded Pancreas-like
+   slices written to a temporary directory; the host remap and blur
+   bindings against their numpy versions; the U-Net forward (train and
+   eval mode) and one utility and one noise step (a fixed eps) on the
+   card against the port on the CPU; ``unoise-train-util`` and
+   ``unoise-train-noise --pretrained --bf16`` for 2 epochs, ``unoise-visualize
+   --occlusion-stride 16`` and ``unoise-figures --save-pickle`` through
+   the CLI, their files, losses, mean B and dice@50% checked and the
+   importance map held against a direct call; then ms per step in f32
+   and bf16, a profiled utility step per dtype, the loader's slices/s
+   and a loader-fed bf16 epoch against a preloaded one.  No kernel of
+   the port lies on this path.
 
 Precision: f32 runs with TF32 off for convolutions and matmuls (the
 entry points' ``ieee_f32`` scope; the comparisons here run in the same
@@ -1943,8 +1959,9 @@ def same_payload(a, b):
 
 
 def read_png(path: str):
-    """The (H, W) pixels of an 8-bit greyscale PNG whose scanlines use
-    filter 0 (what ``interpret/visualize.py::write_png`` writes)."""
+    """The (H, W) or (H, W, 3) pixels of an 8-bit greyscale or RGB PNG
+    whose scanlines use filter 0 (what ``interpret/visualize.py::write_png``
+    writes)."""
     import struct
     import zlib
 
@@ -1964,12 +1981,13 @@ def read_png(path: str):
             idat += body
         pos += 12 + n
     w, h, depth, color = head
-    if depth != 8 or color != 0:
+    if depth != 8 or color not in (0, 2):
         raise AssertionError(f"{path}: depth {depth}, color type {color}")
-    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, w + 1)
+    c = 3 if color == 2 else 1
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, w * c + 1)
     if rows[:, 0].any():
         raise AssertionError(f"{path}: a scanline filter other than 0")
-    return rows[:, 1:]
+    return rows[:, 1:] if c == 1 else rows[:, 1:].reshape(h, w, 3)
 
 
 class _RecordedEvaluators:
@@ -2252,6 +2270,610 @@ def check_run(report, card: str) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 11: U-Noise through the command line
+# ---------------------------------------------------------------------------
+
+# the shipped U-Net (depth 5, channel factor 6) for the utility and the
+# noise model, batch 8 of 256x256 slices (Pancreas at prepare_unoise_data's
+# downscale 2); 200 seeded slices split 160 / 20 / 20
+UN_SLICES, UN_HW, UN_DEPTH, UN_CF, UN_BS = 200, 256, 5, 6, 8
+UN_EPOCHS = 2
+UN_OCC_STRIDE = 16        # cut: the default stride 4 costs 16x the forwards
+UN_CMP_BS = 2             # batch of the card-vs-CPU checks
+# card (cuDNN) against the port on the CPU (oneDNN), both IEEE f32.
+# Logits: max |diff| over max |logit| (sums in other orders through 23
+# convs and 22 BNs).  A step's gradients are ill-conditioned at random
+# weights and this size (the CPU port's own f32 gradients sit some 4e-3
+# from f64 in relative L2, as this phase prints), so
+# each step is held to an f64 run of the same step on the card: the card's
+# error must stay within UN_F32_FACTOR times the CPU port's (cuDNN may
+# take Winograd-class algorithms, whose f32 error is a few times a direct
+# sum's; a semantic fault is off by order 1).  The conv biases that feed
+# a train-mode BN have an analytic gradient of 0: their norm is held the
+# same way, as a share of all gradients'.
+UN_LOGIT_REL = 1e-4
+UN_STATS_RTOL, UN_STATS_ATOL = 1e-4, 1e-5
+UN_LOSS_RTOL = 1e-5       # each f32 step's loss against the f64 step's
+UN_F32_FACTOR = 10.0
+UN_BLUR_ATOL = 1e-6       # the C blur's f64 sums against scipy's
+UN_TIME_STEPS = 10
+# H100 SXM data-sheet peaks of dense FLOP/s (an FMA counts two): f32 on
+# the CUDA cores, bf16 on the tensor cores
+PEAK_F32_FLOPS, PEAK_BF16_FLOPS = 67e12, 989e12
+
+
+def unoise_slices(n: int, hw: int, seed: int):
+    """Pancreas-like slices: (n, hw, hw) f32 images in [0, 1] (a smooth
+    body, brighter blobs, noise), their blob masks and boxes."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    yy, xx = np.mgrid[0:hw, 0:hw].astype(np.float32) / hw
+    imgs = np.empty((n, hw, hw), np.float32)
+    masks = np.zeros((n, hw, hw), np.float32)
+    boxes = np.zeros((n, 4), np.int32)
+    for i in range(n):
+        body = 0.3 + 0.15 * np.sin(6.0 * xx + rng.rand() * 6) * np.cos(5.0 * yy)
+        for _ in range(rng.randint(1, 4)):
+            cy, cx = rng.uniform(0.2, 0.8, size=2)
+            ry, rx = rng.uniform(0.04, 0.12, size=2)
+            masks[i] = np.maximum(masks[i], (((yy - cy) / ry) ** 2
+                                             + ((xx - cx) / rx) ** 2 < 1).astype(np.float32))
+        imgs[i] = np.clip(body + 0.3 * masks[i] + 0.08 * rng.randn(hw, hw), 0, 1)
+        ys, xs = np.nonzero(masks[i])
+        boxes[i] = (ys.min(), ys.max(), xs.min(), xs.max())
+    return imgs, masks, boxes
+
+
+def check_unoise_native() -> None:
+    """The remap and blur bindings against their numpy versions at the
+    slice size."""
+    import numpy as np
+    from adlm_tpu_torch import native
+
+    rng = np.random.RandomState(SEED + 40)
+    img = rng.rand(UN_HW, UN_HW).astype(np.float32)
+    mask = (rng.rand(UN_HW, UN_HW) > 0.5).astype(np.float32)
+    # coordinates beyond both edges (reflect-101) and exact .5 ties
+    my = (rng.rand(UN_HW, UN_HW) * 1.5 * UN_HW - UN_HW / 4).astype(np.float32)
+    mx = (rng.rand(UN_HW, UN_HW) * 1.5 * UN_HW - UN_HW / 4).astype(np.float32)
+    my[0, :4] = (0.5, 1.5, -0.5, 254.5)
+    for name, got, want in (
+            ("remap_bilinear", native.remap_bilinear(img, my, mx),
+             native.remap_bilinear_plain(img, my, mx)),
+            ("remap_nearest", native.remap_nearest(mask, my, mx),
+             native.remap_nearest_plain(mask, my, mx))):
+        if not np.array_equal(got, want):
+            raise AssertionError(f"{name}: {int((got != want).sum())} values differ "
+                                 "from the numpy version")
+    field = (rng.rand(UN_HW, UN_HW) * 2 - 1).astype(np.float32)
+    err = float(np.abs(native.gaussian_blur(field, 6.0)
+                       - native.gaussian_blur_plain(field, 6.0)).max())
+    log(f"  native remap_bilinear, remap_nearest bit-equal to numpy at {UN_HW}^2; "
+        f"gaussian_blur (sigma 6) max |diff| {err:.2e} against scipy (limit {UN_BLUR_ATOL})")
+    if err > UN_BLUR_ATOL:
+        raise AssertionError("gaussian_blur disagrees with scipy")
+
+
+def _rel_max(got, want) -> float:
+    return float((got.float().cpu() - want.float()).abs().max() / want.float().abs().max())
+
+
+def _same_stats(card_model, cpu_model, what: str) -> None:
+    import torch
+
+    want = cpu_model.state_dict()
+    for k, v in card_model.state_dict().items():
+        if "running" in k and not torch.allclose(v.cpu(), want[k], rtol=UN_STATS_RTOL,
+                                                 atol=UN_STATS_ATOL):
+            raise AssertionError(f"{what}: running statistics {k} differ")
+
+
+def _grad_error(grads, ref, zero):
+    """(relative L2 error of ``grads`` against the f64 ``ref`` over the
+    tensors with a nonzero gradient, the largest analytically-zero
+    gradient's norm over all reference gradients')."""
+    import torch
+
+    keys = [n for n in ref if n not in zero]
+    g = torch.cat([grads[n].detach().double().cpu().flatten() for n in keys])
+    r = torch.cat([ref[n].flatten() for n in keys])
+    total = float(r.norm())
+    return (float((g - r).norm()) / total,
+            max(float(grads[n].detach().double().cpu().norm()) for n in zero) / total)
+
+
+def _hold_step(what, model, card, cpu, ref) -> None:
+    """The card's f32 step and the CPU port's against the f64 step:
+    ``card``, ``cpu``, ``ref`` are (loss, {name: gradient}) of ``model``'s
+    parameters."""
+    from torch import nn
+
+    # the conv biases that feed a train-mode BN: every conv's but the head's
+    zero = [f"{n}.bias" for n, m in model.named_modules()
+            if isinstance(m, nn.Conv2d) and n != "conv1x1"]
+    (e_card, z_card), (e_cpu, z_cpu) = (_grad_error(g, ref[1], zero) for g in (card[1], cpu[1]))
+    log(f"  {what}: loss {card[0]:.7f} card, {cpu[0]:.7f} CPU, {ref[0]:.7f} f64; gradients "
+        f"relative L2 to f64 {e_card:.2e} card, {e_cpu:.2e} CPU (limit {UN_F32_FACTOR:g}x "
+        f"the CPU's); zero-gradient biases {z_card:.2e}, {z_cpu:.2e} of all gradients")
+    if (abs(card[0] - ref[0]) > UN_LOSS_RTOL * abs(ref[0])
+            or abs(cpu[0] - ref[0]) > UN_LOSS_RTOL * abs(ref[0])
+            or not e_card <= UN_F32_FACTOR * e_cpu or not z_card <= UN_F32_FACTOR * z_cpu):
+        raise AssertionError(f"the card's {what} disagrees with the CPU port's")
+
+
+def _grads(model):
+    return {n: p.grad for n, p in model.named_parameters()}
+
+
+def _f64_unet(sd):
+    import torch
+    from adlm_tpu_torch.train import unoise as tu
+
+    return tu.build_unet(UN_DEPTH, UN_CF, torch.device("cuda"), state_dict=sd).double()
+
+
+@contextlib.contextmanager
+def _f64_reference():
+    """Scope of the f64 reference steps on the card, timed: PyTorch's own
+    convolutions (im2col and cuBLAS DGEMM, which runs on the f64 tensor
+    cores) in place of cuDNN's f64 kernels."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.backends.cudnn.flags(enabled=False):
+        yield
+    torch.cuda.synchronize()
+    log(f"  f64 reference step on the card {time.perf_counter() - t0:.1f} s")
+
+
+@_f64_reference()
+def _f64_utility_step(sd, raw, y):
+    """(loss, gradients on the host) of the utility step's function in f64
+    on the card."""
+    import torch.nn.functional as F
+    from adlm_tpu_torch.train import unoise as tu
+
+    m = _f64_unet(sd).train()
+    loss = F.binary_cross_entropy_with_logits(
+        m(tu._prep_images(raw.cuda(), True).double()), y.cuda().permute(0, 3, 1, 2).double())
+    loss.backward()
+    return float(loss.detach()), {n: g.cpu() for n, g in _grads(m).items()}
+
+
+@_f64_reference()
+def _f64_noise_step(cfg, noise_sd, util_sd, raw, y, eps):
+    """(loss, noise-model gradients on the host) of the noise step's
+    function in f64 on the card (the utility model in eval mode, frozen)."""
+    import torch
+    import torch.nn.functional as F
+    from adlm_tpu_torch.train import unoise as tu
+
+    nm, um = _f64_unet(noise_sd).train(), _f64_unet(util_sd).eval().requires_grad_(False)
+    x = tu._prep_images(raw.cuda(), True).double()
+    logits = nm(x)
+    B = torch.sigmoid(logits)
+    noise = eps.cuda().permute(0, 3, 1, 2).double() * (B * (cfg.max_scale - cfg.min_scale)
+                                                      + cfg.min_scale)
+    loss = (F.binary_cross_entropy_with_logits(um(x + noise),
+                                               y.cuda().permute(0, 3, 1, 2).double())
+            - cfg.noise_coeff * F.logsigmoid(logits).mean())
+    loss.backward()
+    return float(loss.detach()), {n: g.cpu() for n, g in _grads(nm).items()}
+
+
+def check_unoise_card_vs_cpu(imgs, masks) -> None:
+    """The U-Net forward (train and eval mode) and one utility and one
+    noise step at full width, on the card and through the port on the
+    CPU, from the same weights, batch and eps."""
+    import numpy as np
+    import torch
+    from adlm_tpu_torch.core.config import UNoiseConfig
+    from adlm_tpu_torch.core.device import ieee_f32
+    from adlm_tpu_torch.train import unoise as tu
+
+    cpu, cuda = torch.device("cpu"), torch.device("cuda")
+    raw = torch.from_numpy(imgs[:UN_CMP_BS, :, :, None].copy())
+    y = torch.from_numpy(masks[:UN_CMP_BS, :, :, None].copy())
+    m_cpu = tu.build_unet(UN_DEPTH, UN_CF, cpu, SEED)
+
+    m_card = tu.build_unet(UN_DEPTH, UN_CF, cuda, state_dict=m_cpu.state_dict())
+    t0 = time.perf_counter()
+    with torch.no_grad(), ieee_f32():
+        for mode in ("train", "eval"):
+            outs = [m.train(mode == "train")(tu._prep_images(raw.to(dev), True))
+                    for m, dev in ((m_card, cuda), (m_cpu, cpu))]
+            err = _rel_max(*outs)
+            log(f"  forward {mode} mode, batch {UN_CMP_BS} x {UN_HW}^2: logits max |diff| "
+                f"{err:.2e} of max |logit| {float(outs[1].abs().max()):.3f} "
+                f"(limit {UN_LOGIT_REL})")
+            if not err <= UN_LOGIT_REL:
+                raise AssertionError(f"the card's {mode}-mode U-Net disagrees with the CPU's")
+            if mode == "train":
+                _same_stats(m_card, m_cpu, "train-mode forward")
+    cfg = UNoiseConfig(depth=UN_DEPTH, channel_factor=UN_CF, util_depth=UN_DEPTH,
+                       util_channel_factor=UN_CF)
+    sd = m_cpu.state_dict()
+    steps = {}
+    for tag, dev in (("card", cuda), ("cpu", cpu)):
+        st = tu.init_utility_state(cfg, device=dev)
+        st.model.load_state_dict(sd)
+        loss = tu.make_utility_train_step(cfg, raw=True)(st, raw.to(dev), y.to(dev))
+        steps[tag] = (st, float(loss))
+    _hold_step("utility step", m_cpu,
+               *[(loss, _grads(st.model)) for st, loss in steps.values()],
+               _f64_utility_step(sd, raw, y))
+    _same_stats(steps["card"][0].model, steps["cpu"][0].model, "utility step")
+
+    # the frozen utility model: the stepped one with running statistics
+    # settled by 30 train-mode forwards on the card (its eval-mode BN
+    # would blow the noisy inputs up into logits of order 1e5 otherwise)
+    util = steps["card"][0].model
+    with torch.no_grad(), ieee_f32():
+        for i in range(30):
+            sl = slice(UN_CMP_BS * (i % 8 + 1), UN_CMP_BS * (i % 8 + 2))
+            util.train()(tu._prep_images(torch.as_tensor(imgs[sl, :, :, None], device=cuda),
+                                         True))
+    util_sd = {k: v.cpu() for k, v in util.state_dict().items()}
+    eps = torch.from_numpy(np.random.RandomState(SEED + 41).randn(
+        UN_CMP_BS, UN_HW, UN_HW, 1).astype(np.float32))
+    noise = {}
+    for tag, dev in (("card", cuda), ("cpu", cpu)):
+        st = tu.init_noise_state(cfg, util_sd, seed=SEED + 1, device=dev)
+        noise_sd = {k: v.cpu().clone() for k, v in st.model.state_dict().items()}
+        before = {k: v.clone() for k, v in st.utility.state_dict().items()}
+        m = tu.make_noise_train_step(cfg, raw=True)(st, raw.to(dev), y.to(dev),
+                                                    eps=eps.to(dev))
+        if any(not torch.equal(v, before[k]) for k, v in st.utility.state_dict().items()):
+            raise AssertionError(f"the noise step changed the utility model on {dev}")
+        noise[tag] = (st, {k: float(v) for k, v in m.items()})
+    (card, m_card), (host, m_host) = noise["card"], noise["cpu"]
+    log(f"  noise step: mean B {m_card['mean_B']:.7f} card, {m_host['mean_B']:.7f} CPU; "
+        "the utility model unchanged")
+    if abs(m_card["mean_B"] - m_host["mean_B"]) > UN_LOSS_RTOL * m_host["mean_B"]:
+        raise AssertionError("the card's mean B disagrees with the CPU's")
+    _hold_step("noise step", m_cpu,
+               *[(m["train_loss"], _grads(st.model)) for st, m in noise.values()],
+               _f64_noise_step(cfg, noise_sd, util_sd, raw, y, eps))
+    _same_stats(card.model, host.model, "noise step")
+    log(f"  card vs CPU checks {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def unoise_probes():
+    """Record every noise train step's metrics and the importance maps
+    ``unoise-visualize`` computes, around the port's own functions."""
+    import adlm_tpu_torch.interpret.unoise_vis as vis
+    import adlm_tpu_torch.train.unoise_pipeline as up
+
+    rec = {"noise_steps": [], "importance": []}
+    saved = (up.make_noise_train_step, vis.unoise_importance)
+
+    def make_noise_train_step(*args, **kwargs):
+        step = saved[0](*args, **kwargs)
+
+        def recorded(*a, **kw):
+            m = step(*a, **kw)
+            rec["noise_steps"].append({k: float(v) for k, v in m.items()})
+            return m
+        return recorded
+
+    def unoise_importance(*args, **kwargs):
+        out = saved[1](*args, **kwargs)
+        rec["importance"].append(out)
+        return out
+
+    up.make_noise_train_step, vis.unoise_importance = make_noise_train_step, unoise_importance
+    try:
+        yield rec
+    finally:
+        up.make_noise_train_step, vis.unoise_importance = saved
+
+
+def run_unoise_command(argv) -> float:
+    """One CLI command in process; its log is printed only on a failure."""
+    import torch
+    from adlm_tpu_torch import cli
+
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            cli.main(list(argv))
+    except BaseException:
+        log("\n".join(out.getvalue().splitlines()[-40:]))
+        raise
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    log(f"  {argv[0]}: {secs:.2f} s")
+    return secs
+
+
+def check_unoise_cli(root: str, card: str) -> None:
+    """unoise-train-util, unoise-train-noise --pretrained --bf16, unoise-visualize
+    and unoise-figures through ``adlm_tpu_torch.cli.main``, and their
+    files."""
+    import csv
+    import json
+    import os
+    import pickle
+
+    import numpy as np
+    import torch
+    from adlm_tpu_torch import cli
+    from adlm_tpu_torch.data.unoise_data import split_datasets
+    from adlm_tpu_torch.interpret.unoise_vis import unoise_importance
+    from adlm_tpu_torch.interpret.visualize import jet_colormap
+
+    data, results = os.path.join(root, "data"), os.path.join(root, "runs")
+    arrays = ["--imgs", os.path.join(data, "images.npy"), "--masks",
+              os.path.join(data, "masks.npy"), "--boxes",
+              os.path.join(data, "bounding_boxes.npy")]
+    train = [*arrays, "--depth", str(UN_DEPTH), "--channel-factor", str(UN_CF),
+             "--epochs", str(UN_EPOCHS), "--batch-size", str(UN_BS)]
+    pickle_path = os.path.join(results, "results.pickle")
+    saved_env = os.environ.get("RESULTS_DIR")
+    saved_det = torch.backends.cudnn.deterministic
+    os.environ["RESULTS_DIR"] = results
+    torch.backends.cudnn.deterministic = True
+    try:
+        with unoise_probes() as rec:
+            run_unoise_command(["unoise-train-util", *train, "--run-name", "util"])
+            # the noise model in bf16: the CLI's --bf16 path, and half the time
+            run_unoise_command(["unoise-train-noise", *train, "--run-name", "noise",
+                                "--utility-run", "util", "--pretrained", "util", "--bf16"])
+            run_unoise_command(["unoise-visualize", *arrays, "--utility-run", "util",
+                                "--noise-run", "noise", "--occlusion-stride",
+                                str(UN_OCC_STRIDE)])
+            run_unoise_command(["unoise-figures", *arrays, "--utility-run", "util",
+                                "--noise-runs", "noise", "--n-images", "8",
+                                "--save-pickle", pickle_path])
+        # every file
+        vis = os.path.join(results, "noise", "visualizations")
+        need = [os.path.join(results, "util", "utility_config.json"),
+                os.path.join(results, "noise", "noise_config.json"), pickle_path,
+                os.path.join(vis, "timing.json")]
+        need += [os.path.join(results, run, "checkpoints", f"{kind}_{k}", "state.pt")
+                 for run, kind in (("util", "utility"), ("noise", "noise"))
+                 for k in ("last", "best")]
+        need += [os.path.join(vis, f) for f in (
+            "unoise_importance.png", "grad_cam.png", "occlusion_sensitivity.png")]
+        need += [os.path.join(vis, f"threshold_{t:.1f}.png") for t in np.linspace(0, 1, 11)]
+        missing = [p for p in need if not os.path.isfile(p)]
+        if missing:
+            raise AssertionError(f"missing files: {missing}")
+        for run, name in (("util", "unoise_util"), ("noise", "unoise_noise")):
+            with open(os.path.join(results, run, "logs", f"{name}_metrics.csv")) as f:
+                rows = list(csv.DictReader(f))
+            if len(rows) != UN_EPOCHS or not all(np.isfinite(float(r["val_loss"]))
+                                                 for r in rows):
+                raise AssertionError(f"{run}: validation rows {rows}")
+            log(f"  {run} validation: " + "; ".join(
+                f"epoch {r['step']} loss {float(r['val_loss']):.4f} dice "
+                f"{float(r['val_dice']):.4f}" for r in rows))
+        steps = rec["noise_steps"]
+        n_steps = UN_EPOCHS * -(-int(UN_SLICES * 0.8) // UN_BS)
+        mean_b = [m["mean_B"] for m in steps]
+        if len(steps) != n_steps or not all(np.isfinite(m["train_loss"]) for m in steps):
+            raise AssertionError(f"{len(steps)} noise steps (want {n_steps}) or a "
+                                 "non-finite loss")
+        if not all(0.0 < b < 1.0 for b in mean_b):
+            raise AssertionError(f"mean B outside (0, 1): {min(mean_b)}, {max(mean_b)}")
+        log(f"  noise steps: {len(steps)}, loss {steps[0]['train_loss']:.4f} -> "
+            f"{steps[-1]['train_loss']:.4f}, mean B {mean_b[0]:.4f} -> {mean_b[-1]:.4f}")
+        with open(pickle_path, "rb") as f:
+            res = pickle.load(f)["noise"]
+        at_half = res["dice_at_half_coverage"]
+        if not 0.0 <= at_half <= 1.0 or len(res["dice"]) != 21:
+            raise AssertionError(f"figures: dice@50% {at_half}, {len(res['dice'])} points")
+        log(f"  figures: dice@50% {at_half:.4f}, dice at full coverage "
+            f"{res['dice'][-1]:.4f}, {res['num_params']:,} noise parameters")
+        # visualize's importance map: a direct call, and the PNG it wrote
+        _, _, test_ds = split_datasets(
+            np.load(os.path.join(data, "images.npy")), np.load(os.path.join(data, "masks.npy")),
+            np.load(os.path.join(data, "bounding_boxes.npy"), allow_pickle=True))
+        image, _ = test_ds[0]
+        model = cli._unoise_model(results, "noise", "noise", torch.device("cuda"), False)
+        direct = unoise_importance(model, torch.as_tensor(image[None], device="cuda"))
+        if not np.array_equal(rec["importance"][0], direct):
+            raise AssertionError("unoise-visualize's importance map differs from a direct "
+                                 "unoise_importance call")
+        heat = 1.0 - direct[0, :, :, 0]
+        hn = (heat - heat.min()) / max(heat.max() - heat.min(), 1e-12)
+        rgb = np.clip(0.5 * np.clip(image * 0.225 + 0.45, 0, 1) + 0.5 * jet_colormap(hn), 0, 1)
+        if not np.array_equal(read_png(os.path.join(vis, "unoise_importance.png")),
+                              (rgb * 255).astype(np.uint8)):
+            raise AssertionError("unoise_importance.png is not the direct call's map")
+        log(f"  importance map: equal to a direct unoise_importance call, mean B "
+            f"{float(direct.mean()):.4f}; its PNG decodes to the same pixels")
+        with open(os.path.join(vis, "timing.json")) as f:
+            timing = json.load(f)
+        log(f"  seconds per interpretation (batch 1, {UN_HW}^2, f32 IEEE; occlusion patch 10, "
+            f"stride {UN_OCC_STRIDE}, {((UN_HW - 10) // UN_OCC_STRIDE + 1) ** 2} anchors): "
+            + ", ".join(f"{k} {v:.4f}" for k, v in timing.items()) + f"  [{card}]")
+    finally:
+        torch.backends.cudnn.deterministic = saved_det
+        if saved_env is None:
+            os.environ.pop("RESULTS_DIR", None)
+        else:
+            os.environ["RESULTS_DIR"] = saved_env
+
+
+def _unoise_groups(rows):
+    """Device ms of a U-Noise step's kernel groups: convolutions (cuDNN's
+    GEMM, implicit-GEMM and FFT kernels), batch norm, and the rest
+    (elementwise, reductions, Adam, copies)."""
+    def group(*keys):
+        return sum(r[0] for r in rows if any(k in r[2].lower() for k in keys))
+
+    conv = group("conv", "xmma", "gemm", "cutlass", "nvjet", "dgrad", "wgrad", "implicit",
+                 "fft", "mult_and_sum_complex", "winograd")
+    bn = group("batch_norm", "batchnorm", "bn_", "welford")
+    return conv, bn, sum(r[0] for r in rows) - conv - bn
+
+
+def unet_counts(hw: int):
+    """(forward FLOPs, BN output elements) of the shipped U-Net on one
+    hw x hw slice, counted with forward hooks on a meta-device model (2
+    FLOPs per multiply-add of every conv)."""
+    import torch
+    from torch import nn
+    from adlm_tpu_torch.models.unet import UNet, UNetBatchNorm
+
+    with torch.device("meta"):
+        model = UNet(depth=UN_DEPTH, cf=UN_CF)
+    counts = [0, 0]
+
+    def hook(m, _, out):
+        if isinstance(m, nn.Conv2d):
+            counts[0] += (2 * m.in_channels * m.kernel_size[0] * m.kernel_size[1]
+                          * out.numel())
+        else:
+            counts[1] += out.numel()
+
+    for m in model.modules():
+        if isinstance(m, (nn.Conv2d, UNetBatchNorm)):
+            m.register_forward_hook(hook)
+    with torch.no_grad():
+        model.eval()(torch.empty(1, 3, hw, hw, device="meta"))
+    return counts[0], counts[1]
+
+
+def time_unoise(imgs, masks, card: str) -> None:
+    """ms per utility and noise step at batch 8 x 256^2 in f32 and bf16,
+    one profiled utility step per dtype, the loader's slices/s and a
+    loader-fed bf16 epoch against a preloaded one."""
+    import dataclasses
+
+    import torch
+    from adlm_tpu_torch.core.config import UNoiseConfig
+    from adlm_tpu_torch.data.pipeline import BatchLoader, device_prefetch
+    from adlm_tpu_torch.data.unoise_data import batches, split_datasets
+    from adlm_tpu_torch.train import unoise as tu
+
+    train_ds = split_datasets(imgs, masks, raw=True)[0]
+    cfg32 = UNoiseConfig(depth=UN_DEPTH, channel_factor=UN_CF, util_depth=UN_DEPTH,
+                         util_channel_factor=UN_CF)
+    x = torch.as_tensor(imgs[:UN_BS, :, :, None].copy(), device="cuda")
+    y = torch.as_tensor(masks[:UN_BS, :, :, None].copy(), device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+
+    def host_ms(fn, n=UN_TIME_STEPS, warm=3):
+        for _ in range(warm):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / n
+
+    flops, bn_elems = unet_counts(UN_HW)
+    step_flops = 3 * flops * UN_BS   # forward, input and weight gradients
+    log(f"  U-Net forward {flops / 1e9:.2f} GFLOP and {bn_elems / 1e6:.2f} M BN outputs "
+        f"per {UN_HW}^2 slice; a batch-{UN_BS} step about {step_flops / 1e12:.2f} TFLOP: "
+        f"bound {step_flops / PEAK_F32_FLOPS * 1e3:.1f} ms f32, "
+        f"{step_flops / PEAK_BF16_FLOPS * 1e3:.1f} ms bf16")
+    util_sd = None
+    for dt in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(cfg32, compute_dtype=dt)
+        st = tu.init_utility_state(cfg, seed=SEED, device="cuda")
+        step = tu.make_utility_train_step(cfg, raw=True)
+        torch.cuda.reset_peak_memory_stats()
+        ms = host_ms(lambda: step(st, x, y))
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        util_sd = util_sd or st.model.state_dict()
+        nst = tu.init_noise_state(cfg, util_sd, seed=SEED + 1, device="cuda")
+        nstep = tu.make_noise_train_step(cfg, raw=True)
+        torch.cuda.reset_peak_memory_stats()
+        nms = host_ms(lambda: nstep(nst, x, y, generator=gen))
+        npeak = torch.cuda.max_memory_allocated() / 2 ** 30
+        log(f"  {dt}: utility step {ms:.2f} ms ({UN_BS * 1e3 / ms:.1f} slices/s, peak "
+            f"{peak:.2f} GiB), noise step {nms:.2f} ms (peak {npeak:.2f} GiB), batch "
+            f"{UN_BS} x {UN_HW}^2, {UN_TIME_STEPS} steps after 3  [{card}]")
+        rows, wall_ms = device_profile(lambda: step(st, x, y), 1)
+        if not rows:
+            log(f"  profile utility step {dt}: the profiler recorded no device time "
+                "(not measured)")
+        else:
+            conv, bn, rest = _unoise_groups(rows)
+            total = conv + bn + rest
+            log(f"  profile utility step {dt}: device {total:.2f} ms of {wall_ms:.2f} ms "
+                f"host (busy {total / wall_ms:.1%}); conv {conv:.2f} ms "
+                f"({conv / total:.1%}), batch norm {bn:.2f} ms ({bn / total:.1%}), "
+                f"other {rest:.2f} ms ({rest / total:.1%})  [{card}]")
+            log_rows(rows, 8)
+        del st, nst
+        torch.cuda.empty_cache()
+
+    # the loader: 4 threads over one augmented epoch, host only
+    t0 = time.perf_counter()
+    n = sum(b[0].shape[0] for b in batches(train_ds, UN_BS, shuffle=True, seed=0, n_jobs=4))
+    rate = n / (time.perf_counter() - t0)
+    # one bf16 utility epoch fed by the loader against the same batches
+    # preloaded on the card (a bf16 step eats slices about as fast as the
+    # loader makes them; an f32 one, six times slower, read 1.04-1.05x)
+    pre = [tuple(torch.as_tensor(a, device="cuda") for a in b)
+           for b in batches(train_ds, UN_BS, shuffle=True, seed=1, n_jobs=4)]
+    cfg = dataclasses.replace(cfg32, compute_dtype="bfloat16")
+    st = tu.init_utility_state(cfg, seed=SEED, device="cuda")
+    step = tu.make_utility_train_step(cfg, raw=True)
+    step(st, *pre[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loader = BatchLoader(batches(train_ds, UN_BS, shuffle=True, seed=1, n_jobs=4))
+    try:
+        for b in device_prefetch(loader, device="cuda"):
+            step(st, *b)
+    finally:
+        loader.close()
+    torch.cuda.synchronize()
+    fed = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for b in pre:
+        step(st, *b)
+    torch.cuda.synchronize()
+    preloaded = time.perf_counter() - t0
+    log(f"  loader (batches, n_jobs 4, augmented): {rate:.1f} slices/s; one bf16 utility "
+        f"epoch ({len(pre)} batches of {UN_BS}) loader-fed {fed:.3f} s, preloaded "
+        f"{preloaded:.3f} s ({fed / preloaded:.2f}x)  [{card}]")
+    del st, pre
+    torch.cuda.empty_cache()
+
+
+def check_unoise(card: str) -> None:
+    """Phase 11: U-Noise at full width (U-Net depth 5, cf 6, batch 8 x
+    256^2): the native bindings, the card against the CPU port, the four
+    commands through the CLI, and timings."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="adlm_unoise_")
+    try:
+        imgs, masks, boxes = unoise_slices(UN_SLICES, UN_HW, SEED + 42)
+        os.makedirs(os.path.join(root, "data"))
+        for name, a in (("images", imgs), ("masks", masks), ("bounding_boxes", boxes)):
+            np.save(os.path.join(root, "data", f"{name}.npy"), a)
+        n_train, n_val = int(UN_SLICES * 0.8), int(UN_SLICES * 0.9) - int(UN_SLICES * 0.8)
+        log(f"  wrote {UN_SLICES} slices {UN_HW}x{UN_HW} (blob masks, boxes): {n_train} "
+            f"train, {n_val} val, {UN_SLICES - n_train - n_val} test")
+        check_unoise_native()
+        check_unoise_card_vs_cpu(imgs, masks)
+        check_unoise_cli(root, card)
+        time_unoise(imgs, masks, card)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"  U-Noise phase {time.perf_counter() - t_phase:.1f} s  [{card}]")
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -2344,6 +2966,11 @@ def main() -> int:
             "resumed), eval-valid --stats --stats-upsampled, prune, train --pruned, "
             "eval-test, flagship at full width, f32 IEEE")
         check_run(report, card)
+
+        log("[11] U-Noise at full width (U-Net depth 5, cf 6, batch 8 x 256^2): native "
+            "warps, card vs CPU, unoise-train-util, unoise-train-noise --pretrained --bf16, "
+            "unoise-visualize, unoise-figures, timings")
+        check_unoise(card)
     except Exception:  # report any failure and exit non-zero
         traceback.print_exc()
         log(f"FAILED after {time.perf_counter() - t_start:.1f} s")

@@ -21,17 +21,24 @@ import re
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
 import adlm_tpu_torch
-from adlm_tpu_torch.core.config import DataConfig, ExperimentConfig, PPNetConfig, TrainConfig
+from adlm_tpu_torch.core.config import (
+    DataConfig,
+    ExperimentConfig,
+    PPNetConfig,
+    TrainConfig,
+    UNoiseConfig,
+)
 from adlm_tpu_torch.data import pipeline
 from adlm_tpu_torch.interpret import analysis, evaluate, nearest, prune, push
 from adlm_tpu_torch.models import calibrate
 from adlm_tpu_torch.models.ppnet import PPNet
 from adlm_tpu_torch.ops import _build
-from adlm_tpu_torch.train import protoseg
+from adlm_tpu_torch.train import protoseg, unoise
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -60,7 +67,9 @@ def test_port_imports_nothing_of_jax():
     for m in ("data.constants", "data.dataset", "data.pipeline", "native",
               "models.calibrate", "train.pipeline", "core.checkpoint", "cli",
               "utils.logging", "utils.tensorboard", "utils.profiling",
-              "utils.torch_import", "utils.watchdog"):
+              "utils.torch_import", "utils.watchdog", "models.unet", "train.unoise",
+              "train.unoise_pipeline", "interpret.unoise_vis", "interpret.figures",
+              "data.warps", "data.unoise_data", "data.nifti", "data.preprocess"):
         assert f"adlm_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
@@ -79,6 +88,8 @@ def test_data_modules_import_no_torch():
         "import sys\n"
         "import adlm_tpu_torch.data.pipeline, adlm_tpu_torch.data.dataset\n"
         "import adlm_tpu_torch.data.constants, adlm_tpu_torch.native\n"
+        "import adlm_tpu_torch.data.warps, adlm_tpu_torch.data.unoise_data\n"
+        "import adlm_tpu_torch.data.nifti, adlm_tpu_torch.data.preprocess\n"
         "print(repr(sorted(m for m in sys.modules if m.split('.')[0] in "
         "('torch', 'jax', 'PIL'))))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -97,6 +108,9 @@ _TINY = PPNetConfig(num_prototypes=6, num_classes=3, prototype_channels=8,
 _CFG = ExperimentConfig(name="tiny", model=_TINY,
                         data=DataConfig(window_size=(33, 33)),
                         train=TrainConfig(iter_size=1))
+
+
+_UNOISE = UNoiseConfig(depth=2, channel_factor=2, util_depth=2, util_channel_factor=2)
 
 
 def _tiny_model():
@@ -156,6 +170,10 @@ ENTRY_POINTS = {
     "init_prototypes_from_data": lambda m, **kw: calibrate.init_prototypes_from_data(
         m, torch.arange(6) // 2, torch.rand(2, 33, 33, 3).numpy(),
         torch.randint(0, 4, (2, 33, 33)).numpy(), log=lambda *_: None, **kw),
+    # U-Noise (the PPNet is not theirs; they build their own U-Nets)
+    "init_utility_state": lambda m, **kw: unoise.init_utility_state(_UNOISE, **kw),
+    "init_noise_state": lambda m, **kw: unoise.init_noise_state(
+        _UNOISE, unoise.init_utility_state(_UNOISE, device="cpu").model.state_dict(), **kw),
 }
 
 
@@ -226,10 +244,42 @@ class _FakeLib:
         return self.fns.setdefault(fn, _FakeFn())
 
 
-@pytest.mark.parametrize("name", _build.KERNELS)
+# the host C++ functions U-Noise's warps call (native/augment.cc)
+_NATIVE = ("remap_bilinear_f32", "remap_nearest_f32", "gaussian_blur_f32")
+
+
+def _check_native_signature(fn):
+    """``native._bind`` declares ``fn`` as augment.cc defines it: each
+    ``float*`` an f32 ndpointer, each ``int`` a c_int, each ``float`` a
+    c_float, no result."""
+    from adlm_tpu_torch import native
+
+    with open(native.SOURCE) as f:
+        src = f.read()
+    params = re.search(r"void\s+" + fn + r"\(([^)]*)\)", src).group(1)
+    fake = _FakeLib()
+    native._bind(fake)
+    declared = fake.fns[fn]
+    assert declared.restype is None
+    decls = [p.strip() for p in params.split(",")]
+    assert len(declared.argtypes) == len(decls)
+    for decl, t in zip(decls, declared.argtypes):
+        if "*" in decl:
+            assert decl.replace("const", "").split()[0] == "float*", decl
+            assert t is np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS"), decl
+        else:
+            assert t is _ctype(decl.rsplit(None, 1)[0]), decl
+
+
+@pytest.mark.parametrize("name", list(_build.KERNELS) + [f"native.{f}" for f in _NATIVE])
 def test_ctypes_signatures_match_the_c_sources(monkeypatch, name):
     """Each wrapper declares every launcher it calls exactly as the C
-    source defines it (the kernels themselves run only on the card)."""
+    source defines it (the kernels themselves run only on the card), and
+    the host library's bindings declare U-Noise's functions as
+    augment.cc defines them."""
+    if name.startswith("native."):
+        _check_native_signature(name[len("native."):])
+        return
     module = importlib.import_module(
         {"prototype_head": "adlm_tpu_torch.ops.prototype",
          "upsample_argmin": "adlm_tpu_torch.ops.upsample_argmin"}[name])
@@ -289,3 +339,36 @@ def test_run_protoseg_training_raises_without_a_card_and_writes_nothing(no_cuda,
     assert not run.exists()
     with pytest.raises(FileNotFoundError):   # past the device check
         run_protoseg_training(_CFG, str(run), data_path=str(tmp_path), device="cpu")
+
+
+# U-Noise command → argv after ``python -m adlm_tpu_torch.cli`` (slice
+# arrays that do not exist, run names under RESULTS_DIR)
+_UNOISE_CLI = {
+    "unoise-train-util": ["unoise-train-util", "--imgs", "{d}/i.npy", "--masks", "{d}/m.npy",
+                          "--run-name", "u"],
+    "unoise-train-noise": ["unoise-train-noise", "--imgs", "{d}/i.npy", "--masks",
+                           "{d}/m.npy", "--run-name", "n", "--utility-run", "u"],
+    "unoise-visualize": ["unoise-visualize", "--imgs", "{d}/i.npy", "--masks", "{d}/m.npy",
+                         "--utility-run", "u", "--noise-run", "n"],
+    "unoise-figures": ["unoise-figures", "--imgs", "{d}/i.npy", "--masks", "{d}/m.npy",
+                       "--utility-run", "u", "--noise-runs", "n"],
+    "prepare-unoise": ["prepare-unoise", "{d}/src", "{d}/dst"],
+}
+
+
+@pytest.mark.parametrize("command", list(_UNOISE_CLI))
+def test_unoise_commands_raise_without_a_card_and_write_nothing(
+        no_cuda, tmp_path, monkeypatch, command):
+    from adlm_tpu_torch import cli
+
+    results = tmp_path / "results"
+    results.mkdir()
+    monkeypatch.setenv("RESULTS_DIR", str(results))
+    before = sorted(p.relative_to(tmp_path) for p in tmp_path.rglob("*"))
+    argv = [a.format(d=tmp_path) for a in _UNOISE_CLI[command]]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main(argv)
+    assert sorted(p.relative_to(tmp_path) for p in tmp_path.rglob("*")) == before
+    # with --device cpu the same command gets past the device check
+    with pytest.raises(FileNotFoundError):   # no arrays, runs or volumes there
+        cli.main(argv + ["--device", "cpu"])
