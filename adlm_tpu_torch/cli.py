@@ -325,19 +325,6 @@ def _unoise_model(results: str, run: str, kind: str, dev, bf16: bool,
     return cast_params(model, "bfloat16") if bf16 else model
 
 
-def _unoise_test_split(args):
-    """The test split of the slice arrays, normalized items (H, W, 3).
-    It must be the training split (box filter first), or the "test"
-    slices would overlap the models' training data."""
-    from adlm_tpu_torch.data.unoise_data import split_datasets
-
-    imgs = np.load(args.imgs)
-    masks = np.load(args.masks)
-    boxes = (np.load(args.boxes, allow_pickle=True)
-             if args.boxes and os.path.exists(args.boxes) else None)
-    return split_datasets(imgs, masks, boxes)[2]
-
-
 def cmd_unoise_train_util(args):
     from adlm_tpu_torch.train.unoise_pipeline import train_utility
 
@@ -360,14 +347,14 @@ def cmd_unoise_visualize(args):
     from adlm_tpu_torch.interpret.unoise_vis import (
         grad_cam, interpretation_timing, occlusion_sensitivity, unoise_importance)
     from adlm_tpu_torch.interpret.visualize import jet_colormap, upsample_cubic, write_png
-    from adlm_tpu_torch.train.unoise_pipeline import results_dir
+    from adlm_tpu_torch.train.unoise_pipeline import load_split, results_dir
 
     dev = resolve_device(args.device)
     results = results_dir()
     util_model = _unoise_model(results, args.utility_run, "utility", dev, args.bf16)
     noise_model = _unoise_model(results, args.noise_run, "noise", dev, args.bf16,
                                 args.depth, args.channel_factor)
-    image, mask = _unoise_test_split(args)[args.index]
+    image, mask = load_split(args, raw=False)[2][args.index]
     image_t = torch.as_tensor(image[None], device=dev)
     mask_t = torch.as_tensor(mask[None], device=dev)
     out_dir = os.path.join(results, args.noise_run, "visualizations")
@@ -423,7 +410,7 @@ def cmd_unoise_figures(args):
         make_predict, plot_curves, save_results_pickle)
     from adlm_tpu_torch.interpret.unoise_vis import unoise_importance
     from adlm_tpu_torch.models.unet import num_params
-    from adlm_tpu_torch.train.unoise_pipeline import results_dir
+    from adlm_tpu_torch.train.unoise_pipeline import load_split, results_dir
 
     dev = resolve_device(args.device)
     results = results_dir()
@@ -436,7 +423,8 @@ def cmd_unoise_figures(args):
                           for name in curves}, indent=2))
         return
     util_model = _unoise_model(results, args.utility_run, "utility", dev, args.bf16)
-    test_imgs, test_masks = next(iter(batches(_unoise_test_split(args), args.n_images)))
+    test_imgs, test_masks = next(iter(batches(load_split(args, raw=False)[2],
+                                             args.n_images)))
     predict = make_predict(util_model)
     curves, params_per_model, at_half, pickle_payload = {}, {}, {}, {}
     for run in args.noise_runs.split(","):

@@ -38,6 +38,16 @@ def _zip_leaves(fn, item, spec):
     return fn(item, spec)
 
 
+def _free_slot(slots, taken):
+    """The first pinned slot [buffer, event] whose last copy has
+    completed (or that was never copied from) and that is not one of
+    ``taken``; None if there is none."""
+    for slot in slots:
+        if all(slot is not t for t in taken) and (slot[1] is None or slot[1].query()):
+            return slot
+    return None
+
+
 def device_prefetch(iterable, depth: int = 2, device: Any = "cuda",
                     dtypes: Any = None):
     """Copy the numpy leaves of the next ``depth`` items to ``device``
@@ -77,16 +87,15 @@ def device_prefetch(iterable, depth: int = 2, device: Any = "cuda",
         t = torch.from_numpy(np.array(x))
         return t if dtype is None else t.to(dtype)
 
-    def stage(x, dtype):
+    def stage(x, dtype, taken):
         """The pinned slot [buffer, event of its last copy] that now
-        holds ``x`` cast to ``dtype``."""
+        holds ``x`` cast to ``dtype``: never one of ``taken``, the slots
+        of the item's earlier leaves, whose copies are not recorded yet."""
         src = torch.from_numpy(np.ascontiguousarray(x))
         dtype = dtype or src.dtype
         slots = pinned[(src.shape, dtype)]
-        for slot in slots:
-            if slot[1] is None or slot[1].query():
-                break
-        else:
+        slot = _free_slot(slots, taken)
+        if slot is None:
             slot = [torch.empty(src.shape, dtype=dtype, pin_memory=True), None]
             slots.append(slot)
         slot[0].copy_(src)
@@ -103,7 +112,7 @@ def device_prefetch(iterable, depth: int = 2, device: Any = "cuda",
         def upload(x, dt):
             if not isinstance(x, np.ndarray):
                 return x
-            slot = stage(x, dt)
+            slot = stage(x, dt, used)
             used.append(slot)
             with torch.cuda.stream(copy_stream):
                 return slot[0].to(dev, non_blocking=True)

@@ -30,7 +30,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from adlm_tpu_torch.core.device import ieee_f32, model_dtype
+from adlm_tpu_torch.core.device import DeviceLike, ieee_f32, model_dtype, resolve_device
 from adlm_tpu_torch.models.unet import UNet
 from adlm_tpu_torch.ops.losses import dice_coeff
 
@@ -109,14 +109,15 @@ def threshold_sweep(predict: Predict, importance, images, masks,
 def device_threshold_sweep(predict: Predict, importance, images, masks,
                            thresholds: Optional[Sequence[float]] = None,
                            batch_size: int = 32, chunk: int = 7,
-                           device=None) -> Tuple[List[float], List[float], List[float]]:
+                           device: DeviceLike = None
+                           ) -> Tuple[List[float], List[float], List[float]]:
     """``threshold_sweep`` with the masking, the forwards and the
     reductions on ``device``: each batch's thresholds go through the
     model ``chunk`` at a time as one stacked batch, and each batch's
     (dice, coverage) vectors come back in one copy.  The same per-batch
-    averages."""
+    averages.  ``device`` is the card unless the caller names the CPU."""
     thresholds = _grid(thresholds)
-    dev = torch.device("cpu") if device is None else torch.device(device)
+    dev = resolve_device(device)
     th = torch.as_tensor(thresholds, dtype=torch.float32, device=dev)
     dice_b, cov_b = [], []
     for imgs_b, masks_b, b_b in _iter_batches(

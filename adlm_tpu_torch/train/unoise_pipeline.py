@@ -52,14 +52,18 @@ def results_dir() -> str:
     return os.environ.get("RESULTS_DIR", "./runs")
 
 
-def _load_arrays(args):
-    """(train, val, test) raw datasets: the steps tile to 3 channels and
-    normalize on the device."""
+def load_split(args, raw: bool = True):
+    """(train, val, test) datasets of ``--imgs``/``--masks``/``--boxes``,
+    the slices without a box dropped first.  Training and the
+    interpretation commands share this split, so the test slices never
+    overlap the training data.  ``raw`` items are (H, W, 1) slices that
+    the steps tile to 3 channels and normalize on the device; otherwise
+    normalized (H, W, 3) items."""
     imgs = np.load(args.imgs)
     masks = np.load(args.masks)
     boxes = (np.load(args.boxes, allow_pickle=True)
-             if os.path.exists(args.boxes) else None)
-    return split_datasets(imgs, masks, boxes, raw=True)
+             if args.boxes and os.path.exists(args.boxes) else None)
+    return split_datasets(imgs, masks, boxes, raw=raw)
 
 
 def _cfg_from_args(args) -> UNoiseConfig:
@@ -86,7 +90,7 @@ def train_utility(args) -> UtilityState:
     dev = resolve_device(args.device)
     cfg = dataclasses.replace(_cfg_from_args(args), util_depth=args.depth,
                               util_channel_factor=args.channel_factor)
-    train_ds, val_ds, _ = _load_arrays(args)
+    train_ds, val_ds, _ = load_split(args)
     run_dir = os.path.join(results_dir(), args.run_name)
     logger = RunLogger(run_dir, "unoise_util")
     store = CheckpointStore(run_dir)
@@ -150,7 +154,7 @@ def _noise_pretrained(args, cfg: UNoiseConfig, logger: RunLogger
 def train_noise(args) -> NoiseState:
     dev = resolve_device(args.device)
     cfg = _cfg_from_args(args)
-    train_ds, val_ds, _ = _load_arrays(args)
+    train_ds, val_ds, _ = load_split(args)
     run_dir = os.path.join(results_dir(), args.run_name)
     logger = RunLogger(run_dir, "unoise_noise")
     try:

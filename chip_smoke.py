@@ -80,11 +80,16 @@ non-zero and prints no result:
    slices written to a temporary directory; the host remap and blur
    bindings against their numpy versions; the U-Net forward (train and
    eval mode) and one utility and one noise step (a fixed eps) on the
-   card against the port on the CPU; ``unoise-train-util`` and
-   ``unoise-train-noise --pretrained --bf16`` for 2 epochs, ``unoise-visualize
+   card against the port on the CPU, each gradient tensor held to an f64
+   step, with a TF32 step and planted gradient faults as controls that
+   must be refused; ``device_prefetch`` of (images, masks) batches
+   against the host's; ``unoise-train-util`` and ``unoise-train-noise
+   --pretrained --bf16`` for 2 epochs, ``unoise-visualize
    --occlusion-stride 16`` and ``unoise-figures --save-pickle`` through
    the CLI, their files, losses, mean B and dice@50% checked and the
-   importance map held against a direct call; then ms per step in f32
+   importance map held against a direct call; both training commands
+   once more for one epoch, their validation rows bit-equal to the first
+   runs'; then ms per step in f32
    and bf16, a profiled utility step per dtype, the loader's slices/s
    and a loader-fed bf16 epoch against a preloaded one.  No kernel of
    the port lies on this path.
@@ -2282,21 +2287,33 @@ UN_OCC_STRIDE = 16        # cut: the default stride 4 costs 16x the forwards
 UN_CMP_BS = 2             # batch of the card-vs-CPU checks
 # card (cuDNN) against the port on the CPU (oneDNN), both IEEE f32.
 # Logits: max |diff| over max |logit| (sums in other orders through 23
-# convs and 22 BNs).  A step's gradients are ill-conditioned at random
-# weights and this size (the CPU port's own f32 gradients sit some 4e-3
-# from f64 in relative L2, as this phase prints), so
-# each step is held to an f64 run of the same step on the card: the card's
-# error must stay within UN_F32_FACTOR times the CPU port's (cuDNN may
-# take Winograd-class algorithms, whose f32 error is a few times a direct
-# sum's; a semantic fault is off by order 1).  The conv biases that feed
-# a train-mode BN have an analytic gradient of 0: their norm is held the
-# same way, as a share of all gradients'.
+# convs and 22 BNs).  A step's gradients sit far from f64 at random
+# weights and this size (the CPU port's own f32 gradients some 4e-3 in
+# relative L2, as this phase prints), so each step is held to an f64 run
+# of the same step on the card, tensor by tensor: each gradient tensor's
+# relative L2 error must stay within UN_F32_FACTOR times the CPU port's
+# for the same tensor (the card's worst ratio read 1.31, a utility step
+# at these seeds), or within UN_GRAD_FLOOR: the head's and the last
+# conv's tensors sit at 1e-7 to 5e-5 on both, where the ratio of two
+# summation orders' errors is noise (the head's bias read 2.82 once, at
+# 3e-6), and a 1% fault is 100 times the floor.  The conv biases that feed a train-mode BN have an
+# analytic gradient of 0: the largest one's norm, as a share of all
+# gradients', is held the same way.  Controls the limit must refuse: a
+# utility step with cuDNN's TF32 convolutions; the card's gradients with
+# the head's or an up-block conv's tensor scaled by 1.01 and a BN scale
+# by 1.05 (UN_FAULT_CASES); and, tensor by tensor, any one scaled by
+# UN_FAULT_ANY.  A 1% fault is seen only where the CPU port's own f32
+# error is under 1% / UN_F32_FACTOR: BN scales and biases carry up to 1%.
 UN_LOGIT_REL = 1e-4
 UN_STATS_RTOL, UN_STATS_ATOL = 1e-4, 1e-5
 UN_LOSS_RTOL = 1e-5       # each f32 step's loss against the f64 step's
-UN_F32_FACTOR = 10.0
+UN_F32_FACTOR = 2.0
+UN_GRAD_FLOOR = 1e-4      # the error no tensor is held below
+UN_FAULT_CASES = (("conv1x1.weight", 1.01), ("ups.3.conv.0.weight", 1.01),
+                  ("downs.0.1.weight", 1.05))
+UN_FAULT_SMALL, UN_FAULT_ANY = 1.01, 1.05
 UN_BLUR_ATOL = 1e-6       # the C blur's f64 sums against scipy's
-UN_TIME_STEPS = 10
+UN_TIME_STEPS = 5
 # H100 SXM data-sheet peaks of dense FLOP/s (an FMA counts two): f32 on
 # the CUDA cores, bf16 on the tensor cores
 PEAK_F32_FLOPS, PEAK_BF16_FLOPS = 67e12, 989e12
@@ -2369,37 +2386,112 @@ def _same_stats(card_model, cpu_model, what: str) -> None:
             raise AssertionError(f"{what}: running statistics {k} differ")
 
 
-def _grad_error(grads, ref, zero):
-    """(relative L2 error of ``grads`` against the f64 ``ref`` over the
-    tensors with a nonzero gradient, the largest analytically-zero
-    gradient's norm over all reference gradients')."""
+def _host64(grads):
+    return {n: g.detach().double().cpu() for n, g in grads.items()}
+
+
+def _step_errors(grads, ref, zero):
+    """({name: relative L2 error of the host f64 ``grads[name]`` against
+    the f64 ``ref[name]``} over the tensors with a nonzero gradient, the
+    largest analytically-zero gradient's norm over all reference
+    gradients')."""
     import torch
 
-    keys = [n for n in ref if n not in zero]
-    g = torch.cat([grads[n].detach().double().cpu().flatten() for n in keys])
-    r = torch.cat([ref[n].flatten() for n in keys])
-    total = float(r.norm())
-    return (float((g - r).norm()) / total,
-            max(float(grads[n].detach().double().cpu().norm()) for n in zero) / total)
+    rel = {n: float((grads[n] - r).norm() / r.norm()) for n, r in ref.items()
+           if n not in zero}
+    total = float(torch.cat([r.flatten() for r in ref.values()]).norm())
+    return rel, max(float(grads[n].norm()) for n in zero) / total
 
 
-def _hold_step(what, model, card, cpu, ref) -> None:
-    """The card's f32 step and the CPU port's against the f64 step:
-    ``card``, ``cpu``, ``ref`` are (loss, {name: gradient}) of ``model``'s
-    parameters."""
+def _step_faults(card, cpu, ref, card_err, cpu_err):
+    """What makes the card's step disagree: its loss or the CPU's off the
+    f64 step's, a gradient tensor or the zero-gradient biases off by more
+    than UN_F32_FACTOR times the CPU port's error."""
+    faults = [f"loss {loss:.7f} against {ref[0]:.7f}" for loss in (card[0], cpu[0])
+              if abs(loss - ref[0]) > UN_LOSS_RTOL * abs(ref[0])]
+    (rel_card, z_card), (rel_cpu, z_cpu) = card_err, cpu_err
+    faults += [f"{n} {rel_card[n]:.2e} (CPU {rel_cpu[n]:.2e})" for n in rel_card
+               if not rel_card[n] <= max(UN_F32_FACTOR * rel_cpu[n], UN_GRAD_FLOOR)]
+    if not z_card <= UN_F32_FACTOR * z_cpu:
+        faults.append(f"zero-gradient biases {z_card:.2e} (CPU {z_cpu:.2e})")
+    return faults
+
+
+def _zero_bias_names(model):
+    """The conv biases that feed a train-mode BN: every conv's but the
+    head's."""
     from torch import nn
 
-    # the conv biases that feed a train-mode BN: every conv's but the head's
-    zero = [f"{n}.bias" for n, m in model.named_modules()
+    return [f"{n}.bias" for n, m in model.named_modules()
             if isinstance(m, nn.Conv2d) and n != "conv1x1"]
-    (e_card, z_card), (e_cpu, z_cpu) = (_grad_error(g, ref[1], zero) for g in (card[1], cpu[1]))
-    log(f"  {what}: loss {card[0]:.7f} card, {cpu[0]:.7f} CPU, {ref[0]:.7f} f64; gradients "
-        f"relative L2 to f64 {e_card:.2e} card, {e_cpu:.2e} CPU (limit {UN_F32_FACTOR:g}x "
-        f"the CPU's); zero-gradient biases {z_card:.2e}, {z_cpu:.2e} of all gradients")
-    if (abs(card[0] - ref[0]) > UN_LOSS_RTOL * abs(ref[0])
-            or abs(cpu[0] - ref[0]) > UN_LOSS_RTOL * abs(ref[0])
-            or not e_card <= UN_F32_FACTOR * e_cpu or not z_card <= UN_F32_FACTOR * z_cpu):
-        raise AssertionError(f"the card's {what} disagrees with the CPU port's")
+
+
+def _hold_step(what, model, card, cpu, ref):
+    """The card's f32 step and the CPU port's against the f64 step:
+    ``card``, ``cpu``, ``ref`` are (loss, {name: gradient}) of ``model``'s
+    parameters.  Returns the card's gradients and both errors, for the
+    controls."""
+    zero = _zero_bias_names(model)
+    card = (card[0], _host64(card[1]))
+    card_err, cpu_err = (_step_errors(g, ref[1], zero) for g in (card[1], _host64(cpu[1])))
+    floored = [n for n in card_err[0] if UN_F32_FACTOR * cpu_err[0][n] < UN_GRAD_FLOOR]
+    ratio = {n: card_err[0][n] / cpu_err[0][n] for n in card_err[0] if n not in floored}
+    worst = max(ratio, key=ratio.get, default=None)
+    lo, hi = min(cpu_err[0].values()), max(cpu_err[0].values())
+    log(f"  {what}: loss {card[0]:.7f} card, {cpu[0]:.7f} CPU, {ref[0]:.7f} f64; "
+        f"{len(card_err[0])} gradient tensors, relative L2 to f64 "
+        f"{min(card_err[0].values()):.2e}-{max(card_err[0].values()):.2e} card, "
+        f"{lo:.2e}-{hi:.2e} CPU; worst card/CPU ratio {ratio.get(worst, 0.0):.2f} ({worst}; limit "
+        f"{UN_F32_FACTOR:g}), {len(floored)} held to {UN_GRAD_FLOOR:g} instead (worst card "
+        f"{max([card_err[0][n] for n in floored], default=0.0):.2e}); zero-gradient biases "
+        f"{card_err[1]:.2e} card, {cpu_err[1]:.2e} CPU of all gradients")
+    faults = _step_faults(card, cpu, ref, card_err, cpu_err)
+    if faults:
+        raise AssertionError(f"the card's {what} disagrees with the CPU port's: {faults[:6]}")
+    return card, card_err, cpu_err
+
+
+def _hold_controls(what, card, cpu, ref, cpu_err) -> None:
+    """The planted controls of the gradient limit: each of UN_FAULT_CASES
+    through ``_step_faults``, and every tensor alone scaled by
+    UN_FAULT_ANY (the same test: the other tensors passed already).  How
+    many tensors a scale by UN_FAULT_SMALL is refused in is printed."""
+    rel_cpu = cpu_err[0]
+    zero = [n for n in ref[1] if n not in rel_cpu]
+    for name, scale in UN_FAULT_CASES:
+        planted = dict(card[1], **{name: card[1][name] * scale})
+        if not _step_faults((card[0], planted), cpu, ref,
+                            _step_errors(planted, ref[1], zero), cpu_err):
+            raise AssertionError(f"the {what} check passed {name}'s gradient scaled by "
+                                 f"{scale}")
+
+    def refused(scale):
+        return [n for n in rel_cpu
+                if float((card[1][n] * scale - ref[1][n]).norm() / ref[1][n].norm())
+                > max(UN_F32_FACTOR * rel_cpu[n], UN_GRAD_FLOOR)]
+
+    small, any_ = refused(UN_FAULT_SMALL), refused(UN_FAULT_ANY)
+    log(f"  controls, {what}: refused " + ", ".join(f"{n} x {f}" for n, f in UN_FAULT_CASES)
+        + f"; one tensor scaled by {UN_FAULT_SMALL} refused in {len(small)} of "
+        f"{len(rel_cpu)} tensors, by {UN_FAULT_ANY} in {len(any_)}")
+    if len(any_) != len(rel_cpu):
+        raise AssertionError(f"the {what} check passed {sorted(set(rel_cpu) - set(any_))[:4]} "
+                             f"scaled by {UN_FAULT_ANY}")
+
+
+@contextlib.contextmanager
+def _tf32_convs():
+    """The port's steps with cuDNN's TF32 convolutions (its default), in
+    place of IEEE f32: the control a gradient limit must refuse."""
+    import torch
+    from adlm_tpu_torch.train import unoise as tu
+
+    saved = tu.ieee_f32, torch.backends.cudnn.allow_tf32
+    tu.ieee_f32, torch.backends.cudnn.allow_tf32 = contextlib.nullcontext, True
+    try:
+        yield
+    finally:
+        tu.ieee_f32, torch.backends.cudnn.allow_tf32 = saved
 
 
 def _grads(model):
@@ -2471,6 +2563,7 @@ def check_unoise_card_vs_cpu(imgs, masks) -> None:
     import torch
     from adlm_tpu_torch.core.config import UNoiseConfig
     from adlm_tpu_torch.core.device import ieee_f32
+    from adlm_tpu_torch.models.unet import UNetBatchNorm
     from adlm_tpu_torch.train import unoise as tu
 
     cpu, cuda = torch.device("cpu"), torch.device("cuda")
@@ -2480,9 +2573,21 @@ def check_unoise_card_vs_cpu(imgs, masks) -> None:
 
     m_card = tu.build_unet(UN_DEPTH, UN_CF, cuda, state_dict=m_cpu.state_dict())
     t0 = time.perf_counter()
+    cpu_s = [0.0]   # of it, the port's work on the CPU
+    laps = []       # (what, seconds since the last lap)
+
+    def on(dev, fn):
+        t = time.perf_counter()
+        out = fn()
+        cpu_s[0] += (time.perf_counter() - t) * (dev.type == "cpu")
+        return out
+
+    def lap(what):
+        laps.append((what, time.perf_counter() - t0 - sum(s for _, s in laps)))
+
     with torch.no_grad(), ieee_f32():
         for mode in ("train", "eval"):
-            outs = [m.train(mode == "train")(tu._prep_images(raw.to(dev), True))
+            outs = [on(dev, lambda: m.train(mode == "train")(tu._prep_images(raw.to(dev), True)))
                     for m, dev in ((m_card, cuda), (m_cpu, cpu))]
             err = _rel_max(*outs)
             log(f"  forward {mode} mode, batch {UN_CMP_BS} x {UN_HW}^2: logits max |diff| "
@@ -2492,6 +2597,7 @@ def check_unoise_card_vs_cpu(imgs, masks) -> None:
                 raise AssertionError(f"the card's {mode}-mode U-Net disagrees with the CPU's")
             if mode == "train":
                 _same_stats(m_card, m_cpu, "train-mode forward")
+    lap("forwards")
     cfg = UNoiseConfig(depth=UN_DEPTH, channel_factor=UN_CF, util_depth=UN_DEPTH,
                        util_channel_factor=UN_CF)
     sd = m_cpu.state_dict()
@@ -2499,23 +2605,49 @@ def check_unoise_card_vs_cpu(imgs, masks) -> None:
     for tag, dev in (("card", cuda), ("cpu", cpu)):
         st = tu.init_utility_state(cfg, device=dev)
         st.model.load_state_dict(sd)
-        loss = tu.make_utility_train_step(cfg, raw=True)(st, raw.to(dev), y.to(dev))
-        steps[tag] = (st, float(loss))
-    _hold_step("utility step", m_cpu,
-               *[(loss, _grads(st.model)) for st, loss in steps.values()],
-               _f64_utility_step(sd, raw, y))
+        loss = on(dev, lambda: float(tu.make_utility_train_step(cfg, raw=True)(
+            st, raw.to(dev), y.to(dev))))
+        steps[tag] = (st, loss)
+    lap("utility steps")
+    ref = _f64_utility_step(sd, raw, y)
+    lap("its f64 step")
+    cpu_step = (steps["cpu"][1], _grads(steps["cpu"][0].model))
+    card_step, _, cpu_err = _hold_step("utility step", m_cpu,
+                                       (steps["card"][1], _grads(steps["card"][0].model)),
+                                       cpu_step, ref)
     _same_stats(steps["card"][0].model, steps["cpu"][0].model, "utility step")
+    _hold_controls("utility step", card_step, cpu_step, ref, cpu_err)
+    lap("their checks")
+    st = tu.init_utility_state(cfg, device=cuda)
+    st.model.load_state_dict(sd)
+    with _tf32_convs():
+        loss = tu.make_utility_train_step(cfg, raw=True)(st, raw.to(cuda), y.to(cuda))
+    try:
+        _hold_step("utility step, control: TF32 convolutions", m_cpu,
+                   (float(loss), _grads(st.model)), cpu_step, ref)
+    except AssertionError as e:
+        log(f"  control refused: {str(e)[:160]}")
+    else:
+        raise AssertionError("the utility step check passed TF32 convolutions")
+    del st
+    lap("the TF32 control")
 
-    # the frozen utility model: the stepped one with running statistics
-    # settled by 30 train-mode forwards on the card (its eval-mode BN
-    # would blow the noisy inputs up into logits of order 1e5 otherwise)
+    # the frozen utility model: the stepped one with its running
+    # statistics set to those of 16 other slices by one train-mode forward
+    # at momentum 1 (its eval-mode BN would blow the noisy inputs up into
+    # logits of order 1e5 otherwise)
     util = steps["card"][0].model
+    bns = [mod for mod in util.modules() if isinstance(mod, UNetBatchNorm)]
+    momenta = [mod.momentum for mod in bns]
     with torch.no_grad(), ieee_f32():
-        for i in range(30):
-            sl = slice(UN_CMP_BS * (i % 8 + 1), UN_CMP_BS * (i % 8 + 2))
-            util.train()(tu._prep_images(torch.as_tensor(imgs[sl, :, :, None], device=cuda),
-                                         True))
+        for mod in bns:
+            mod.momentum = 1.0
+        util.train()(tu._prep_images(torch.as_tensor(
+            imgs[UN_CMP_BS:UN_CMP_BS + 16, :, :, None], device=cuda), True))
+    for mod, momentum in zip(bns, momenta):
+        mod.momentum = momentum
     util_sd = {k: v.cpu() for k, v in util.state_dict().items()}
+    lap("settling")
     eps = torch.from_numpy(np.random.RandomState(SEED + 41).randn(
         UN_CMP_BS, UN_HW, UN_HW, 1).astype(np.float32))
     noise = {}
@@ -2523,21 +2655,30 @@ def check_unoise_card_vs_cpu(imgs, masks) -> None:
         st = tu.init_noise_state(cfg, util_sd, seed=SEED + 1, device=dev)
         noise_sd = {k: v.cpu().clone() for k, v in st.model.state_dict().items()}
         before = {k: v.clone() for k, v in st.utility.state_dict().items()}
-        m = tu.make_noise_train_step(cfg, raw=True)(st, raw.to(dev), y.to(dev),
-                                                    eps=eps.to(dev))
+        lap(f"{tag} noise init")
+        m = on(dev, lambda: {k: float(v) for k, v in tu.make_noise_train_step(cfg, raw=True)(
+            st, raw.to(dev), y.to(dev), eps=eps.to(dev)).items()})
+        lap(f"{tag} noise step")
         if any(not torch.equal(v, before[k]) for k, v in st.utility.state_dict().items()):
             raise AssertionError(f"the noise step changed the utility model on {dev}")
-        noise[tag] = (st, {k: float(v) for k, v in m.items()})
+        noise[tag] = (st, m)
     (card, m_card), (host, m_host) = noise["card"], noise["cpu"]
     log(f"  noise step: mean B {m_card['mean_B']:.7f} card, {m_host['mean_B']:.7f} CPU; "
         "the utility model unchanged")
     if abs(m_card["mean_B"] - m_host["mean_B"]) > UN_LOSS_RTOL * m_host["mean_B"]:
         raise AssertionError("the card's mean B disagrees with the CPU's")
-    _hold_step("noise step", m_cpu,
-               *[(m["train_loss"], _grads(st.model)) for st, m in noise.values()],
-               _f64_noise_step(cfg, noise_sd, util_sd, raw, y, eps))
+    ref = _f64_noise_step(cfg, noise_sd, util_sd, raw, y, eps)
+    lap("its f64 step")
+    cpu_step = (m_host["train_loss"], _grads(host.model))
+    card_step, _, cpu_err = _hold_step("noise step", m_cpu,
+                                       (m_card["train_loss"], _grads(card.model)),
+                                       cpu_step, ref)
+    _hold_controls("noise step", card_step, cpu_step, ref, cpu_err)
     _same_stats(card.model, host.model, "noise step")
-    log(f"  card vs CPU checks {time.perf_counter() - t0:.1f} s")
+    lap("their checks")
+    log(f"  card vs CPU checks {time.perf_counter() - t0:.1f} s: "
+        + ", ".join(f"{what} {secs:.1f}" for what, secs in laps)
+        + f"; the CPU port's forwards and steps {cpu_s[0]:.1f} s of it")
     torch.cuda.empty_cache()
 
 
@@ -2570,6 +2711,25 @@ def unoise_probes():
         yield rec
     finally:
         up.make_noise_train_step, vis.unoise_importance = saved
+
+
+def check_unoise_prefetch(imgs, masks) -> None:
+    """``device_prefetch`` of an epoch's raw (images, masks) batches, two
+    leaves of one shape and dtype, arrives on the card equal to the host
+    batches."""
+    import torch
+    from adlm_tpu_torch.data.pipeline import device_prefetch
+    from adlm_tpu_torch.data.unoise_data import batches, split_datasets
+
+    host = list(batches(split_datasets(imgs, masks, raw=True)[0], UN_BS, shuffle=True,
+                        seed=0, n_jobs=4))
+    got = list(device_prefetch(iter(host), device="cuda"))
+    bad = [i for i, (g, h) in enumerate(zip(got, host))
+           if not all(torch.equal(a.cpu(), torch.from_numpy(b)) for a, b in zip(g, h))]
+    log(f"  device_prefetch: {len(got)} batches of (images, masks) {host[0][0].shape} f32, "
+        f"{len(bad)} differ from the host's")
+    if bad or len(got) != len(host):
+        raise AssertionError(f"device_prefetch changed batches {bad[:5]}")
 
 
 def run_unoise_command(argv) -> float:
@@ -2612,8 +2772,9 @@ def check_unoise_cli(root: str, card: str) -> None:
     arrays = ["--imgs", os.path.join(data, "images.npy"), "--masks",
               os.path.join(data, "masks.npy"), "--boxes",
               os.path.join(data, "bounding_boxes.npy")]
-    train = [*arrays, "--depth", str(UN_DEPTH), "--channel-factor", str(UN_CF),
-             "--epochs", str(UN_EPOCHS), "--batch-size", str(UN_BS)]
+    arch = [*arrays, "--depth", str(UN_DEPTH), "--channel-factor", str(UN_CF),
+            "--batch-size", str(UN_BS)]
+    train = [*arch, "--epochs", str(UN_EPOCHS)]
     pickle_path = os.path.join(results, "results.pickle")
     saved_env = os.environ.get("RESULTS_DIR")
     saved_det = torch.backends.cudnn.deterministic
@@ -2645,15 +2806,29 @@ def check_unoise_cli(root: str, card: str) -> None:
         missing = [p for p in need if not os.path.isfile(p)]
         if missing:
             raise AssertionError(f"missing files: {missing}")
-        for run, name in (("util", "unoise_util"), ("noise", "unoise_noise")):
+        # the same seeds give the same runs: each command once more, for
+        # one epoch (cuDNN deterministic), and its validation row equal
+        run_unoise_command(["unoise-train-util", *arch, "--epochs", "1", "--run-name",
+                            "util_again"])
+        run_unoise_command(["unoise-train-noise", *arch, "--epochs", "1", "--run-name",
+                            "noise_again", "--utility-run", "util", "--pretrained", "util",
+                            "--bf16"])
+
+        def val_rows(run, name):
             with open(os.path.join(results, run, "logs", f"{name}_metrics.csv")) as f:
-                rows = list(csv.DictReader(f))
-            if len(rows) != UN_EPOCHS or not all(np.isfinite(float(r["val_loss"]))
-                                                 for r in rows):
+                return [(r["step"], r["val_loss"], r["val_dice"]) for r in csv.DictReader(f)]
+
+        for run, name in (("util", "unoise_util"), ("noise", "unoise_noise")):
+            rows = val_rows(run, name)
+            if len(rows) != UN_EPOCHS or not all(np.isfinite(float(r[1])) for r in rows):
                 raise AssertionError(f"{run}: validation rows {rows}")
+            again = val_rows(f"{run}_again", name)
+            if again != rows[:1]:
+                raise AssertionError(f"{run}: a second run from the same seeds validated "
+                                     f"{again}, the first {rows[:1]}")
             log(f"  {run} validation: " + "; ".join(
-                f"epoch {r['step']} loss {float(r['val_loss']):.4f} dice "
-                f"{float(r['val_dice']):.4f}" for r in rows))
+                f"epoch {r[0]} loss {float(r[1]):.4f} dice {float(r[2]):.4f}" for r in rows)
+                + "; epoch 0 of a second run bit-equal")
         steps = rec["noise_steps"]
         n_steps = UN_EPOCHS * -(-int(UN_SLICES * 0.8) // UN_BS)
         mean_b = [m["mean_B"] for m in steps]
@@ -2761,7 +2936,7 @@ def time_unoise(imgs, masks, card: str) -> None:
     y = torch.as_tensor(masks[:UN_BS, :, :, None].copy(), device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(1)
 
-    def host_ms(fn, n=UN_TIME_STEPS, warm=3):
+    def host_ms(fn, n=UN_TIME_STEPS, warm=2):
         for _ in range(warm):
             fn()
         torch.cuda.synchronize()
@@ -2793,7 +2968,7 @@ def time_unoise(imgs, masks, card: str) -> None:
         npeak = torch.cuda.max_memory_allocated() / 2 ** 30
         log(f"  {dt}: utility step {ms:.2f} ms ({UN_BS * 1e3 / ms:.1f} slices/s, peak "
             f"{peak:.2f} GiB), noise step {nms:.2f} ms (peak {npeak:.2f} GiB), batch "
-            f"{UN_BS} x {UN_HW}^2, {UN_TIME_STEPS} steps after 3  [{card}]")
+            f"{UN_BS} x {UN_HW}^2, {UN_TIME_STEPS} steps after 2  [{card}]")
         rows, wall_ms = device_profile(lambda: step(st, x, y), 1)
         if not rows:
             log(f"  profile utility step {dt}: the profiler recorded no device time "
@@ -2866,6 +3041,7 @@ def check_unoise(card: str) -> None:
             f"train, {n_val} val, {UN_SLICES - n_train - n_val} test")
         check_unoise_native()
         check_unoise_card_vs_cpu(imgs, masks)
+        check_unoise_prefetch(imgs, masks)
         check_unoise_cli(root, card)
         time_unoise(imgs, masks, card)
     finally:

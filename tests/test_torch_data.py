@@ -334,6 +334,28 @@ def test_device_prefetch_on_the_cpu(jax_stream):
         np.testing.assert_array_equal(lab.numpy(), wl)
 
 
+
+class _Event:
+    def __init__(self, done):
+        self.done = done
+
+    def query(self):
+        return self.done
+
+
+def test_device_prefetch_never_stages_two_leaves_of_an_item_in_one_buffer():
+    """Two leaves of one shape and dtype (U-Noise's raw images and masks)
+    need two pinned buffers: the first leaf's slot is not free for the
+    second until the item's copy event is recorded, whatever its old
+    event says."""
+    a, b = ["a", None], ["b", _Event(False)]
+    assert pipeline._free_slot([a, b], []) is a
+    assert pipeline._free_slot([a, b], [a]) is None   # b's last copy is pending
+    b[1] = _Event(True)
+    assert pipeline._free_slot([a, b], [a]) is b
+    a[1] = _Event(True)
+    assert pipeline._free_slot([a, b], [b, a]) is None
+
 # -- wire dtypes -------------------------------------------------------------
 
 @pytest.mark.parametrize("kw", [dict(), dict(compute_dtype="bfloat16"),

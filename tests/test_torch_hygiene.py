@@ -34,7 +34,7 @@ from adlm_tpu_torch.core.config import (
     UNoiseConfig,
 )
 from adlm_tpu_torch.data import pipeline
-from adlm_tpu_torch.interpret import analysis, evaluate, nearest, prune, push
+from adlm_tpu_torch.interpret import analysis, evaluate, figures, nearest, prune, push
 from adlm_tpu_torch.models import calibrate
 from adlm_tpu_torch.models.ppnet import PPNet
 from adlm_tpu_torch.ops import _build
@@ -174,6 +174,10 @@ ENTRY_POINTS = {
     "init_utility_state": lambda m, **kw: unoise.init_utility_state(_UNOISE, **kw),
     "init_noise_state": lambda m, **kw: unoise.init_noise_state(
         _UNOISE, unoise.init_utility_state(_UNOISE, device="cpu").model.state_dict(), **kw),
+    "device_threshold_sweep": lambda m, **kw: figures.device_threshold_sweep(
+        figures.make_predict(unoise.build_unet(2, 2, torch.device("cpu"))),
+        np.random.RandomState(0).rand(2, 8, 8, 1), np.random.RandomState(1).rand(2, 8, 8, 3),
+        np.ones((2, 8, 8, 1), np.float32), batch_size=2, **kw),
 }
 
 

@@ -20,6 +20,9 @@ side ``jax.random.normal`` is patched, on the port's the step takes
   ``BF16_GRAD_FACTOR`` = 1.5 times the JAX bf16 step's own error (about
   0.3 on these tiny random models, whose train-mode BN backward cancels
   large terms: bf16 keeps 8 bits, both round at every layer);
+* ``--bf16`` on ``unoise-visualize`` and ``unoise-figures``: the
+  importance map within ``BF16_B_ATOL`` = 2e-2 of the f32 command's, the
+  figures' dice within ``CLI_DICE_ATOL``;
 * the commands, on tiny arrays with ``--device cpu`` against the JAX
   CLI, from the same initial weights: the same files, validation losses
   within ``CLI_LOSS_ATOL`` = 5e-3 and dice (validation and the figures'
@@ -33,6 +36,7 @@ import csv
 import json
 import os
 import pickle
+import shutil
 
 import numpy as np
 import optax
@@ -64,6 +68,7 @@ BF16_LOSS_ATOL = 2e-2
 BF16_GRAD_FACTOR = 1.5
 CLI_LOSS_ATOL = 5e-3
 CLI_DICE_ATOL = 5e-2
+BF16_B_ATOL = 2e-2
 
 UTIL = (3, 2)    # utility depth, channel factor
 NOISE = (2, 2)   # noise
@@ -566,6 +571,47 @@ def test_noise_training_from_reference_lightning_checkpoints(cli_runs, tmp_path,
         cli.main(["unoise-train-noise", *arrays, "--run-name", "m", "--depth", "3",
                   "--channel-factor", "2", "--epochs", "1", "--utility-torch-ckpt", str(ckpt),
                   "--pretrained-torch-ckpt", str(ckpt), "--device", "cpu"])
+
+
+def test_bf16_interpretation_commands_within_bf16_rounding(cli_runs, tmp_path, monkeypatch):
+    """``--bf16`` on ``unoise-visualize`` and ``unoise-figures`` casts the
+    trained U-Nets' parameters to bf16 (the BN statistics stay f32): the
+    importance map moves off the f32 command's, by at most
+    ``BF16_B_ATOL`` = 2e-2, and the figures' dice stay within
+    ``CLI_DICE_ATOL`` of the f32 command's (measured: 6.3e-3 and 2.2e-3)."""
+    from adlm_tpu_torch.interpret import unoise_vis as tvis
+
+    results = tmp_path / "runs"
+    shutil.copytree(cli_runs["torch"], results)
+    data = cli_runs["torch"].parent / "data"
+    arrays = ["--imgs", str(data / "images.npy"), "--masks", str(data / "masks.npy"),
+              "--boxes", str(data / "bounding_boxes.npy")]
+    monkeypatch.setenv("RESULTS_DIR", str(results))
+    maps, importance = [], tvis.unoise_importance
+
+    def recording(model, images):
+        maps.append(importance(model, images))
+        return maps[-1]
+
+    monkeypatch.setattr(tvis, "unoise_importance", recording)
+    figures = {}
+    for dtype, flag in (("f32", []), ("bf16", ["--bf16"])):
+        maps.clear()
+        cli.main(["unoise-visualize", *arrays, "--utility-run", "util", "--noise-run", "noise",
+                  "--occlusion-stride", "8", "--device", "cpu", *flag])
+        figures[dtype] = maps[0]
+        pkl = str(results / f"{dtype}.pickle")
+        cli.main(["unoise-figures", *arrays, "--utility-run", "util", "--noise-runs", "noise",
+                  "--n-images", "3", "--save-pickle", pkl, "--device", "cpu", *flag])
+        with open(pkl, "rb") as f:
+            figures[dtype + "_pickle"] = pickle.load(f)["noise"]
+    diff = np.abs(figures["bf16"] - figures["f32"]).max()
+    assert 0.0 < diff <= BF16_B_ATOL, diff
+    got, want = figures["bf16_pickle"], figures["f32_pickle"]
+    assert np.all(np.isfinite(got["dice"])) and len(got["dice"]) == 21
+    np.testing.assert_allclose(got["dice"], want["dice"], atol=CLI_DICE_ATOL)
+    np.testing.assert_allclose(got["dice_at_half_coverage"], want["dice_at_half_coverage"],
+                               atol=CLI_DICE_ATOL)
 
 
 def test_prepare_unoise_through_both_clis(tmp_path):

@@ -123,7 +123,8 @@ def test_threshold_sweeps_match_jax(nets):
     imp = tvis.unoise_importance(nets["noise"][2], torch.from_numpy(x))
     want = jfig.threshold_sweep(jpred, imp, x, y, batch_size=2)
     host = tfig.threshold_sweep(tpred, imp, x, y, batch_size=2)
-    dev = tfig.device_threshold_sweep(tpred, imp, x, y, batch_size=2, chunk=5)
+    dev = tfig.device_threshold_sweep(tpred, imp, x, y, batch_size=2, chunk=5,
+                                     device="cpu")
     jdev = jfig.device_threshold_sweep(jm, v, imp, x, y, batch_size=2)
     for got in (host, dev):
         assert got[2] == want[2] and len(got[0]) == 21
