@@ -8,6 +8,8 @@
     python -m adlm_tpu_torch.cli unoise-train-util / unoise-train-noise
     python -m adlm_tpu_torch.cli unoise-visualize / unoise-figures
     python -m adlm_tpu_torch.cli prepare-unoise <source_path> <target_path>
+    python -m adlm_tpu_torch.cli cls-train <run_name> / cls-prune <run_dir>
+    python -m adlm_tpu_torch.cli import-protopnet <run_name> <checkpoint>
 
 Environment: DATA_PATH (dataset root) and RESULTS_DIR (run outputs), as
 the reference's env.sh / settings.py.  Every command runs on the CUDA
@@ -459,6 +461,166 @@ def cmd_prepare_unoise(args):
     prepare_unoise_data(args.source_path, args.target_path)
 
 
+def cmd_cls_train(args):
+    """ProtoPNet image-classification training (reference main.py:107-189
+    over ImageFolder datasets, settings.py:14-17 environment)."""
+    from adlm_tpu_torch.core.config import PPNetConfig
+    from adlm_tpu_torch.core.device import resolve_device
+    from adlm_tpu_torch.data.image_folder import ImageFolderDataset
+    from adlm_tpu_torch.train.classification import ClassificationConfig
+    from adlm_tpu_torch.train.classification_pipeline import run_classification_training
+
+    if args.mesh_data:
+        raise SystemExit("--mesh-data is not ported yet (ROADMAP.md Queue 1 item 9)")
+    dev = resolve_device(args.device)
+    train_dir = args.train_dir or os.environ.get("TRAIN_DIR")
+    test_dir = args.test_dir or os.environ.get("TEST_DIR")
+    push_dir = args.push_dir or os.environ.get("TRAIN_PUSH_DIR") or train_dir
+    if not train_dir or not test_dir:
+        raise SystemExit("--train-dir/--test-dir (or TRAIN_DIR/TEST_DIR env) required")
+    train_ds = ImageFolderDataset(train_dir, args.img_size)
+    test_ds = ImageFolderDataset(test_dir, args.img_size)
+    # push images normalized, as the push forward expects
+    push_ds = ImageFolderDataset(push_dir, args.img_size)
+    cfg = ClassificationConfig(
+        model=PPNetConfig(
+            base_architecture=args.arch, img_size=args.img_size,
+            num_prototypes=args.prototypes, prototype_channels=args.proto_channels,
+            num_classes=args.num_classes or len(train_ds.classes),
+            add_on_layers_type="regular", patch_classification=False),
+        num_warm_epochs=args.warm_epochs, num_train_epochs=args.epochs,
+        push_start=args.push_start,
+        compute_dtype="bfloat16" if args.bf16 else "float32")
+    run_classification_training(
+        cfg, _results_dir(args.run_name),
+        train_batches=lambda: train_ds.batches(args.batch_size, shuffle=True, seed=0),
+        test_batches=lambda: test_ds.batches(args.test_batch_size, with_count=True),
+        push_batches=lambda: push_ds.batches(args.push_batch_size, with_count=True),
+        steps_per_epoch=-(-len(train_ds) // args.batch_size),
+        target_accuracy=args.target_accuracy,
+        last_layer_iterations=args.last_layer_iterations,
+        push_every=args.push_every, pretrained_path=args.pretrained, device=dev)
+
+
+def cmd_cls_prune(args):
+    """Classification pruning and an optional last-layer finetune
+    (reference run_pruning.py root:113-158): from ``push_best``, else
+    ``nopush_last``, to ``pruned_last`` and ``cls_prune_info.npy``."""
+    from adlm_tpu_torch.core.checkpoint import CheckpointStore
+    from adlm_tpu_torch.core.device import resolve_device
+    from adlm_tpu_torch.data.image_folder import ImageFolderDataset
+    from adlm_tpu_torch.train.classification import (
+        build_classifier,
+        init_classifier_state,
+        make_cls_eval_step,
+        make_cls_train_step,
+        prune_classification_prototypes,
+        with_prototypes,
+    )
+    from adlm_tpu_torch.train.classification_pipeline import (
+        cls_payload,
+        evaluate,
+        load_cls_config,
+        run_epoch,
+    )
+
+    dev = resolve_device(args.device)
+    run_dir = args.run_dir
+    store = CheckpointStore(run_dir)
+    stage, kind = ("push", "best") if store.exists("push", "best") else ("nopush", "last")
+    payload = store.restore(stage, kind, map_location=dev)
+    sd = payload["state_dict"]
+    cfg = with_prototypes(load_cls_config(run_dir), sd["prototype_vectors"].shape[0])
+    state = init_classifier_state(build_classifier(cfg, dev, state_dict=sd), cfg, None,
+                                  proto_class=payload["proto_class"], device=dev)
+
+    train_dir = args.train_dir or os.environ.get("TRAIN_DIR")
+    push_dir = args.push_dir or os.environ.get("TRAIN_PUSH_DIR") or train_dir
+    push_ds = ImageFolderDataset(push_dir, cfg.model.img_size)
+    new_sd, new_pc, prune_info = prune_classification_prototypes(
+        state, push_ds.batches(args.batch_size, with_count=True), k=args.k,
+        prune_threshold=args.threshold, device=dev)
+    np.save(os.path.join(run_dir, "cls_prune_info.npy"), prune_info)
+
+    pruned_cfg = with_prototypes(cfg, new_sd["prototype_vectors"].shape[0])
+    model = build_classifier(pruned_cfg, dev, state_dict=new_sd)
+    if args.last_layer_iterations > 0 and train_dir:
+        test_dir = args.test_dir or os.environ.get("TEST_DIR")
+        train_ds = ImageFolderDataset(train_dir, cfg.model.img_size)
+        test_ds = ImageFolderDataset(test_dir or train_dir, cfg.model.img_size)
+        final = init_classifier_state(model, pruned_cfg, "last", proto_class=new_pc,
+                                      device=dev)
+        last_step = make_cls_train_step(model, pruned_cfg, "last", device=dev)
+        eval_fn = make_cls_eval_step(model, pruned_cfg, device=dev)
+        for it in range(args.last_layer_iterations):
+            final, _ = run_epoch(last_step, final,
+                                 train_ds.batches(args.batch_size, shuffle=True, seed=it))
+            acc = evaluate(eval_fn, final, test_ds.batches(args.batch_size, with_count=True))
+            print(f"pruned last-layer iter {it}: accuracy {acc:.4f}")
+    else:
+        final = init_classifier_state(model, pruned_cfg, None, proto_class=new_pc,
+                                      device=dev)
+        final.step = int(payload["step"])
+    store.save("pruned", "last", cls_payload(final))
+    print(f"pruned {prune_info.shape[0]} prototypes → {int(new_pc.shape[0])} remain; "
+          f"saved pruned_last")
+
+
+def cmd_import_protopnet(args):
+    """Import a trained reference CLASSIFICATION ProtoPNet checkpoint
+    (``torch.save(obj=model, ...)``, reference save.py:11) into a run
+    directory that cls-prune and last-layer finetuning read."""
+    import torch
+
+    from adlm_tpu_torch.core.checkpoint import CheckpointStore
+    from adlm_tpu_torch.core.config import PPNetConfig
+    from adlm_tpu_torch.core.device import resolve_device
+    from adlm_tpu_torch.models.ppnet import PPNet
+    from adlm_tpu_torch.train.classification import ClassificationConfig
+    from adlm_tpu_torch.train.classification_pipeline import save_cls_config
+    from adlm_tpu_torch.utils.torch_import import (
+        load_protopnet_cls,
+        load_torch_ppnet_checkpoint,
+        resolve_proto_class,
+    )
+
+    resolve_device(args.device)
+    sd, proto_class = load_torch_ppnet_checkpoint(args.checkpoint)
+    n_proto, proto_ch = sd["prototype_vectors"].shape[:2]
+    num_classes = int(sd["last_layer.weight"].shape[0])
+    cfg = ClassificationConfig(model=PPNetConfig(
+        base_architecture=args.arch, img_size=args.img_size,
+        num_prototypes=int(n_proto), prototype_channels=int(proto_ch),
+        num_classes=num_classes, add_on_layers_type=args.add_on,
+        patch_classification=False))
+    proto_class = resolve_proto_class(proto_class, args.proto_class, int(n_proto), num_classes)
+    with torch.device("meta"):
+        template = PPNet(cfg.model).state_dict()
+    # NaN-filled: a tensor the checkpoint does not write stays NaN
+    target = {k: torch.full(v.shape, float("nan"), dtype=v.dtype) for k, v in template.items()}
+    target["ones"] = torch.ones(template["ones"].shape)
+    report = load_protopnet_cls(target, sd, args.arch)
+    holes = [k for k, v in target.items() if v.is_floating_point() and bool(v.isnan().any())]
+    for what, keys in (("unmapped keys", report["unexpected_keys"]),
+                       ("corrupt BN running_var", report["negative_variance_keys"]),
+                       ("uninitialized tensors", holes)):
+        if keys:
+            raise SystemExit(f"{what} in {args.checkpoint}: {keys[:8]}")
+    run_dir = _results_dir(args.run_name)
+    store = CheckpointStore(run_dir)
+    save_cls_config(run_dir, cfg)
+    payload = {"state_dict": target,
+               "proto_class": torch.as_tensor(np.asarray(proto_class)).long(), "step": 0}
+    store.save(args.stage, "last", payload)
+    store.save(args.stage, "best", payload)
+    print(f"imported {len(report['loaded'])} tensors ({n_proto} prototypes / "
+          f"{num_classes} classes, {args.arch}) into {run_dir} stage {args.stage!r}")
+
+
+def cmd_cls_export(args):
+    raise SystemExit("cls-export is not ported yet (ROADMAP.md Queue 1 item 10)")
+
+
 def _add_unoise_data(p) -> None:
     p.add_argument("--imgs", default="data/images.npy")
     p.add_argument("--masks", default="data/masks.npy")
@@ -659,6 +821,68 @@ def main(argv=None):
     _add_bf16(fp, "sweep forwards")
     _add_device(fp)
     fp.set_defaults(fn=cmd_unoise_figures)
+
+    cp = sub.add_parser("cls-train")
+    cp.add_argument("run_name")
+    cp.add_argument("--arch", default="vgg19",
+                    help="resnet18/34/50/101/152, vggNN[_bn], densenet121/161/169/201")
+    cp.add_argument("--train-dir", default=None)
+    cp.add_argument("--test-dir", default=None)
+    cp.add_argument("--push-dir", default=None)
+    cp.add_argument("--img-size", type=int, default=224)
+    cp.add_argument("--num-classes", type=int, default=0,
+                    help="default: inferred from train-dir subfolders")
+    cp.add_argument("--prototypes", type=int, default=2000)
+    cp.add_argument("--proto-channels", type=int, default=128)
+    cp.add_argument("--batch-size", type=int, default=80)
+    cp.add_argument("--test-batch-size", type=int, default=100)
+    cp.add_argument("--push-batch-size", type=int, default=75)
+    cp.add_argument("--epochs", type=int, default=1000)
+    cp.add_argument("--warm-epochs", type=int, default=5)
+    cp.add_argument("--push-start", type=int, default=10)
+    cp.add_argument("--push-every", type=int, default=10)
+    cp.add_argument("--last-layer-iterations", type=int, default=20)
+    cp.add_argument("--target-accuracy", type=float, default=0.0)
+    cp.add_argument("--pretrained", default=None,
+                    help="torchvision .pth state_dict (or .npz) with ImageNet stem weights")
+    _add_bf16(cp, "train forward and backward (push and eval stay f32)")
+    cp.add_argument("--mesh-data", type=int, default=0,
+                    help="not ported yet (ROADMAP.md Queue 1 item 9)")
+    _add_device(cp)
+    cp.set_defaults(fn=cmd_cls_train)
+
+    cq = sub.add_parser("cls-prune")
+    cq.add_argument("run_dir")
+    cq.add_argument("--train-dir", default=None)
+    cq.add_argument("--test-dir", default=None)
+    cq.add_argument("--push-dir", default=None)
+    cq.add_argument("--batch-size", type=int, default=75)
+    cq.add_argument("--k", type=int, default=6)
+    cq.add_argument("--threshold", type=int, default=3)
+    cq.add_argument("--last-layer-iterations", type=int, default=0)
+    _add_device(cq)
+    cq.set_defaults(fn=cmd_cls_prune)
+
+    icp = sub.add_parser("import-protopnet",
+                         help="import a trained reference classification ProtoPNet "
+                              "checkpoint into a run dir")
+    icp.add_argument("run_name")
+    icp.add_argument("checkpoint")
+    icp.add_argument("--arch", default="vgg19",
+                     help="feature stem architecture (reference settings.py "
+                          "base_architecture)")
+    icp.add_argument("--img-size", type=int, default=224)
+    icp.add_argument("--add-on", default="regular",
+                     choices=["regular", "bottleneck", "deeplab_simple"])
+    icp.add_argument("--stage", default="push", choices=["nopush", "push", "pruned"])
+    icp.add_argument("--proto-class", default=None,
+                     help="(P,) class-id .npy for pruned checkpoints")
+    _add_device(icp)
+    icp.set_defaults(fn=cmd_import_protopnet)
+
+    cx = sub.add_parser("cls-export", help="not ported yet (ROADMAP.md Queue 1 item 10)")
+    cx.add_argument("rest", nargs=argparse.REMAINDER)
+    cx.set_defaults(fn=cmd_cls_export)
 
     pu = sub.add_parser("prepare-unoise",
                         help="Pancreas NIfTI volumes -> U-Noise slice arrays")

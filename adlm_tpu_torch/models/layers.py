@@ -12,9 +12,29 @@ NCHW modules, meant to run in ``torch.channels_last`` memory format.
 
 from __future__ import annotations
 
+import math
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+
+# std of a unit normal truncated to ±2 (flax's variance_scaling)
+_TRUNC_STD = 0.87962566103423978
+_ERF2 = math.erf(2.0 / math.sqrt(2.0))
+
+
+def lecun_normal_(w: torch.Tensor, generator: Optional[torch.Generator]) -> None:
+    """flax's default conv kernel init, ``lecun_normal``: a normal of
+    variance 1/fan_in truncated to ±2 std, drawn as
+    ``jax.random.truncated_normal`` draws it, the inverse CDF of one
+    uniform draw per entry (torch's own ``trunc_normal_``
+    rejection-samples, whose stream and cost depend on the torch
+    version)."""
+    std = math.sqrt(1.0 / w[0].numel()) / _TRUNC_STD
+    w.uniform_(-_ERF2, _ERF2, generator=generator)
+    w.erfinv_().mul_(std * math.sqrt(2.0)).clamp_(-2.0 * std, 2.0 * std)
 
 
 class FrozenBatchNorm(nn.Module):

@@ -2,7 +2,8 @@
 (counterpart of ``adlm_tpu.models.ppnet``; reference model.py:40-418).
 
 State-dict keys are the reference's: ``features.base.*`` (DeepLabV2
-inside the MSC wrapper), ``add_on_layers.{2i}.*``, ``prototype_vectors``
+inside the MSC wrapper) or ``features.*`` with a classification stem's
+torchvision names (``models/backbones.py``), ``add_on_layers.{2i}.*``, ``prototype_vectors``
 (P, C, 1, 1), ``last_layer.weight`` (K, P) and the constant ``ones``
 buffer (P, C, 1, 1) of the reference's L2 convolution (model.py:140),
 so a state_dict exported from the JAX package loads with
@@ -25,6 +26,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from adlm_tpu_torch.core.config import PPNetConfig
+from adlm_tpu_torch.models.backbones import (
+    backbone_out_channels,
+    build_classification_backbone,
+    reset_stem,
+)
 from adlm_tpu_torch.models.deeplab import MSC, DeepLabV2
 from adlm_tpu_torch.ops.prototype import distance_to_similarity, prototype_head
 
@@ -100,17 +106,24 @@ def build_add_on_layers(kind: str, in_channels: int, proto_channels: int,
 
 
 def build_backbone(cfg: PPNetConfig) -> nn.Module:
-    """Backbone registry (reference model.py:19-36).  This slice ports
-    the DeepLabV2 family; the classification backbones come with the
-    classification slice."""
-    if cfg.base_architecture != "deeplabv2_resnet101":
-        raise NotImplementedError(
-            f"backbone {cfg.base_architecture!r} is not ported yet")
-    base = DeepLabV2(out_features=cfg.deeplab_n_features,
-                     n_blocks=tuple(cfg.deeplab_n_blocks),
-                     atrous_rates=tuple(cfg.atrous_rates),
-                     s2b_dilated=cfg.dilated_space_to_batch)
-    return MSC(base=base, scales=tuple(cfg.msc_scales))
+    """Backbone registry (reference model.py:19-36): the DeepLabV2 family
+    inside its MSC wrapper, or a classification stem
+    (``models/backbones.py``)."""
+    if cfg.base_architecture == "deeplabv2_resnet101":
+        base = DeepLabV2(out_features=cfg.deeplab_n_features,
+                         n_blocks=tuple(cfg.deeplab_n_blocks),
+                         atrous_rates=tuple(cfg.atrous_rates),
+                         s2b_dilated=cfg.dilated_space_to_batch)
+        return MSC(base=base, scales=tuple(cfg.msc_scales))
+    return build_classification_backbone(cfg.base_architecture)
+
+
+def add_on_in_channels(cfg: PPNetConfig) -> int:
+    """Channels the backbone hands the add-on stack: DeepLab's ASPP
+    width, or the classification stem's output width."""
+    if cfg.base_architecture == "deeplabv2_resnet101":
+        return cfg.deeplab_n_features
+    return backbone_out_channels(cfg.base_architecture)
 
 
 class PPNet(nn.Module):
@@ -121,7 +134,7 @@ class PPNet(nn.Module):
         P, C, K = cfg.num_prototypes, cfg.prototype_channels, cfg.num_classes
         self.features = build_backbone(cfg)
         self.add_on_layers = build_add_on_layers(
-            cfg.add_on_layers_type, cfg.deeplab_n_features, C,
+            cfg.add_on_layers_type, add_on_in_channels(cfg), C,
             cfg.bottleneck_stride, cfg.presigmoid_ln)
         self.prototype_vectors = nn.Parameter(torch.empty(P, C, 1, 1))
         self.register_buffer("ones", torch.ones(P, C, 1, 1))
@@ -131,17 +144,20 @@ class PPNet(nn.Module):
     @torch.no_grad()
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
         """The JAX package's initializers, drawn from ``generator``:
-        lecun-normal backbone convs, kaiming-normal (fan_out) add-on
-        convs, zero biases, identity BN, uniform [0, 1) prototypes
-        (reference model.py:54) and the +1 / −0.5 last layer
-        (model.py:359-380)."""
+        lecun-normal backbone convs (a classification stem's truncated,
+        as flax draws them), kaiming-normal (fan_out) add-on convs, zero
+        biases, identity BN, uniform [0, 1) prototypes (reference
+        model.py:54) and the +1 / −0.5 last layer (model.py:359-380)."""
         g = generator
-        for m in self.features.modules():
-            if isinstance(m, nn.Conv2d):
-                fan_in = m.weight[0].numel()
-                m.weight.normal_(0.0, 1.0 / math.sqrt(fan_in), generator=g)
-                if m.bias is not None:
-                    m.bias.zero_()
+        if self.cfg.base_architecture == "deeplabv2_resnet101":
+            for m in self.features.modules():
+                if isinstance(m, nn.Conv2d):
+                    fan_in = m.weight[0].numel()
+                    m.weight.normal_(0.0, 1.0 / math.sqrt(fan_in), generator=g)
+                    if m.bias is not None:
+                        m.bias.zero_()
+        else:
+            reset_stem(self.features, g)
         for m in self.add_on_layers.modules():
             if isinstance(m, nn.Conv2d):
                 fan_out = m.weight.shape[0] * m.weight[0, 0].numel()
@@ -183,8 +199,13 @@ class PPNet(nn.Module):
     def global_head(self, conv_features: torch.Tensor
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """ProtoPNet image classification: global min-pool over patch
-        distances (reference model.py:285-299) → (logits (B, K), (B, P))."""
-        _, d = self.head(conv_features, True)
+        distances (reference model.py:285-299) → (logits (B, K), (B, P)).
+
+        The head's own logits are dropped, so its last-layer operand
+        carries no gradient: the distances alone reach the backward."""
+        rows = conv_features.permute(0, 2, 3, 1)
+        _, d = prototype_head(rows, self.prototypes(), self.last_layer_pk().detach(),
+                              self.cfg.prototype_activation, self.cfg.epsilon, True)
         min_d = d.amin(dim=(1, 2))
         act = distance_to_similarity(min_d, self.cfg.prototype_activation,
                                      self.cfg.epsilon)

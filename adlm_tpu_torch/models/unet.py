@@ -33,26 +33,13 @@ explicit ``torch.Generator``.
 
 from __future__ import annotations
 
-import math
 from typing import List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-# std of a unit normal truncated to ±2 (flax's variance_scaling)
-_TRUNC_STD = 0.87962566103423978
-_ERF2 = math.erf(2.0 / math.sqrt(2.0))
-
-
-def _truncated_normal_(w: torch.Tensor, std: float,
-                       generator: Optional[torch.Generator]) -> None:
-    """A normal of ``std`` truncated to ±2 std, as ``jax.random.truncated_normal``
-    draws it: the inverse CDF of one uniform draw per entry (torch's own
-    ``trunc_normal_`` rejection-samples, whose stream and cost depend on the
-    torch version)."""
-    w.uniform_(-_ERF2, _ERF2, generator=generator)
-    w.erfinv_().mul_(std * math.sqrt(2.0)).clamp_(-2.0 * std, 2.0 * std)
+from adlm_tpu_torch.models.layers import lecun_normal_
 
 
 class UNetBatchNorm(nn.Module):
@@ -124,9 +111,7 @@ class UNet(nn.Module):
         """flax's default initializers, drawn module by module in order."""
         for m in self.modules():
             if isinstance(m, nn.Conv2d):
-                fan_in = m.in_channels * m.kernel_size[0] * m.kernel_size[1]
-                _truncated_normal_(m.weight, math.sqrt(1.0 / fan_in) / _TRUNC_STD,
-                                   generator)
+                lecun_normal_(m.weight, generator)
                 m.bias.zero_()
             elif isinstance(m, UNetBatchNorm):
                 m.weight.fill_(1.0)

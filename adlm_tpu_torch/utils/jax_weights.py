@@ -26,6 +26,12 @@ group's parameters, keyed by parameter name (``count`` → ``step``,
 params-shaped trees, mapped as gradients are).  It is the by-name form
 the port's checkpoints keep (``train/optimizer.py::adam_state_by_name``).
 
+``cls_state_dict_from_jax(params, batch_stats, arch)`` does the same for
+a JAX classification PPNet (a ResNet, VGG or DenseNet stem of
+``adlm_tpu.models.backbones``, trainable BN in ``batch_stats``) onto the
+torchvision names of ``adlm_tpu_torch.models.backbones``; with
+``batch_stats=None`` it maps a gradient tree.
+
 ``unet_state_dict_from_jax(params, batch_stats)`` does the same for the
 JAX U-Net of U-Noise (``down{i}``, ``up{k}``, ``head``) onto
 ``adlm_tpu_torch.models.unet.UNet``'s reference names; with
@@ -178,5 +184,76 @@ def unet_state_dict_from_jax(params: Mapping[str, Any],
     out: Dict[str, torch.Tensor] = {}
     for path, v in list(_leaves(params)) + list(_leaves(batch_stats or {})):
         out[_unet_key(path, depth)] = _tensor(
+            np.transpose(v, (3, 2, 0, 1)) if path[-1] == "kernel" else v)
+    return out
+
+
+# classification stems: flax leaf → torch leaf
+_STEM_LEAF = {"kernel": "weight", "bias": "bias", "scale": "weight",
+              "mean": "running_mean", "var": "running_var"}
+
+
+def _resnet_key(path: Tuple[str, ...]) -> str:
+    """``conv1``, ``bn1``, ``layer{l}_block{b}/{conv,bn}{n}`` and
+    ``.../proj_{conv,bn}`` → torchvision's module path."""
+    if len(path) == 1:
+        return path[0]
+    layer, block = path[0].split("_block")
+    sub = {"proj_conv": "downsample.0", "proj_bn": "downsample.1"}.get(path[1], path[1])
+    return f"{layer}.{block}.{sub}"
+
+
+def _vgg_key(path: Tuple[str, ...], arch: str) -> str:
+    """``stage{s}_{conv,bn}{c}`` → ``features.{index}``."""
+    from adlm_tpu_torch.models.backbones import vgg_layer_indices
+
+    stage, layer = path[0][len("stage"):].split("_")
+    kind = "conv" if layer.startswith("conv") else "bn"
+    return f"features.{vgg_layer_indices(arch)[(kind, int(stage), int(layer[len(kind):]))]}"
+
+
+def _densenet_key(path: Tuple[str, ...]) -> str:
+    """``conv0``, ``bn0``, ``bn_final``, ``block{b}_layer{l}_{a,b}_{bn,conv}``
+    and ``transition{t}_{bn,conv}`` → torchvision's ``features.*``."""
+    name = path[0]
+    fixed = {"conv0": "conv0", "bn0": "norm0", "bn_final": "norm5"}
+    if name in fixed:
+        return f"features.{fixed[name]}"
+    parts = name.split("_")
+    kind = "norm" if parts[-1] == "bn" else "conv"
+    if parts[0].startswith("transition"):
+        return f"features.transition{int(parts[0][len('transition'):]) + 1}.{kind}"
+    block, layer, half = int(parts[0][len("block"):]), int(parts[1][len("layer"):]), parts[2]
+    return (f"features.denseblock{block + 1}.denselayer{layer + 1}."
+            f"{kind}{1 if half == 'a' else 2}")
+
+
+def _stem_key(path: Tuple[str, ...], arch: str) -> str:
+    if arch.startswith("resnet"):
+        mod = _resnet_key(path[:-1])
+    elif arch.startswith("vgg"):
+        mod = _vgg_key(path[:-1], arch)
+    elif arch.startswith("densenet"):
+        mod = _densenet_key(path[:-1])
+    else:
+        raise NotImplementedError(f"no classification stem {arch!r}")
+    return f"features.{mod}.{_STEM_LEAF[path[-1]]}"
+
+
+def cls_state_dict_from_jax(params: Mapping[str, Any],
+                            batch_stats: Optional[Mapping[str, Any]],
+                            arch: str) -> Dict[str, torch.Tensor]:
+    """The port's classification PPNet state_dict from the JAX one's
+    ``params`` and ``batch_stats`` (conv kernels HWIO → OIHW, BN
+    ``scale/bias`` → ``weight/bias``, ``mean/var`` →
+    ``running_mean/running_var``; the add-on stack, prototypes and last
+    layer as ``state_dict_from_jax``); with ``batch_stats=None``, the
+    parameter entries only (e.g. of gradients)."""
+    head = {k: v for k, v in params.items() if k != "features"}
+    out = state_dict_from_jax(head, None if batch_stats is None else {})
+    stem = list(_leaves(params.get("features", {})))
+    stem += list(_leaves((batch_stats or {}).get("features", {})))
+    for path, v in stem:
+        out[_stem_key(path, arch)] = _tensor(
             np.transpose(v, (3, 2, 0, 1)) if path[-1] == "kernel" else v)
     return out

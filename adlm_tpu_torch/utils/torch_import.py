@@ -19,6 +19,14 @@ A key with no home, or whose shape differs from the port's tensor (the
 reference's 8 ASPP keys of the ImageNet path), is reported as
 unexpected, as the JAX package reports it.
 
+``load_classification_backbone`` and ``load_protopnet_cls`` do the same
+for the classifier: the port's stems carry torchvision's names
+(``models/backbones.py``), so a torchvision ImageNet stem's key ``k``
+lands on ``features.k`` and a reference classification PPNet's keys
+map one to one (``ones`` and ``num_batches_tracked`` skipped).
+``load_torch_ppnet_checkpoint`` and ``resolve_proto_class`` read such a
+checkpoint file and its prototype classes for ``import-protopnet``.
+
 ``load_unoise_checkpoint`` reads a reference U-Noise checkpoint: the
 port's U-Net carries the reference's module names, so its state_dict is
 the checkpoint's with the lightning prefix stripped.
@@ -27,7 +35,7 @@ the checkpoint's with the lightning prefix stripped.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Mapping, Optional, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -105,6 +113,123 @@ def load_deeplab_backbone(target: Dict[str, torch.Tensor],
                if k.endswith("running_var") and np.any(_numpy(v) < 0)]
     return {"loaded": loaded, "unexpected_keys": unexpected,
             "negative_variance_keys": bad_var}
+
+
+def _copy_into(target: Dict[str, torch.Tensor], key: str, value: Any,
+               loaded: List[str], unexpected: List[str], src_key: str) -> None:
+    """``target[key] = value`` where ``key`` exists with ``value``'s
+    shape (recorded in ``loaded``), else ``src_key`` is unexpected."""
+    v = _numpy(value)
+    have = target.get(key)
+    if have is None or tuple(have.shape) != v.shape:
+        unexpected.append(src_key)
+        return
+    target[key] = torch.from_numpy(np.ascontiguousarray(v).copy()).to(have.dtype)
+    loaded.append(src_key)
+
+
+def _negative_variances(state_dict: Mapping[str, Any]) -> List[str]:
+    return [k for k, v in state_dict.items()
+            if k.endswith("running_var") and np.any(_numpy(v) < 0)]
+
+
+def load_classification_backbone(target: Dict[str, torch.Tensor],
+                                 state_dict: Mapping[str, Any],
+                                 arch: str) -> Dict[str, list]:
+    """Copy a torchvision ImageNet stem (``resnet*``, ``vgg*[_bn]``,
+    ``densenet*`` keys; tensors or numpy arrays) into ``target``, a
+    classification PPNet's ``state_dict()``, under ``features.``
+    (then ``model.load_state_dict(target)``).  ``fc``/``classifier`` and
+    ``num_batches_tracked`` have no home and are skipped; a DenseNet
+    stem may come with or without its ``features.`` prefix.
+
+    Returns the report ``{"loaded", "unexpected_keys",
+    "negative_variance_keys"}`` over the source keys (the JAX package's
+    contract)."""
+    if not arch.startswith(("resnet", "vgg", "densenet")):
+        raise NotImplementedError(f"no importer for arch {arch!r}")
+    loaded: List[str] = []
+    unexpected: List[str] = []
+    for key, value in state_dict.items():
+        if key.endswith("num_batches_tracked") or key.split(".")[0] in ("fc", "classifier"):
+            continue
+        sub = key
+        if arch.startswith("densenet") and not key.startswith("features."):
+            sub = "features." + key
+        _copy_into(target, "features." + sub, value, loaded, unexpected, key)
+    return {"loaded": loaded, "unexpected_keys": unexpected,
+            "negative_variance_keys": _negative_variances(state_dict)}
+
+
+def load_protopnet_cls(target: Dict[str, torch.Tensor],
+                       state_dict: Mapping[str, Any], arch: str) -> Dict[str, list]:
+    """Copy a reference CLASSIFICATION PPNet state_dict into ``target``,
+    the port classification PPNet's ``state_dict()``: the stem under
+    ``features.`` (``load_classification_backbone``), the add-on convs
+    ``add_on_layers.{2i}``, ``prototype_vectors`` and
+    ``last_layer.weight``; the constant ``ones`` is skipped.  Returns the
+    same report, its keys those of ``state_dict``."""
+    stem = {k[len("features."):]: v for k, v in state_dict.items()
+            if k.startswith("features.") and not k.endswith("num_batches_tracked")}
+    report = load_classification_backbone(target, stem, arch)
+    loaded = [f"features.{k}" for k in report["loaded"]]
+    unexpected = [f"features.{k}" for k in report["unexpected_keys"]]
+    for key, value in state_dict.items():
+        if key.startswith("features.") or key == "ones":
+            continue
+        _copy_into(target, key, value, loaded, unexpected, key)
+    return {"loaded": loaded, "unexpected_keys": unexpected,
+            "negative_variance_keys": [f"features.{k}" for k in
+                                       report["negative_variance_keys"]]}
+
+
+def load_torch_ppnet_checkpoint(path: str
+                                ) -> Tuple[Dict[str, np.ndarray], Optional[np.ndarray]]:
+    """(numpy state_dict, proto_class or None) of a reference PPNet
+    checkpoint file: a whole-module pickle (their save format), a plain
+    state_dict or a ``{"state_dict": ...}`` wrapper.  ``proto_class`` is
+    the argmax of the module's ``prototype_class_identity`` when it has
+    one.  A pickle runs code when read: load only files you trust."""
+    try:
+        obj = torch.load(path, map_location="cpu", weights_only=False)
+    except (ModuleNotFoundError, AttributeError) as e:
+        raise SystemExit(
+            f"could not unpickle {path} ({e}); the reference saves whole-module "
+            "pickles, which need its classes importable: in the reference "
+            "environment run `torch.save(torch.load(f).state_dict(), out)` and "
+            "import that state_dict instead")
+    proto_class = None
+    if hasattr(obj, "state_dict") and callable(obj.state_dict):
+        if getattr(obj, "prototype_class_identity", None) is not None:
+            proto_class = np.argmax(_numpy(obj.prototype_class_identity), axis=1)
+        sd = obj.state_dict()
+    elif isinstance(obj, dict):
+        sd = obj.get("state_dict", obj)
+    else:
+        raise SystemExit(f"unsupported checkpoint object {type(obj)!r}")
+    return {k: _numpy(v) for k, v in sd.items()}, proto_class
+
+
+def resolve_proto_class(proto_class: Optional[np.ndarray],
+                        proto_class_file: Optional[str], n_proto: int,
+                        num_classes: int) -> np.ndarray:
+    """The (P,) class ids of an imported checkpoint: the ``--proto-class``
+    file, else the module's attribute, else contiguous equal blocks
+    (valid only where P divides evenly: pruned checkpoints are
+    ragged)."""
+    if proto_class_file:
+        proto_class = np.load(proto_class_file)
+    if proto_class is None:
+        if n_proto % num_classes:
+            raise SystemExit(
+                f"{n_proto} prototypes do not divide into {num_classes} classes: "
+                "this looks like a pruned checkpoint; pass --proto-class "
+                "<file.npy> with the (P,) class-id array (in the reference: "
+                "`ppnet.prototype_class_identity.argmax(1)`)")
+        proto_class = np.arange(n_proto) // (n_proto // num_classes)
+    if proto_class.shape != (n_proto,):
+        raise SystemExit(f"proto_class shape {proto_class.shape} != ({n_proto},)")
+    return proto_class
 
 
 UNOISE_PREFIX = {"utility": "model.", "noise": "noise_model."}

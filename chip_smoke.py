@@ -93,6 +93,22 @@ non-zero and prints no result:
    and bf16, a profiled utility step per dtype, the loader's slices/s
    and a loader-fed bf16 epoch against a preloaded one.  No kernel of
    the port lies on this path.
+12. the ProtoPNet classifier at the default preset's full width
+   (``ClassificationConfig``: VGG19 at 224x224, P = 2000, C = 128,
+   K = 200, batch 80) on 600 seeded PNGs in a temporary image folder:
+   one warm, joint and last step with the head kernel's general path
+   (one launch each) and from the same start with its plain forward,
+   min-pooled at the kernel step's cells, compared metric by metric and
+   gradient by gradient; the f32 joint
+   step's gradients against an f64 step on the card, with a TF32 step
+   that must be refused; a bf16 joint step; push over the training set,
+   each winner held to f64 distances under phase 8's near-tie rule;
+   ``cls-train`` (3 epochs, a push, 2 last-layer iterations),
+   ``cls-prune`` and ``import-protopnet`` through the CLI, the imported
+   model's test accuracy equal to the trained one's; then seconds per
+   step per phase and dtype, eval and push images/s, the head's general
+   path at 3,920 and 4,900 rows and its plain backward, and a profile
+   of one f32 and one bf16 joint step.
 
 Precision: f32 runs with TF32 off for convolutions and matmuls (the
 entry points' ``ieee_f32`` scope; the comparisons here run in the same
@@ -160,6 +176,10 @@ TRAIN_ITER, TRAIN_BS, TRAIN_HW, TRAIN_STEPS = 5, 2, 513, 3
 TRAIN_RTOL = 1e-4        # loss, cross_entropy, kld_loss, l1, grad_norm
 TRAIN_GRAD_REL = 1e-3    # each step-1 gradient tensor, relative L2
 TRAIN_TIE_SHARE = 1e-4   # n_correct, a share of the valid patches
+# the head's kernels in a profile: the persistent kernel, and the
+# general path's norms, distances and logits
+HEAD_KERNELS = ("head_kernel", "sq_norms_kernel", "general_dist_kernel",
+                "general_logits_kernel")
 REPLACES = {
     "prototype_head": "adlm_tpu/ops/prototype.py:110",
     "upsample_argmin": "adlm_tpu/ops/upsample_argmin.py:79",
@@ -753,8 +773,10 @@ def time_eval(model32, card: str) -> None:
 def device_profile(fn, iters: int):
     """One ``torch.profiler`` window over ``iters`` calls of ``fn``:
     (rows of (device ms per call, launches per call, kernel name), most
-    time first; host ms per call).  The rows are empty when the
-    profiler recorded no device time."""
+    time first; host ms per call; busy device ms per call, the union of
+    the device events' intervals, which counts kernels that overlap on
+    several streams once).  The rows are empty when the profiler
+    recorded no device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -773,12 +795,19 @@ def device_profile(fn, iters: int):
                    for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA and device_us(e) > 0),
                   reverse=True)
-    return rows, wall_ms
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA and device_us(e) > 0)
+    busy_us, end = 0.0, float("-inf")
+    for start, stop in spans:
+        busy_us += max(0.0, stop - max(start, end))
+        end = max(end, stop)
+    return rows, wall_ms, busy_us / 1e3 / iters
 
 
-def profile_line(rows, wall_ms: float) -> str:
-    """Device time, busy share (device time over the window's host time,
-    which includes the profiler's own overhead) and the kernel groups."""
+def profile_line(rows, wall_ms: float, busy_ms: float) -> str:
+    """Device time summed over kernels, busy share (the union of the
+    device intervals over the window's host time, which includes the
+    profiler's own overhead) and the kernel groups."""
     def group(*keys):
         return sum(r[0] for r in rows if any(k in r[2].lower() for k in keys))
 
@@ -787,11 +816,11 @@ def profile_line(rows, wall_ms: float) -> str:
     convs = group("conv", "xmma", "gemm", "cutlass", "nvjet", "dgrad", "wgrad")
     elementwise = group("elementwise")
     layout = group("nhwctonchw", "nchwtonhwc")
-    return (f"device {total:.2f} ms/batch of {wall_ms:.2f} ms host (busy "
-            f"{total / wall_ms:.1%}); conv/gemm {convs:.2f} ms ({convs / total:.1%}), "
+    return (f"device {total:.2f} ms/batch summed, {busy_ms:.2f} ms busy, of {wall_ms:.2f} "
+            f"ms host (busy {busy_ms / wall_ms:.1%}); conv/gemm {convs:.2f} ms ({convs / total:.1%}), "
             f"elementwise {elementwise:.2f} ms ({elementwise / total:.1%}), "
             f"layout transposes {layout:.2f} ms ({layout / total:.1%}), "
-            f"prototype head {group('head_kernel'):.3f} ms, upsample-argmin "
+            f"prototype head {group(*HEAD_KERNELS):.3f} ms, upsample-argmin "
             f"{group('upsample_argmin_kernel'):.3f} ms")
 
 
@@ -823,12 +852,12 @@ def profile_eval(model32, card: str, B: int = 8, iters: int = 2) -> None:
                                normalize=mean_std)
         fn(pc, img, lab, *uv)
         torch.cuda.synchronize()
-        rows, wall_ms = device_profile(lambda: fn(pc, img, lab, *uv), iters)
+        rows, wall_ms, busy_ms = device_profile(lambda: fn(pc, img, lab, *uv), iters)
         if not rows:
             log(f"  profile {dt}: the profiler recorded no device time "
                 "(not measured)")
             continue
-        log(f"  profile {dt} batch {B} stats_upsampled: {profile_line(rows, wall_ms)}"
+        log(f"  profile {dt} batch {B} stats_upsampled: {profile_line(rows, wall_ms, busy_ms)}"
             f"  [{card}]")
         log_rows(rows)
     del img, lab
@@ -1058,7 +1087,7 @@ def profile_training(model, card: str) -> None:
         step = make_train_step(m, vcfg, 1, vcfg.train.joint_steps)
         step(state, images, labels)
         torch.cuda.synchronize()
-        rows, wall_ms = device_profile(lambda: step(state, images, labels), 1)
+        rows, wall_ms, busy_ms = device_profile(lambda: step(state, images, labels), 1)
         if not rows:
             log(f"  profile joint step {name}: the profiler recorded no device "
                 "time (not measured)")
@@ -1066,7 +1095,7 @@ def profile_training(model, card: str) -> None:
         adam = sum(r[0] for r in rows if "adam" in r[2].lower()
                    or "multi_tensor" in r[2].lower())
         log(f"  profile joint step {name} (2 x 5 x 513^2): "
-            f"{profile_line(rows, wall_ms).replace('/batch', '/step')}, "
+            f"{profile_line(rows, wall_ms, busy_ms).replace('/batch', '/step')}, "
             f"optimizer {adam:.2f} ms  [{card}]")
         log_rows(rows)
         del m, state, step
@@ -1384,13 +1413,13 @@ def time_interpretation(model, frames, card: str, iters: int = 2) -> None:
         for name, step in steps.items():
             step(pc, images, labels)
             torch.cuda.synchronize()
-            rows, wall_ms = device_profile(lambda: step(pc, images, labels), 2)
+            rows, wall_ms, busy_ms = device_profile(lambda: step(pc, images, labels), 2)
             if not rows:
                 log(f"  profile {name} {dt}: the profiler recorded no device "
                     "time (not measured)")
                 continue
             log(f"  profile {name} batch {INTERP_BS} {dt} (uint8 upload included): "
-                f"{profile_line(rows, wall_ms)}  [{card}]")
+                f"{profile_line(rows, wall_ms, busy_ms)}  [{card}]")
             log_rows(rows, 8)
     del models, steps
     torch.cuda.empty_cache()
@@ -1781,7 +1810,7 @@ def time_fed_training(model, ds, cfg, card: str) -> None:
         try:
             s_fed, s_wait = timed(feed)
             if profiled:
-                rows, wall_ms = device_profile(lambda: step(state, *next(feed)), 1)
+                rows, wall_ms, busy_ms = device_profile(lambda: step(state, *next(feed)), 1)
         finally:
             loader.close()
         log(f"  joint window {name:15s} (2 x 5 x 513^2): loader-fed {s_fed:.4f} s "
@@ -1790,7 +1819,7 @@ def time_fed_training(model, ds, cfg, card: str) -> None:
             f"[{card}]")
         if profiled:
             log(f"  profile of one loader-fed {name} window: "
-                + (profile_line(rows, wall_ms).replace("/batch", "/window") if rows else
+                + (profile_line(rows, wall_ms, busy_ms).replace("/batch", "/window") if rows else
                    "the profiler recorded no device time (not measured)") + f"  [{card}]")
             if rows:
                 log_rows(rows, 6)
@@ -2969,15 +2998,15 @@ def time_unoise(imgs, masks, card: str) -> None:
         log(f"  {dt}: utility step {ms:.2f} ms ({UN_BS * 1e3 / ms:.1f} slices/s, peak "
             f"{peak:.2f} GiB), noise step {nms:.2f} ms (peak {npeak:.2f} GiB), batch "
             f"{UN_BS} x {UN_HW}^2, {UN_TIME_STEPS} steps after 2  [{card}]")
-        rows, wall_ms = device_profile(lambda: step(st, x, y), 1)
+        rows, wall_ms, busy_ms = device_profile(lambda: step(st, x, y), 1)
         if not rows:
             log(f"  profile utility step {dt}: the profiler recorded no device time "
                 "(not measured)")
         else:
             conv, bn, rest = _unoise_groups(rows)
             total = conv + bn + rest
-            log(f"  profile utility step {dt}: device {total:.2f} ms of {wall_ms:.2f} ms "
-                f"host (busy {total / wall_ms:.1%}); conv {conv:.2f} ms "
+            log(f"  profile utility step {dt}: device {total:.2f} ms summed, {busy_ms:.2f} "
+                f"ms busy, of {wall_ms:.2f} ms host (busy {busy_ms / wall_ms:.1%}); conv {conv:.2f} ms "
                 f"({conv / total:.1%}), batch norm {bn:.2f} ms ({bn / total:.1%}), "
                 f"other {rest:.2f} ms ({rest / total:.1%})  [{card}]")
             log_rows(rows, 8)
@@ -3047,6 +3076,672 @@ def check_unoise(card: str) -> None:
     finally:
         shutil.rmtree(root, ignore_errors=True)
     log(f"  U-Noise phase {time.perf_counter() - t_phase:.1f} s  [{card}]")
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the ProtoPNet classifier
+# ---------------------------------------------------------------------------
+
+# the default preset (ClassificationConfig: VGG19 at 224x224, P = 2000,
+# C = 128, K = 200, regular add-ons) on a seeded image folder: 200
+# classes of 2 training and 1 test PNG at 256x256 (the resize to 224 is
+# the dataset's); the push set is the training set.  Batches as the CLI:
+# train 80, test 100, push 75
+CLS_CLASSES, CLS_TRAIN_PER, CLS_TEST_PER, CLS_SRC = 200, 2, 1, 256
+CLS_BS, CLS_TEST_BS, CLS_PUSH_BS = 80, 100, 75
+CLS_HW, CLS_GRID = 224, 7
+# kernel against plain head forward, one step per phase: the two runs
+# differ only in the rounding of d (within D_ATOL, phase 2), and the
+# plain run min-pools at the kernel's cells (min_pool_at), so the
+# metrics and each gradient tensor are held to phase 7's limits
+CLS_RTOL, CLS_GRAD_REL = TRAIN_RTOL, TRAIN_GRAD_REL
+# the f32 joint step against the same step in f64 on the card: each
+# trained tensor's gradient within CLS_F64_REL relative L2 error; the
+# same step with TF32 convolutions and matmuls must exceed it.  At these
+# seeded weights and images the first convs' gradients sum over 80 x
+# 224^2 positions with cancellation: their IEEE-f32 error read 1.2e-2
+# to 2.0e-2 (features.0, .2, .7, .12; 3.4e-3 with pattern classes
+# alone), TF32 8e-2 to 1.1e-1 there (the readings, "NVIDIA H100 80GB
+# HBM3, 700.00 W"; PERF.md).  The same step with cuDNN off
+# (im2col and SGEMM) is printed beside them
+CLS_F64_REL = 5e-2
+CLS_BF16_LOSS = 0.05      # bf16 loss against f32 (the JAX package's limit)
+# cls-prune: k = 6 (the reference's) over 2 training images per class
+# gives a prototype at most 2 of its class among its 6 nearest images,
+# so the reference's threshold of 3 prunes every prototype (and the
+# command refuses); 2 keeps those whose class's other image is near:
+# about the pattern classes' half (write_image_folder)
+CLS_PRUNE = ("--k", "6", "--threshold", "2", "--last-layer-iterations", "1")
+CLS_TIME_STEPS = 3
+# joint step FLOPs of the stem per image, for the bound: 19.51 G
+# multiply-adds of VGG19's convolutions at 224x224 (counted from
+# _VGG_SPECS), forward plus two backward products, an FMA counted two
+VGG19_MACS = 19.51e9
+
+
+def write_image_folder(root: str, seed: int) -> None:
+    """``root/{train,test}/class_XXX/*.png`` at 256x256: an even class a
+    seeded coarse colour pattern, each image it plus a little noise of
+    its own, so that the class's images resemble each other; an odd
+    class grey noise alone, so that its images resemble nothing.  Push
+    then finds a prototype's class among its nearest images for the
+    even classes only, and pruning has both kinds to tell apart."""
+    import os
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    from adlm_tpu_torch.interpret.visualize import write_png
+
+    rng = np.random.RandomState(seed)
+    jobs = []
+    for c in range(CLS_CLASSES):
+        if c % 2:
+            base, amp = np.full((CLS_SRC, CLS_SRC, 3), 128), 96
+        else:
+            base, amp = np.kron(rng.randint(0, 256, (8, 8, 3)), np.ones((32, 32, 1))), 24
+        for split, n in (("train", CLS_TRAIN_PER), ("test", CLS_TEST_PER)):
+            d = os.path.join(root, split, f"class_{c:03d}")
+            os.makedirs(d, exist_ok=True)
+            for i in range(n):
+                img = np.clip(base + rng.randint(-amp, amp + 1, base.shape), 0, 255)
+                jobs.append((os.path.join(d, f"{i}.png"), img.astype(np.uint8)))
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(lambda job: write_png(*job), jobs))
+
+
+def cls_setup(root: str):
+    """(config, seeded full-width model on the card, the datasets)."""
+    import os
+
+    from adlm_tpu_torch.data.image_folder import ImageFolderDataset
+    from adlm_tpu_torch.train.classification import ClassificationConfig, build_classifier
+
+    cfg = ClassificationConfig()
+    model = build_classifier(cfg, "cuda", seed=SEED + 60)
+    sets = {s: ImageFolderDataset(os.path.join(root, s), CLS_HW) for s in ("train", "test")}
+    return cfg, model, sets
+
+
+def cls_step(model, cfg, phase, images, labels):
+    """One ``phase`` step from ``model``'s weights (a copy): (metrics as
+    floats, {name: gradient} of the trained tensors, the stepped
+    copy)."""
+    import torch
+    from adlm_tpu_torch.train.classification import init_classifier_state, make_cls_train_step
+
+    m = copy.deepcopy(model)
+    state = init_classifier_state(m, cfg, phase)
+    step = make_cls_train_step(m, cfg, phase)
+    state, metrics = step(state, images, labels)
+    torch.cuda.synchronize()
+    grads = {n: p.grad.detach().clone() for n, p in m.named_parameters() if p.grad is not None}
+    return {k: float(v) for k, v in metrics.items()}, grads, m
+
+
+def cls_head_ties(model, cfg, images):
+    """The head kernel's and its plain version's distances at the step's
+    features (one comparison launch): (the largest |min_d difference| as
+    a share of phase 2's d tolerance, the (image, prototype) pairs whose
+    nearest cell differs, of them the ones not on a near-tie of the
+    plain d under phase 8's rule)."""
+    import torch
+    from adlm_tpu_torch.core.device import ieee_f32
+    from adlm_tpu_torch.ops.prototype import prototype_head_cuda, prototype_head_reference
+
+    act, eps = cfg.model.prototype_activation, cfg.model.epsilon
+    with torch.no_grad(), ieee_f32():
+        m = copy.deepcopy(model).eval()
+        f = m.conv_features(torch.as_tensor(images, device="cuda").permute(0, 3, 1, 2))
+        rows = f.permute(0, 2, 3, 1)
+        _, dk = prototype_head_cuda(rows, m.prototypes(), m.last_layer_pk(), act, eps, True)
+        _, dp = prototype_head_reference(rows, m.prototypes(), m.last_layer_pk(), act, eps)
+        dk, dp = dk.flatten(1, 2), dp.flatten(1, 2)                   # (B, h*w, P)
+        mk, mp = dk.amin(1), dp.amin(1)
+        ck, cp = dk.argmin(1), dp.argmin(1)
+        differ = ck != cp
+        at_k = dp.gather(1, ck[:, None, :])[:, 0]
+        unexplained = differ & ((at_k - mp).abs() > D_ATOL + D_RTOL * mp)
+    share = ((mk - mp).abs() / (D_ATOL + D_RTOL * mp)).max().item()
+    return share, int(differ.sum()), int(unexplained.sum())
+
+
+@contextlib.contextmanager
+def recorded_head_distances():
+    """Keep a copy of the distances (B, h, w, P) of every head kernel
+    launch inside the block, in a list that the block receives; the
+    launches themselves are unchanged."""
+    import adlm_tpu_torch.ops.prototype as pm
+
+    seen, saved = [], pm.prototype_head_cuda
+
+    def head(*args, **kwargs):
+        logits, d = saved(*args, **kwargs)
+        seen.append(d.detach().clone())
+        return logits, d
+
+    pm.prototype_head_cuda = head
+    try:
+        yield seen
+    finally:
+        pm.prototype_head_cuda = saved
+
+
+def min_pool_weights(d):
+    """(B, h*w, P) weights with which ``amin`` over (h, w) of ``d`` (B,
+    h, w, P) hands on its gradient: 1 on the nearest cell, split evenly
+    among cells that tie it exactly."""
+    d = d.flatten(1, 2)
+    at_min = (d == d.amin(1, keepdim=True)).to(d.dtype)
+    return at_min / at_min.sum(1, keepdim=True)
+
+
+@contextlib.contextmanager
+def min_pool_at(pool):
+    """``PPNet.global_head`` with its min-pool over (h, w) taken with the
+    weights ``pool`` (``min_pool_weights`` of the kernel step's d) in
+    place of ``amin``: where the plain d's rounding would move a pair's
+    nearest cell on a near-tie, the plain-forward step still routes the
+    pair's gradient to the kernel's cell, so that the two steps differ
+    in the rounding of d alone."""
+    import torch
+    from adlm_tpu_torch.models import ppnet as pp
+
+    def global_head(self, conv_features):
+        _, d = pp.prototype_head(conv_features.permute(0, 2, 3, 1), self.prototypes(),
+                                 self.last_layer_pk().detach(), self.cfg.prototype_activation,
+                                 self.cfg.epsilon, True)
+        min_d = (d.flatten(1, 2) * pool).sum(1)
+        act = pp.distance_to_similarity(min_d, self.cfg.prototype_activation,
+                                        self.cfg.epsilon)
+        return act @ self.last_layer_pk().to(torch.float32), min_d
+
+    saved = pp.PPNet.global_head
+    pp.PPNet.global_head = global_head
+    try:
+        yield
+    finally:
+        pp.PPNet.global_head = saved
+
+
+def check_cls_steps(report, model, cfg, images, labels):
+    """(a) one warm, joint and last step with the head kernel and from
+    the same start with its plain forward, min-pooled at the kernel
+    step's cells (``min_pool_at``: the noise classes' images put many
+    pairs on near-ties, where the plain d's rounding would otherwise
+    send a pair's gradient to another cell); returns the kernel joint
+    step's (metrics, gradients, min-pool weights)."""
+    import torch
+    from adlm_tpu_torch.ops import _build
+    from adlm_tpu_torch.ops.prototype import head_route
+
+    for dt in (torch.float32, torch.bfloat16):
+        route = head_route(cfg.model.prototype_channels, cfg.model.num_prototypes,
+                           cfg.model.num_classes, dt)
+        if route != "general":
+            raise AssertionError(f"the classifier's head takes the {route} kernel ({dt})")
+    d_err, moved, unexplained = cls_head_ties(model, cfg, images)
+    pairs = images.shape[0] * cfg.model.num_prototypes
+    log(f"  head at the step's features ({images.shape[0] * CLS_GRID ** 2} rows): min_d "
+        f"within {d_err:.3f} of its tolerance {D_ATOL:g} + {D_RTOL:g}·d; nearest cell differs "
+        f"in {moved} of {pairs} (image, prototype) pairs, {unexplained} of them off a "
+        f"near-tie")
+    if unexplained or d_err > 1.0:
+        raise AssertionError("the head kernel's distances disagree with the plain version's")
+    joint = None
+    for phase in ("warm", "joint", "last"):
+        _build.reset_launches()
+        with recorded_head_distances() as seen:
+            mk, gk, _ = cls_step(model, cfg, phase, images, labels)
+        launches = dict(_build.LAUNCHES)
+        if launches != {"prototype_head": 1, "upsample_argmin": 0}:
+            raise AssertionError(f"{phase} step launched {launches}: expected one head "
+                                 "launch and no upsample-argmin launch")
+        report["prototype_head"]["launches"] += 1
+        pool = min_pool_weights(seen[0])
+        del seen
+        with plain_head_forward(), min_pool_at(pool):
+            mp, gp, _ = cls_step(model, cfg, phase, images, labels)
+        if any(_build.LAUNCHES[k] != launches[k] for k in launches):
+            raise AssertionError("the plain-forward step launched a kernel")
+        errs = {k: abs(mk[k] - mp[k]) / max(abs(mp[k]), 1e-30)
+                for k in ("loss", "cross_entropy", "cluster", "separation", "l1")}
+        rel = {n: ((gk[n] - gp[n]).norm() / gp[n].norm().clamp_min(1e-30)).item() for n in gp}
+        worst = max(rel, key=rel.get)
+        log(f"  {phase:5s} step (batch {CLS_BS}, f32 IEEE, general head path, 1 launch): "
+            f"loss {mk['loss']:.6f} (plain {mp['loss']:.6f}), n_correct {mk['n_correct']:.0f} "
+            f"({mp['n_correct']:.0f}); metrics rel err max {max(errs.values()):.2e} "
+            f"(tolerance {CLS_RTOL:g}); {len(rel)} gradient tensors, worst relative L2 "
+            f"{rel[worst]:.2e} ({worst}, tolerance {CLS_GRAD_REL:g})")
+        if (max(errs.values()) > CLS_RTOL or mk["n_correct"] != mp["n_correct"]
+                or rel[worst] > CLS_GRAD_REL
+                or not all(math.isfinite(v) for v in mk.values())):
+            raise AssertionError(f"the {phase} step with the head kernel disagrees with "
+                                 "the plain-forward step")
+        if phase == "joint":
+            joint = (mk, gk, pool)
+    return joint
+
+
+def _f64_joint_grads(model, cfg, images, labels, pool):
+    """(loss, {name: gradient}, pairs whose f64 nearest cell is off a
+    near-tie of the kernel's) of the joint step's function in f64 on
+    the card: the model in f64, the head's distances, min-pool and last
+    layer written out in f64 (the kernel and the plain head run f32),
+    cuDNN off (PyTorch's own f64 convolutions).  The min-pool takes the
+    f32 kernel step's cells (``pool``, ``min_pool_weights``), so that a
+    near-tie does not send a pair's gradient to another cell: the
+    comparison then sees arithmetic alone."""
+    import torch
+    from adlm_tpu_torch.ops.prototype import distance_to_similarity
+    from adlm_tpu_torch.train.classification import classification_loss, freeze_for_phase
+
+    m = copy.deepcopy(model).double().train()
+    freeze_for_phase(m, cfg, "joint")
+    x = torch.as_tensor(images, device="cuda").double().permute(0, 3, 1, 2)
+    y = torch.as_tensor(labels, device="cuda").long()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.backends.cudnn.flags(enabled=False):
+        f = m.conv_features(x).permute(0, 2, 3, 1).flatten(1, 2)      # (B, h*w, C)
+        p = m.prototypes()
+        d = ((f * f).sum(-1, keepdim=True) - 2.0 * f @ p.t() + (p * p).sum(-1)).clamp_min(0.0)
+        min_d = (d * pool.double()).sum(1)                             # (B, P)
+        with torch.no_grad():
+            d_min = d.amin(1)
+            off = int((min_d - d_min > D_ATOL + D_RTOL * d_min).sum())
+        logits = distance_to_similarity(min_d, cfg.model.prototype_activation,
+                                        cfg.model.epsilon) @ m.last_layer_pk()
+        pc = torch.arange(cfg.model.num_prototypes, device="cuda") // (
+            cfg.model.num_prototypes // cfg.model.num_classes)
+        loss, _ = classification_loss(logits, min_d, y, pc, m.last_layer_pk(), cfg)
+        loss.backward()
+    torch.cuda.synchronize()
+    log(f"  f64 joint step on the card {time.perf_counter() - t0:.1f} s")
+    grads = {n: q.grad.detach() for n, q in m.named_parameters() if q.grad is not None}
+    return float(loss.detach()), grads, off
+
+
+@contextlib.contextmanager
+def _cls_tf32():
+    """The port's steps with TF32 convolutions and matmuls, in place of
+    IEEE f32: the control the f64 limit must refuse."""
+    import torch
+    from adlm_tpu_torch.train import classification as tc
+
+    saved = (tc.ieee_f32, torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    tc.ieee_f32 = contextlib.nullcontext
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        yield
+    finally:
+        (tc.ieee_f32, torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+
+
+def check_cls_f64(model, cfg, images, labels, joint) -> None:
+    """(b) the f32 joint step's gradients against the f64 step's (at the
+    kernel's nearest cells), tensor by tensor, and the TF32 control
+    refused."""
+    import torch
+
+    m32, g32, pool = joint
+    loss64, g64, off = _f64_joint_grads(model, cfg, images, labels, pool)
+    with _cls_tf32():
+        mt, gt, _ = cls_step(model, cfg, "joint", images, labels)
+    with torch.backends.cudnn.flags(enabled=False):
+        _, gn, _ = cls_step(model, cfg, "joint", images, labels)
+
+    def errs(grads):
+        return {n: ((grads[n].double() - g64[n]).norm() / g64[n].norm()).item() for n in g64}
+
+    e32, etf, enc = errs(g32), errs(gt), errs(gn)
+    w32, wtf = max(e32, key=e32.get), max(etf, key=etf.get)
+    refused = sum(v > CLS_F64_REL for v in etf.values())
+    log(f"  joint step vs f64: loss {m32['loss']:.7f} f32, {mt['loss']:.7f} TF32, "
+        f"{loss64:.7f} f64; {len(e32)} gradient tensors, relative L2 to f64: f32 IEEE "
+        f"{min(e32.values()):.2e}-{e32[w32]:.2e} (worst {w32}), TF32 "
+        f"{min(etf.values()):.2e}-{etf[wtf]:.2e} (worst {wtf}, {refused} of {len(etf)} "
+        f"tensors over the limit); limit {CLS_F64_REL:g}; f64 nearest cells off a "
+        f"near-tie of the kernel's: {off}")
+    for n in sorted(g64, key=e32.get, reverse=True)[:6]:
+        log(f"    {n:40s} f32 {e32[n]:.2e}  TF32 {etf[n]:.2e}  f32 cuDNN off {enc[n]:.2e}")
+    log(f"  f32 with cuDNN off (im2col + SGEMM): {min(enc.values()):.2e}-"
+        f"{max(enc.values()):.2e} relative L2 to f64")
+    if e32[w32] > CLS_F64_REL or abs(m32["loss"] - loss64) > 1e-5 * abs(loss64) or off:
+        raise AssertionError("the f32 joint step is off the f64 step")
+    if etf[wtf] <= CLS_F64_REL:
+        raise AssertionError("the TF32 control passes the f64 limit: it cannot tell "
+                             "IEEE f32 apart")
+
+
+def check_cls_bf16(model, cfg, images, labels, joint) -> None:
+    """(c) one bf16 joint step: finite, near the f32 loss, every stored
+    tensor f32."""
+    import dataclasses
+
+    import torch
+    from adlm_tpu_torch.ops import _build
+
+    _build.reset_launches()
+    mb, _, stepped = cls_step(model, dataclasses.replace(cfg, compute_dtype="bfloat16"),
+                              "joint", images, labels)
+    f32_loss = joint[0]["loss"]
+    dtypes = {v.dtype for v in stepped.state_dict().values() if v.is_floating_point()}
+    log(f"  bf16 joint step: loss {mb['loss']:.6f} (f32 {f32_loss:.6f}, limit "
+        f"{CLS_BF16_LOSS:g} of max(1, |loss|)), head launches {_build.LAUNCHES['prototype_head']}, "
+        f"stored dtypes {sorted(str(d) for d in dtypes)}")
+    if (not math.isfinite(mb["loss"])
+            or abs(mb["loss"] - f32_loss) > CLS_BF16_LOSS * max(1.0, abs(f32_loss))
+            or dtypes != {torch.float32} or _build.LAUNCHES["prototype_head"] != 1):
+        raise AssertionError("the bf16 joint step is off")
+
+
+def check_cls_push(model, cfg, train_ds):
+    """(d) push over the training set (batch 75), each winner held to
+    an f64 recomputation of its candidates' distances under phase 8's
+    near-tie rule; returns the push's images/s."""
+    import numpy as np
+    import torch
+    from adlm_tpu_torch.core.device import ieee_f32
+    from adlm_tpu_torch.train.classification import (
+        init_classifier_state,
+        push_classification_prototypes,
+    )
+
+    state = init_classifier_state(model, cfg, None)
+    batches = list(train_ds.batches(CLS_PUSH_BS, with_count=True))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    protos, info = push_classification_prototypes(state, batches)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    # every image's features again (eval mode, the same f32 forward)
+    feats = []
+    with torch.inference_mode(), ieee_f32():
+        model.eval()
+        for images, _, n in batches:
+            x = torch.as_tensor(images, device="cuda").permute(0, 3, 1, 2)
+            feats.append(model.conv_features(x).permute(0, 2, 3, 1)[:n].double())
+    feats = torch.cat(feats)                                         # (N, h, w, C)
+    labels = torch.as_tensor(np.asarray([lb for _, lb in train_ds.samples]), device="cuda")
+    p64 = model.prototypes().detach().double()
+    pc = state.proto_class
+    boxes = info["rf_boxes"]
+    bad, tied, worst = [], 0, 0.0
+    for c in range(cfg.model.num_classes):
+        own = torch.nonzero(pc == c)[:, 0]
+        imgs = torch.nonzero(labels == c)[:, 0]
+        f = feats[imgs].reshape(-1, feats.shape[-1])                  # candidates
+        d = ((f * f).sum(-1, keepdim=True) - 2.0 * f @ p64[own].t()
+             + (p64[own] ** 2).sum(-1)).clamp_min(0.0)               # (cand, n_own)
+        dmin = d.min(dim=0).values
+        for col, j in enumerate(own.tolist()):
+            img, r, w = int(boxes[j, 0]), int(boxes[j, 1]), int(boxes[j, 3])
+            cand = (imgs == img).nonzero()[0, 0].item() * CLS_GRID * CLS_GRID + r * CLS_GRID + w
+            dw, dm = d[cand, col].item(), dmin[col].item()
+            tol = _tie_tol(dm)
+            worst = max(worst, abs(info["min_distances"][j] - dw) / tol)
+            if dw - dm > tol or abs(info["min_distances"][j] - dw) > tol:
+                bad.append((j, dw, dm, float(info["min_distances"][j])))
+            elif dw > dm:
+                tied += 1
+            if not torch.equal(protos[j].double(), feats[img, r, w]):
+                bad.append((j, "prototype is not the winner's feature row"))
+    log(f"  push over {len(train_ds)} images (batch {CLS_PUSH_BS}): {secs:.2f} s, "
+        f"{len(train_ds) / secs:.1f} img/s; winners against f64 distances of every "
+        f"own-class candidate: {cfg.model.num_prototypes - len(bad)} at the f64 minimum "
+        f"({tied} of them on a near-tie), worst |d_push - d64| {worst:.2f} of the tie "
+        f"tolerance, failures {bad[:4]}")
+    if bad:
+        raise AssertionError("push winners disagree with the f64 distances")
+    return len(train_ds) / secs
+
+
+def cls_command(argv) -> float:
+    """One CLI command in process with its launch counts; its log is
+    printed only on a failure."""
+    from adlm_tpu_torch.ops import _build
+
+    _build.reset_launches()
+    secs = run_unoise_command(argv)
+    log(f"    launches {dict(_build.LAUNCHES)}")
+    if _build.LAUNCHES["upsample_argmin"]:
+        raise AssertionError(f"{argv[0]} launched the upsample-argmin kernel")
+    return secs
+
+
+def check_cls_cli(report, root: str) -> None:
+    """(e) cls-train, cls-prune and import-protopnet through
+    ``adlm_tpu_torch.cli.main``; the imported model's test accuracy
+    equals the trained one's."""
+    import csv
+    import os
+
+    import numpy as np
+    import torch
+    from adlm_tpu_torch.core.checkpoint import CheckpointStore
+    from adlm_tpu_torch.data.image_folder import ImageFolderDataset
+    from adlm_tpu_torch.ops import _build
+    from adlm_tpu_torch.train.classification import (
+        build_classifier,
+        init_classifier_state,
+        make_cls_eval_step,
+    )
+    from adlm_tpu_torch.train.classification_pipeline import evaluate, load_cls_config
+
+    dirs = ["--train-dir", os.path.join(root, "train"), "--test-dir", os.path.join(root, "test")]
+    results = os.path.join(root, "runs")
+    run = os.path.join(results, "cls")
+    saved_env = os.environ.get("RESULTS_DIR")
+    os.environ["RESULTS_DIR"] = results
+    try:
+        cls_command(["cls-train", "cls", "--epochs", "3", "--warm-epochs", "1",
+                     "--push-start", "2", "--push-every", "2",
+                     "--last-layer-iterations", "2", *dirs])
+        report["prototype_head"]["launches"] += _build.LAUNCHES["prototype_head"]
+        store = CheckpointStore(run)
+        with open(os.path.join(run, "logs", "classification_metrics.csv")) as f:
+            rows = list(csv.DictReader(f))
+        log_text = open(os.path.join(run, "logs", "classification.log")).read()
+        phases = [r["phase"] for r in rows]
+        log(f"  cls-train rows: " + ", ".join(f"{r['phase']} {float(r['accuracy']):.4f}"
+                                             for r in rows))
+        need = [os.path.join(run, "cls_config.json")]
+        need += [os.path.join(run, "checkpoints", c, "state.pt")
+                 for c in ("nopush_last", "nopush_best")]
+        if "push: saved" in log_text:
+            need.append(os.path.join(run, "checkpoints", "push_best", "state.pt"))
+        missing = [p for p in need if not os.path.exists(p)]
+        if (missing or phases != ["warm", "joint", "joint", "push_last_0", "push_last_1"]
+                or "epoch 2: prototype push" not in log_text):
+            raise AssertionError(f"cls-train: missing {missing}, rows {phases}")
+        cfg = load_cls_config(run)
+        stage = ("push", "best") if store.exists("push", "best") else ("nopush", "last")
+
+        cls_command(["cls-prune", run, *CLS_PRUNE, *dirs])
+        report["prototype_head"]["launches"] += _build.LAUNCHES["prototype_head"]
+        info = np.load(os.path.join(run, "cls_prune_info.npy"))
+        pruned = store.restore("pruned", "last")
+        n_kept = pruned["proto_class"].shape[0]
+        log(f"  cls-prune: {info.shape[0]} pruned, {n_kept} kept")
+        if (n_kept + info.shape[0] != cfg.model.num_prototypes or n_kept == 0
+                or info.shape[0] == 0):
+            raise AssertionError("cls-prune: the pruned checkpoint is inconsistent, or "
+                                 "pruning kept or dropped every prototype")
+
+        trained = store.restore(*stage)
+        ref = os.path.join(root, "reference.pth")
+        torch.save(trained["state_dict"], ref)
+        cls_command(["import-protopnet", "imported", ref])
+        imported = CheckpointStore(os.path.join(results, "imported")).restore("push", "best")
+        test = ImageFolderDataset(os.path.join(root, "test"), CLS_HW)
+        batches = list(test.batches(CLS_TEST_BS, with_count=True))
+        accs, rates = [], []
+        for payload in (trained, imported):
+            model = build_classifier(cfg, "cuda", state_dict=payload["state_dict"])
+            state = init_classifier_state(model, cfg, None, proto_class=payload["proto_class"])
+            eval_fn = make_cls_eval_step(model, cfg)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            accs.append(evaluate(eval_fn, state, batches))
+            rates.append(len(test) / (time.perf_counter() - t0))
+            del model, state
+        log(f"  import-protopnet of {stage[0]}_{stage[1]}: test accuracy {accs[1]!r} "
+            f"(trained {accs[0]!r}); eval {rates[0]:.1f} img/s at batch {CLS_TEST_BS}")
+        if accs[0] != accs[1]:
+            raise AssertionError("the imported model's accuracy differs")
+    finally:
+        if saved_env is None:
+            os.environ.pop("RESULTS_DIR", None)
+        else:
+            os.environ["RESULTS_DIR"] = saved_env
+
+
+def time_cls(model, cfg, images, labels, test_ds, card: str) -> None:
+    """Seconds per warm, joint and last step at batch 80 in f32 and
+    bf16, eval images/s, the head's general path at the classifier's
+    rows, its plain backward, and a profile of one f32 and one bf16
+    joint step."""
+    import dataclasses
+
+    import torch
+    from adlm_tpu_torch.core.device import ieee_f32
+    from adlm_tpu_torch.ops.prototype import (
+        prototype_head_backward,
+        prototype_head_cuda,
+        prototype_head_reference,
+    )
+    from adlm_tpu_torch.train.classification import (
+        init_classifier_state,
+        make_cls_eval_step,
+        make_cls_train_step,
+    )
+    from adlm_tpu_torch.train.classification_pipeline import evaluate
+
+    cfgs = {"float32": cfg, "bfloat16": dataclasses.replace(cfg, compute_dtype="bfloat16")}
+    joint_s = {}
+    for dt, c in cfgs.items():
+        for phase in ("warm", "joint", "last"):
+            m = copy.deepcopy(model)
+            state = init_classifier_state(m, c, phase)
+            step = make_cls_train_step(m, c, phase)
+            step(state, images, labels)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            for _ in range(CLS_TIME_STEPS):
+                step(state, images, labels)
+            torch.cuda.synchronize()
+            s = (time.perf_counter() - t0) / CLS_TIME_STEPS
+            log(f"  {phase:5s} step {dt:8s} batch {CLS_BS}: {s:.4f} s/step, "
+                f"{CLS_BS / s:.1f} img/s, peak memory "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB  [{card}]")
+            if phase == "joint":
+                joint_s[dt] = s
+                if dt == "float32":
+                    # the stem's FLOPs alone (3 products of 19.51 G MACs per image)
+                    flops = 3 * 2 * VGG19_MACS * CLS_BS
+                    log(f"    joint f32: stem {flops / 1e12:.2f} TFLOP, bound at 67 TFLOP/s "
+                        f"{flops / PEAK_F32_FLOPS * 1e3:.1f} ms, "
+                        f"{flops / s / 1e12:.1f} TFLOP/s achieved")
+            del m, state, step
+            torch.cuda.empty_cache()
+    m = copy.deepcopy(model)
+    state = init_classifier_state(m, cfg, None)
+    eval_fn = make_cls_eval_step(m, cfg)
+    batches = list(test_ds.batches(CLS_TEST_BS, with_count=True))
+    evaluate(eval_fn, state, batches[:1])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    evaluate(eval_fn, state, batches)
+    torch.cuda.synchronize()
+    log(f"  eval (preloaded batches of {CLS_TEST_BS}, f32): "
+        f"{len(test_ds) / (time.perf_counter() - t0):.1f} img/s  [{card}]")
+    del m, state, eval_fn
+
+    C, P, K = cfg.model.prototype_channels, cfg.model.num_prototypes, cfg.model.num_classes
+    g = torch.Generator(device="cuda").manual_seed(SEED + 61)
+    protos = torch.rand(P, C, device="cuda", generator=g)
+    w = torch.randn(P, K, device="cuda", generator=g)
+    for N in (CLS_BS * CLS_GRID ** 2, CLS_TEST_BS * CLS_GRID ** 2):
+        x = torch.rand(N, C, device="cuda", generator=g)
+        g_dist = torch.randn(N, P, device="cuda", generator=g)
+        for dtype in (torch.float32, torch.bfloat16):
+            xd, pd = x.to(dtype), protos.to(dtype)
+            with torch.inference_mode(), ieee_f32():
+                ms = cuda_ms(lambda: prototype_head_cuda(xd, pd, w, "log", 1e-4, True), 50)
+                plain = cuda_ms(lambda: prototype_head_reference(xd, pd, w, "log"), 20)
+                bwd = cuda_ms(lambda: prototype_head_backward(xd, pd, w, None, g_dist,
+                                                              "log", 1e-4), 20)
+            ops = N * P * (C + K + HEAD_EPILOGUE_OPS["log"])
+            nbytes = N * C * xd.element_size() + 4 * (P * C + P * K + N * K + N * P)
+            b_ms, b_by = bound(ops, nbytes, PEAK_F32_OPS)
+            log(f"  head general path N={N} C={C} P={P} K={K} {str(dtype)[6:]:8s} dist=True: "
+                f"kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+                f"{ms / b_ms:.1f}x bound; plain backward (g_dist only) {bwd:.4f} ms  [{card}]")
+        del x, g_dist
+
+    for dt, c in cfgs.items():
+        m = copy.deepcopy(model)
+        state = init_classifier_state(m, c, "joint")
+        step = make_cls_train_step(m, c, "joint")
+        step(state, images, labels)
+        torch.cuda.synchronize()
+        rows, wall_ms, busy_ms = device_profile(lambda: step(state, images, labels), 1)
+        if not rows:
+            log(f"  profile joint step {dt}: the profiler recorded no device time "
+                "(not measured)")
+        else:
+            total = sum(r[0] for r in rows)
+            head = sum(r[0] for r in rows if any(k in r[2] for k in HEAD_KERNELS))
+            fft = sum(r[0] for r in rows if "fft" in r[2].lower() or "complex" in r[2].lower())
+            log(f"  profile joint step {dt} batch {CLS_BS}: "
+                f"{profile_line(rows, wall_ms, busy_ms).replace('/batch', '/step')}, FFT convolution "
+                f"pieces {fft:.2f} ms; head forward kernels {head:.3f} ms = "
+                f"{head / total:.2%} of device time, of a {joint_s[dt] * 1e3:.1f} ms step  "
+                f"[{card}]")
+            log_rows(rows, 10)
+        del m, state, step
+        torch.cuda.empty_cache()
+
+
+def check_classifier(report, card: str) -> None:
+    """Phase 12: the ProtoPNet classifier at the default preset's full
+    width on a seeded image folder."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="adlm_cls_")
+    saved_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True   # the same stem in compared runs
+    try:
+        write_image_folder(root, SEED + 62)
+        log(f"  wrote {CLS_CLASSES} classes x ({CLS_TRAIN_PER} train + {CLS_TEST_PER} test) "
+            f"PNGs at {CLS_SRC}x{CLS_SRC} in {time.perf_counter() - t_phase:.1f} s")
+        cfg, model, sets = cls_setup(root)
+        t0 = time.perf_counter()
+        images, labels = next(sets["train"].batches(CLS_BS, shuffle=True, seed=0))
+        log(f"  loaded a batch of {CLS_BS} in {time.perf_counter() - t0:.2f} s "
+            f"({len(np.unique(labels))} classes)")
+        joint = check_cls_steps(report, model, cfg, images, labels)
+        check_cls_f64(model, cfg, images, labels, joint)
+        check_cls_bf16(model, cfg, images, labels, joint)
+        del joint
+        torch.cuda.empty_cache()
+        check_cls_push(model, cfg, sets["train"])
+        check_cls_cli(report, root)
+        time_cls(model, cfg, images, labels, sets["test"], card)
+    finally:
+        torch.backends.cudnn.deterministic = saved_det
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"  classifier phase {time.perf_counter() - t_phase:.1f} s  [{card}]")
+
 
 
 # ---------------------------------------------------------------------------
@@ -3147,6 +3842,11 @@ def main() -> int:
             "warps, card vs CPU, unoise-train-util, unoise-train-noise --pretrained --bf16, "
             "unoise-visualize, unoise-figures, timings")
         check_unoise(card)
+
+        log("[12] the ProtoPNet classifier at full width (VGG19 224^2, P=2000, C=128, "
+            "K=200, batch 80): kernel vs plain head per phase, f64 and TF32, bf16, push "
+            "vs f64, cls-train, cls-prune, import-protopnet, timings")
+        check_classifier(report, card)
     except Exception:  # report any failure and exit non-zero
         traceback.print_exc()
         log(f"FAILED after {time.perf_counter() - t_start:.1f} s")

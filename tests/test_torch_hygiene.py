@@ -38,6 +38,7 @@ from adlm_tpu_torch.interpret import analysis, evaluate, figures, nearest, prune
 from adlm_tpu_torch.models import calibrate
 from adlm_tpu_torch.models.ppnet import PPNet
 from adlm_tpu_torch.ops import _build
+from adlm_tpu_torch.train import classification as cls
 from adlm_tpu_torch.train import protoseg, unoise
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -69,7 +70,9 @@ def test_port_imports_nothing_of_jax():
               "utils.logging", "utils.tensorboard", "utils.profiling",
               "utils.torch_import", "utils.watchdog", "models.unet", "train.unoise",
               "train.unoise_pipeline", "interpret.unoise_vis", "interpret.figures",
-              "data.warps", "data.unoise_data", "data.nifti", "data.preprocess"):
+              "data.warps", "data.unoise_data", "data.nifti", "data.preprocess",
+              "models.backbones", "data.image_folder", "train.classification",
+              "train.classification_pipeline", "utils.receptive_field"):
         assert f"adlm_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
@@ -90,6 +93,7 @@ def test_data_modules_import_no_torch():
         "import adlm_tpu_torch.data.constants, adlm_tpu_torch.native\n"
         "import adlm_tpu_torch.data.warps, adlm_tpu_torch.data.unoise_data\n"
         "import adlm_tpu_torch.data.nifti, adlm_tpu_torch.data.preprocess\n"
+        "import adlm_tpu_torch.data.image_folder\n"
         "print(repr(sorted(m for m in sys.modules if m.split('.')[0] in "
         "('torch', 'jax', 'PIL'))))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -141,6 +145,41 @@ def _eval_step(model, **kw):
                         torch.randint(0, 4, (2, 33, 33)), 1)
 
 
+_CLS = cls.ClassificationConfig(model=PPNetConfig(
+    base_architecture="resnet18", img_size=32, num_prototypes=6, prototype_channels=8,
+    num_classes=3, add_on_layers_type="regular", patch_classification=False))
+
+
+def _cls_batches():
+    return [(torch.rand(2, 32, 32, 3).numpy(), np.array([0, 2]), 2)]
+
+
+def _cls_model():
+    """A classification PPNet on the CPU (the entry point under test is
+    the one that must refuse to run without a device)."""
+    return PPNet(_CLS.model)
+
+
+def _cls_state():
+    model = _cls_model()
+    return cls.init_classifier_state(model, _CLS, None, device="cpu")
+
+
+def _cls_train_step(**kw):
+    model = _cls_model()
+    step = cls.make_cls_train_step(model, _CLS, "joint", **kw)
+    state = cls.init_classifier_state(model, _CLS, "joint", device="cpu")
+    return lambda: step(state, *_cls_batches()[0][:2])[1]
+
+
+def _cls_eval_step(**kw):
+    model = _cls_model()
+    step = cls.make_cls_eval_step(model, _CLS, **kw)
+    state = cls.init_classifier_state(model, _CLS, None, device="cpu")
+    return lambda: {k: v for k, v in step(state, *_cls_batches()[0][:2]).items()
+                    if k != "correct"}
+
+
 # entry point → factory(model, **device kw); a factory that returns a
 # callable is also run, to show the CPU path works end to end
 ENTRY_POINTS = {
@@ -174,6 +213,19 @@ ENTRY_POINTS = {
     "init_utility_state": lambda m, **kw: unoise.init_utility_state(_UNOISE, **kw),
     "init_noise_state": lambda m, **kw: unoise.init_noise_state(
         _UNOISE, unoise.init_utility_state(_UNOISE, device="cpu").model.state_dict(), **kw),
+    # the classifier (its own PPNet, a tiny ResNet-18)
+    "build_classifier": lambda m, **kw: cls.build_classifier(_CLS, **kw),
+    "init_classifier_state": lambda m, **kw: cls.init_classifier_state(
+        _cls_model(), _CLS, "warm", **kw),
+    "make_cls_train_step": lambda m, **kw: _cls_train_step(**kw),
+    "make_cls_eval_step": lambda m, **kw: _cls_eval_step(**kw),
+    "push_classification_prototypes": lambda m, **kw: cls.push_classification_prototypes(
+        _cls_state(), _cls_batches(), **kw),
+    "find_k_nearest_patches_classification":
+        lambda m, **kw: cls.find_k_nearest_patches_classification(
+            _cls_state(), _cls_batches(), k=1, **kw),
+    "prune_classification_prototypes": lambda m, **kw: cls.prune_classification_prototypes(
+        _cls_state(), _cls_batches(), k=1, prune_threshold=0, log=lambda *_: None, **kw),
     "device_threshold_sweep": lambda m, **kw: figures.device_threshold_sweep(
         figures.make_predict(unoise.build_unet(2, 2, torch.device("cpu"))),
         np.random.RandomState(0).rand(2, 8, 8, 1), np.random.RandomState(1).rand(2, 8, 8, 3),
@@ -189,7 +241,8 @@ def test_entry_points_without_device_raise_on_a_host_without_cuda(
         ENTRY_POINTS[entry](model)
     # asked for explicitly, the CPU runs the plain versions
     out = ENTRY_POINTS[entry](model, device="cpu")
-    if entry in ("make_train_step", "make_eval_step"):
+    if entry in ("make_train_step", "make_eval_step", "make_cls_train_step",
+                 "make_cls_eval_step"):
         metrics = out()
         assert all(bool(torch.isfinite(v).all()) for v in metrics.values())
     assert all(p.device.type == "cpu" for p in model.parameters())
@@ -345,6 +398,19 @@ def test_run_protoseg_training_raises_without_a_card_and_writes_nothing(no_cuda,
         run_protoseg_training(_CFG, str(run), data_path=str(tmp_path), device="cpu")
 
 
+def test_run_classification_training_raises_without_a_card_and_writes_nothing(
+        no_cuda, tmp_path):
+    from adlm_tpu_torch.train.classification_pipeline import run_classification_training
+
+    run = tmp_path / "run"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_classification_training(_CLS, str(run), _cls_batches, _cls_batches)
+    assert not run.exists()
+    state = run_classification_training(_CLS, str(run), _cls_batches, _cls_batches,
+                                        num_epochs=1, device="cpu")
+    assert state.model.prototypes().device.type == "cpu"
+
+
 # U-Noise command → argv after ``python -m adlm_tpu_torch.cli`` (slice
 # arrays that do not exist, run names under RESULTS_DIR)
 _UNOISE_CLI = {
@@ -357,6 +423,11 @@ _UNOISE_CLI = {
     "unoise-figures": ["unoise-figures", "--imgs", "{d}/i.npy", "--masks", "{d}/m.npy",
                        "--utility-run", "u", "--noise-runs", "n"],
     "prepare-unoise": ["prepare-unoise", "{d}/src", "{d}/dst"],
+    # the classifier's commands (image folders and checkpoints that do
+    # not exist)
+    "cls-train": ["cls-train", "c", "--train-dir", "{d}/train", "--test-dir", "{d}/test"],
+    "cls-prune": ["cls-prune", "{d}/results/c", "--train-dir", "{d}/train"],
+    "import-protopnet": ["import-protopnet", "c", "{d}/model.pth"],
 }
 
 
