@@ -2,9 +2,12 @@
 ``adlm_tpu.cli``):
 
     python -m adlm_tpu_torch.cli train <experiment> <run_name> [--pruned]
-    python -m adlm_tpu_torch.cli eval-valid <run_dir> <stage>
-    python -m adlm_tpu_torch.cli eval-test <run_dir> <stage>
+    python -m adlm_tpu_torch.cli eval-valid <run_dir> <stage> [--windowed WH,WW]
+    python -m adlm_tpu_torch.cli eval-test <run_dir> <stage> [--windowed WH,WW]
     python -m adlm_tpu_torch.cli prune <run_dir>
+    python -m adlm_tpu_torch.cli import-protoseg <experiment> <run_name> <checkpoint>
+    python -m adlm_tpu_torch.cli export-torch <run_dir> <stage>
+    python -m adlm_tpu_torch.cli analyze-local / analyze-global <run_dir> <stage>
     python -m adlm_tpu_torch.cli unoise-train-util / unoise-train-noise
     python -m adlm_tpu_torch.cli unoise-visualize / unoise-figures
     python -m adlm_tpu_torch.cli prepare-unoise <source_path> <target_path>
@@ -171,6 +174,12 @@ def _load_stage(run_dir: str, stage: str, kind: str, dev):
     return cfg, payload, _build_model(cfg, sd, dev)
 
 
+def _window(spec: str):
+    """``--windowed WH,WW`` → (WH, WW)."""
+    wh, ww = (int(x) for x in spec.split(","))
+    return wh, ww
+
+
 def cmd_eval_valid(args):
     from adlm_tpu_torch.core.device import resolve_device
     from adlm_tpu_torch.data.constants import get_class_table
@@ -193,10 +202,22 @@ def cmd_eval_valid(args):
     # raw uint8 items normalized on the device where that equals the
     # host path: a quarter of the bytes on the wire
     raw = ds.supports_raw_eval()
-    ev = SegEvaluator(model, cfg.model.num_classes, with_stats=args.stats,
-                      stats_upsampled=args.stats_upsampled,
-                      normalize=(cfg.data.mean, cfg.data.std) if raw else None,
-                      device=dev)
+    normalize = (cfg.data.mean, cfg.data.std) if raw else None
+    if args.windowed:
+        if args.stats_upsampled:
+            raise SystemExit(
+                "--stats-upsampled is whole-image only; use --stats "
+                "with --windowed for the memory-bounded grid statistics")
+        from adlm_tpu_torch.interpret.windowed import WindowedSegEvaluator
+
+        # the CLI needs the (B, P) statistics vectors only
+        ev = WindowedSegEvaluator(model, cfg.model.num_classes, _window(args.windowed),
+                                  with_stats=args.stats, normalize=normalize,
+                                  keep_stat_maps=False, device=dev)
+    else:
+        ev = SegEvaluator(model, cfg.model.num_classes, with_stats=args.stats,
+                          stats_upsampled=args.stats_upsampled, normalize=normalize,
+                          device=dev)
     acc = (ProtoStatsAccumulator(n_proto, cfg.model.num_classes,
                                  proto_class.cpu().numpy())
            if args.stats else None)
@@ -270,9 +291,15 @@ def cmd_eval_test(args):
     ds = SegmentationDataset(cfg.data, args.split, data_path=args.data_path,
                              is_eval=True)
     raw = ds.supports_raw_eval()
-    fn = make_inference_fn(model, cfg.model.num_classes,
-                           normalize=(cfg.data.mean, cfg.data.std) if raw else None,
-                           device=dev)
+    normalize = (cfg.data.mean, cfg.data.std) if raw else None
+    if args.windowed:
+        from adlm_tpu_torch.interpret.windowed import WindowedSegEvaluator
+
+        fn = WindowedSegEvaluator(model, cfg.model.num_classes, _window(args.windowed),
+                                  normalize=normalize, device=dev).update
+    else:
+        fn = make_inference_fn(model, cfg.model.num_classes, normalize=normalize,
+                               device=dev)
     out_dir = os.path.join(args.run_dir, "evaluation", args.stage, "test_predictions")
     os.makedirs(out_dir, exist_ok=True)
     for i, (img, lab) in enumerate(device_prefetch(ds.eval_items(raw=raw), device=dev)):
@@ -575,7 +602,6 @@ def cmd_import_protopnet(args):
     from adlm_tpu_torch.core.checkpoint import CheckpointStore
     from adlm_tpu_torch.core.config import PPNetConfig
     from adlm_tpu_torch.core.device import resolve_device
-    from adlm_tpu_torch.models.ppnet import PPNet
     from adlm_tpu_torch.train.classification import ClassificationConfig
     from adlm_tpu_torch.train.classification_pipeline import save_cls_config
     from adlm_tpu_torch.utils.torch_import import (
@@ -594,18 +620,9 @@ def cmd_import_protopnet(args):
         num_classes=num_classes, add_on_layers_type=args.add_on,
         patch_classification=False))
     proto_class = resolve_proto_class(proto_class, args.proto_class, int(n_proto), num_classes)
-    with torch.device("meta"):
-        template = PPNet(cfg.model).state_dict()
-    # NaN-filled: a tensor the checkpoint does not write stays NaN
-    target = {k: torch.full(v.shape, float("nan"), dtype=v.dtype) for k, v in template.items()}
-    target["ones"] = torch.ones(template["ones"].shape)
+    target = _nan_target(cfg.model)
     report = load_protopnet_cls(target, sd, args.arch)
-    holes = [k for k, v in target.items() if v.is_floating_point() and bool(v.isnan().any())]
-    for what, keys in (("unmapped keys", report["unexpected_keys"]),
-                       ("corrupt BN running_var", report["negative_variance_keys"]),
-                       ("uninitialized tensors", holes)):
-        if keys:
-            raise SystemExit(f"{what} in {args.checkpoint}: {keys[:8]}")
+    _assert_fully_imported(report, target, args.checkpoint)
     run_dir = _results_dir(args.run_name)
     store = CheckpointStore(run_dir)
     save_cls_config(run_dir, cfg)
@@ -615,6 +632,188 @@ def cmd_import_protopnet(args):
     store.save(args.stage, "best", payload)
     print(f"imported {len(report['loaded'])} tensors ({n_proto} prototypes / "
           f"{num_classes} classes, {args.arch}) into {run_dir} stage {args.stage!r}")
+
+
+def _nan_target(model_cfg):
+    """A NaN-filled ``state_dict`` of a port PPNet of ``model_cfg`` (built
+    on the meta device), ``ones`` set: an importer fills it, and a tensor
+    the checkpoint does not write stays NaN."""
+    import torch
+
+    from adlm_tpu_torch.models.ppnet import PPNet
+
+    with torch.device("meta"):
+        template = PPNet(model_cfg).state_dict()
+    target = {k: torch.full(v.shape, float("nan"), dtype=v.dtype) for k, v in template.items()}
+    target["ones"] = torch.ones(template["ones"].shape)
+    return target
+
+
+def _assert_fully_imported(report, target, checkpoint: str) -> None:
+    holes = [k for k, v in target.items() if v.is_floating_point() and bool(v.isnan().any())]
+    for what, keys in (("unmapped keys", report["unexpected_keys"]),
+                       ("corrupt BN running_var", report["negative_variance_keys"]),
+                       ("uninitialized tensors", holes)):
+        if keys:
+            raise SystemExit(f"{what} in {checkpoint}: {keys[:8]}")
+
+
+def cmd_import_protoseg(args):
+    """Import a trained reference ProtoSeg checkpoint (a whole-module
+    pickle, as the reference saves its stages, reference
+    segmentation/train.py:60-65; a plain state_dict; or a
+    ``{"state_dict": ...}`` wrapper) into a run directory that eval-valid,
+    eval-test, prune and ``train --start-checkpoint`` read."""
+    import torch
+
+    from adlm_tpu_torch.core.checkpoint import CheckpointStore
+    from adlm_tpu_torch.core.config import get_experiment
+    from adlm_tpu_torch.core.device import resolve_device
+    from adlm_tpu_torch.train.pipeline import _with_prototypes
+    from adlm_tpu_torch.utils.torch_import import (
+        load_protoseg_model,
+        load_torch_ppnet_checkpoint,
+        resolve_proto_class,
+    )
+
+    resolve_device(args.device)  # host-only work; every command's contract
+    sd, proto_class = load_torch_ppnet_checkpoint(args.checkpoint)
+    n_proto = int(sd["prototype_vectors"].shape[0])
+    cfg = _with_prototypes(get_experiment(args.experiment), n_proto)
+    proto_class = resolve_proto_class(proto_class, args.proto_class, n_proto,
+                                      cfg.model.num_classes)
+    target = _nan_target(cfg.model)
+    report = load_protoseg_model(target, sd)
+    _assert_fully_imported(report, target, args.checkpoint)
+    run_dir = _results_dir(args.run_name)
+    store = CheckpointStore(run_dir)
+    store.save_config(cfg.to_json())
+    payload = {"state_dict": target,
+               "proto_class": torch.as_tensor(np.asarray(proto_class)).long(), "step": 0}
+    store.save(args.stage, "last", payload)
+    store.save(args.stage, "best", payload)
+    print(f"imported {len(report['loaded'])} tensors ({n_proto} prototypes) into "
+          f"{run_dir} stage {args.stage!r}; run eval-valid/eval-test/prune on it, or "
+          f"continue training with --start-checkpoint")
+
+
+def cmd_export_torch(args):
+    """Export a run's ProtoSeg model as a reference-named torch
+    state_dict (the reverse of import-protoseg), with its prototype class
+    ids in ``<out>_proto_class.npy``."""
+    import torch
+
+    from adlm_tpu_torch.core.checkpoint import CheckpointStore
+    from adlm_tpu_torch.core.device import resolve_device
+    from adlm_tpu_torch.utils.torch_import import export_protoseg_state_dict
+
+    resolve_device(args.device)  # host-only work; every command's contract
+    payload = CheckpointStore(args.run_dir).restore(args.stage, args.kind,
+                                                    map_location="cpu")
+    sd = export_protoseg_state_dict(payload["state_dict"])
+    out = args.out or os.path.join(args.run_dir, "export_torch",
+                                   f"{args.stage}_{args.kind}.pth")
+    if os.path.dirname(out):
+        os.makedirs(os.path.dirname(out), exist_ok=True)
+    torch.save(sd, out)
+    pc_out = os.path.splitext(out)[0] + "_proto_class.npy"
+    np.save(pc_out, payload["proto_class"].cpu().numpy().astype(np.int32))
+    print(f"exported {len(sd)} tensors to {out} (+ prototype class ids in {pc_out})")
+
+
+def _push_time_indices(run_dir, stage, n_current):
+    """Current checkpoint prototype indices → the push-time indices in
+    the artifact file names, or None where the map cannot be rebuilt
+    (never link wrong artifacts).
+
+    Push dedup compacts the indices and records the kept ORIGINAL ones
+    in ``prototypes/unique_prototypes.json``; pruning compacts again (the
+    removed push-stage indices are in ``prune_info.npy``)."""
+    uniq_path = os.path.join(run_dir, "prototypes", "unique_prototypes.json")
+    orig = None
+    if os.path.exists(uniq_path):
+        with open(uniq_path) as f:
+            orig = json.load(f)          # push-stage current -> original
+    if stage == "pruned":
+        pi_path = os.path.join(run_dir, "prune_info.npy")
+        if not os.path.exists(pi_path):
+            return None
+        pruned = {int(r[0]) for r in np.load(pi_path).reshape(-1, 2)}
+        n_push = len(orig) if orig is not None else n_current + len(pruned)
+        idx = [j for j in range(n_push) if j not in pruned]
+        if len(idx) != n_current:
+            return None
+    else:
+        idx = list(range(n_current))
+    if orig is not None:
+        if idx and max(idx) >= len(orig):
+            return None
+        idx = [int(orig[j]) for j in idx]
+    return idx
+
+
+def cmd_analyze_local(args):
+    """The local analysis of one image (reference local_analysis.py),
+    with each top prototype's push-time artifacts linked beside it."""
+    import glob
+    import shutil
+
+    from adlm_tpu_torch.core.device import resolve_device
+    from adlm_tpu_torch.data.dataset import SegmentationDataset
+    from adlm_tpu_torch.interpret.analysis import local_analysis, make_denorm
+
+    dev = resolve_device(args.device)
+    cfg, payload, model = _load_stage(args.run_dir, args.stage, args.kind, dev)
+    ds = SegmentationDataset(cfg.data, args.split, data_path=args.data_path, is_eval=True)
+    img, _ = ds.get_eval_item(args.index)
+    out_dir = os.path.join(args.run_dir, "local_analysis", ds.img_ids[args.index])
+    res = local_analysis(model, payload["proto_class"], img[None], top_k=args.top_k,
+                         save_dir=out_dir, denorm=make_denorm(cfg.data),
+                         per_class_top=args.per_class_top, device=dev)
+    # the reference renders each top prototype's own source image and
+    # box (local_analysis.py:215-228); here push wrote them, under
+    # push-time indices that dedup and pruning compact afterwards
+    proto_dir = os.path.join(args.run_dir, "prototypes")
+    orig_idx = _push_time_indices(args.run_dir, args.stage, cfg.model.num_prototypes)
+    if os.path.isdir(proto_dir) and orig_idx is not None:
+        for rank, j in enumerate(res["top_prototypes"]):
+            for src in glob.glob(os.path.join(
+                    proto_dir, "*", f"prototype-img_{orig_idx[int(j)]}-*.png")):
+                shutil.copy(src, os.path.join(out_dir, f"top-{rank + 1}_" + os.path.basename(src)))
+    print(json.dumps({
+        "top_prototypes": res["top_prototypes"].tolist(),
+        "top_classes": res["top_classes"].tolist(),
+        "own_class_is_strongest": bool(res["own_class_is_strongest"].all()),
+    }, indent=2))
+
+
+def cmd_analyze_global(args):
+    """The k nearest training patches of every prototype (reference
+    global_analysis.py)."""
+    import itertools
+
+    from adlm_tpu_torch.core.device import resolve_device
+    from adlm_tpu_torch.data.dataset import SegmentationDataset
+    from adlm_tpu_torch.interpret.analysis import global_analysis, make_denorm
+
+    dev = resolve_device(args.device)
+    cfg, payload, model = _load_stage(args.run_dir, args.stage, args.kind, dev)
+    ds = SegmentationDataset(cfg.data, args.split, data_path=args.data_path, is_eval=True,
+                             push_prototypes=True)
+    items = ds.eval_items()
+    if args.max_images:
+        items = itertools.islice(items, args.max_images)
+
+    def get_item(i):
+        im, lb = ds.get_eval_item(i)
+        return im[None], lb[None]
+
+    ids = global_analysis(model, payload["proto_class"], items, cfg.model.num_classes,
+                          k=args.k, save_dir=os.path.join(args.run_dir, "global_analysis"),
+                          full_save=args.full_save, get_item=get_item,
+                          denorm=make_denorm(cfg.data), batch_size=args.batch_size,
+                          device=dev)
+    print(f"nearest patch class ids saved; shape {ids.shape}")
 
 
 def cmd_cls_export(args):
@@ -744,6 +943,10 @@ def main(argv=None):
                                  "(eval_valid.py:172-214)")
             ep.add_argument("--examples", type=int, default=5,
                             help="qualitative overlay examples (0 = off)")
+        ep.add_argument("--windowed", default=None, metavar="WH,WW",
+                        help="sliding-window inference with the given "
+                             "window size instead of whole-image "
+                             "forwards (memory-bounded mode)")
         _add_device(ep)
         ep.set_defaults(fn=fn)
 
@@ -879,6 +1082,56 @@ def main(argv=None):
                      help="(P,) class-id .npy for pruned checkpoints")
     _add_device(icp)
     icp.set_defaults(fn=cmd_import_protopnet)
+
+    ip = sub.add_parser("import-protoseg",
+                        help="import a trained reference ProtoSeg checkpoint "
+                             "(torch.save'd ppnet module or state_dict) into a run dir")
+    ip.add_argument("experiment")
+    ip.add_argument("run_name")
+    ip.add_argument("checkpoint")
+    ip.add_argument("--stage", default="push", choices=STAGES,
+                    help="stage to file the checkpoint under (the reference "
+                         "names its files by the same stages)")
+    ip.add_argument("--proto-class", default=None,
+                    help="(P,) class-id .npy for pruned checkpoints whose "
+                         "identity is not in the pickle")
+    _add_device(ip)
+    ip.set_defaults(fn=cmd_import_protoseg)
+
+    et = sub.add_parser("export-torch",
+                        help="export a run's ProtoSeg model as a reference-named "
+                             "torch state_dict (reverse of import-protoseg)")
+    et.add_argument("run_dir")
+    et.add_argument("stage")
+    et.add_argument("--kind", default="best", choices=["last", "best"])
+    et.add_argument("--out", default=None)
+    _add_device(et)
+    et.set_defaults(fn=cmd_export_torch)
+
+    for name, fn in (("analyze-local", cmd_analyze_local),
+                     ("analyze-global", cmd_analyze_global)):
+        ap = sub.add_parser(name)
+        ap.add_argument("run_dir")
+        ap.add_argument("stage", choices=STAGES)
+        ap.add_argument("--kind", default="last")
+        ap.add_argument("--split", default="val")
+        ap.add_argument("--data-path", default=None)
+        if name == "analyze-local":
+            ap.add_argument("--index", type=int, default=0)
+            ap.add_argument("--top-k", type=int, default=10)
+            ap.add_argument("--per-class-top", type=int, default=3,
+                            help="also save each of the k most-represented "
+                                 "classes' own prototypes ranked by activation "
+                                 "(reference local_analysis.py:272-330); 0 = off")
+        else:
+            ap.add_argument("--k", type=int, default=5)
+            ap.add_argument("--max-images", type=int, default=0)
+            ap.add_argument("--full-save", action="store_true",
+                            help="save nearest-patch image artifacts")
+            ap.add_argument("--batch-size", type=int, default=1,
+                            help="images per step of the k-nearest scan")
+        _add_device(ap)
+        ap.set_defaults(fn=fn)
 
     cx = sub.add_parser("cls-export", help="not ported yet (ROADMAP.md Queue 1 item 10)")
     cx.add_argument("rest", nargs=argparse.REMAINDER)

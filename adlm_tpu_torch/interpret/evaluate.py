@@ -120,6 +120,25 @@ def _topk_purity(sample_d: torch.Tensor, sample_pred: torch.Tensor,
     return purity.sum(dim=1) * 100.0 / n
 
 
+def confusion_counts(pred: torch.Tensor, labels: torch.Tensor,
+                     num_classes: int) -> Dict[str, torch.Tensor]:
+    """Per-class ``intersection``/``union`` and the ``correct``/``total``
+    pixel counts of predictions (B, H, W) against raw annotations
+    (B, H, W): 0 = void, class c at value c + 1 (reference
+    eval_valid.py:178-189)."""
+    valid = labels > 0
+    gt = torch.clamp(labels.long() - 1, 0, num_classes - 1)
+    # confusion counts over valid pixels: rows gt, columns pred
+    code = torch.where(valid, gt * num_classes + pred,
+                       num_classes * num_classes)
+    conf = torch.bincount(code.flatten(), minlength=num_classes ** 2 + 1)
+    conf = conf[:num_classes ** 2].view(num_classes, num_classes)
+    inter = conf.diagonal()
+    return {"intersection": inter,
+            "union": conf.sum(0) + conf.sum(1) - inter,
+            "correct": inter.sum(), "total": valid.sum()}
+
+
 def _prepare(model: nn.Module, device: DeviceLike) -> torch.device:
     dev = resolve_device(device)
     model.to(device=dev, memory_format=torch.channels_last).eval()
@@ -171,20 +190,7 @@ def make_inference_fn(model: nn.Module, num_classes: int,
             H, W = labels.shape[1], labels.shape[2]
             logits = resize_bilinear(grid_logits, (H, W))
             pred = torch.argmax(logits, dim=-1)                  # (B,H,W)
-
-            valid = labels > 0
-            gt = torch.clamp(labels.long() - 1, 0, num_classes - 1)
-            # confusion counts over valid pixels: rows gt, columns pred
-            code = torch.where(valid, gt * num_classes + pred,
-                               num_classes * num_classes)
-            conf = torch.bincount(code.flatten(),
-                                  minlength=num_classes ** 2 + 1)
-            conf = conf[:num_classes ** 2].view(num_classes, num_classes)
-            inter = conf.diagonal()
-            out = {"intersection": inter,
-                   "union": conf.sum(0) + conf.sum(1) - inter,
-                   "correct": inter.sum(), "total": valid.sum(),
-                   "pred": pred}
+            out = dict(confusion_counts(pred, labels, num_classes), pred=pred)
             if with_stats:
                 out.update(_stats(grid_logits, dist, pred, proto_class,
                                   uv, (H, W)))

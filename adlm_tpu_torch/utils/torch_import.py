@@ -25,7 +25,13 @@ for the classifier: the port's stems carry torchvision's names
 lands on ``features.k`` and a reference classification PPNet's keys
 map one to one (``ones`` and ``num_batches_tracked`` skipped).
 ``load_torch_ppnet_checkpoint`` and ``resolve_proto_class`` read such a
-checkpoint file and its prototype classes for ``import-protopnet``.
+checkpoint file and its prototype classes for ``import-protopnet`` and
+``import-protoseg``.
+
+``load_protoseg_model`` reads a reference SEGMENTATION PPNet's
+state_dict (``import-protoseg``), and ``export_protoseg_state_dict``
+writes one (``export-torch``): the port's PPNet carries the reference's
+keys and layouts, so both are one key map.
 
 ``load_unoise_checkpoint`` reads a reference U-Noise checkpoint: the
 port's U-Net carries the reference's module names, so its state_dict is
@@ -183,6 +189,55 @@ def load_protopnet_cls(target: Dict[str, torch.Tensor],
                                        report["negative_variance_keys"]]}
 
 
+def load_protoseg_model(target: Dict[str, torch.Tensor],
+                        state_dict: Mapping[str, Any]) -> Dict[str, list]:
+    """Copy a full reference SEGMENTATION PPNet state_dict (reference
+    model.py:54-143, as ``torch.save`` of its stage modules holds it,
+    reference segmentation/train.py:60-65) into ``target``, the port
+    PPNet's ``state_dict()`` built with the checkpoint's prototype count:
+    ``features.base.*`` through ``load_deeplab_backbone`` (deeplab
+    naming), the add-on convs at even indices of ``add_on_layers``,
+    ``prototype_vectors`` (P, C, 1, 1) and ``last_layer.weight`` (K, P),
+    all in the port's own layouts.  ``ones`` (the constant of the
+    reference's L2 convolution, model.py:140) and ``num_batches_tracked``
+    are skipped.  Returns the report ``{"loaded", "unexpected_keys",
+    "negative_variance_keys"}`` over the source keys, as the JAX
+    package's ``load_protoseg_model``."""
+    base = {k[len(BACKBONE_PREFIX):]: v for k, v in state_dict.items()
+            if k.startswith(BACKBONE_PREFIX) and not k.endswith("num_batches_tracked")}
+    report = load_deeplab_backbone(target, base, naming="deeplab")
+    loaded = [BACKBONE_PREFIX + k for k in report["loaded"]]
+    unexpected = [BACKBONE_PREFIX + k for k in report["unexpected_keys"]]
+    for key, value in state_dict.items():
+        if (key.startswith(BACKBONE_PREFIX) or key == "ones"
+                or key.endswith("num_batches_tracked")):
+            continue
+        seg = key.split(".")
+        head = key in ("prototype_vectors", "last_layer.weight") or (
+            seg[0] == "add_on_layers" and seg[1].isdigit() and int(seg[1]) % 2 == 0)
+        if head:
+            _copy_into(target, key, value, loaded, unexpected, key)
+        else:
+            unexpected.append(key)
+    return {"loaded": loaded, "unexpected_keys": unexpected,
+            "negative_variance_keys": [BACKBONE_PREFIX + k for k in
+                                       report["negative_variance_keys"]]}
+
+
+def export_protoseg_state_dict(state_dict: Mapping[str, torch.Tensor]
+                               ) -> Dict[str, torch.Tensor]:
+    """The port PPNet's ``state_dict`` as the reference's torch
+    state_dict, the inverse of ``load_protoseg_model``: the port's keys
+    and layouts are the reference's, so every tensor goes out as it is
+    (contiguous, on the CPU), with ``ones`` regenerated from the
+    prototypes' shape.  ``prototype_class_identity`` is not part of a
+    torch state_dict (a plain attribute in the reference): callers save
+    the class ids beside it."""
+    out = {k: v.detach().cpu().contiguous() for k, v in state_dict.items()}
+    out["ones"] = torch.ones_like(out["prototype_vectors"])
+    return out
+
+
 def load_torch_ppnet_checkpoint(path: str
                                 ) -> Tuple[Dict[str, np.ndarray], Optional[np.ndarray]]:
     """(numpy state_dict, proto_class or None) of a reference PPNet
@@ -222,7 +277,7 @@ def resolve_proto_class(proto_class: Optional[np.ndarray],
     if proto_class is None:
         if n_proto % num_classes:
             raise SystemExit(
-                f"{n_proto} prototypes do not divide into {num_classes} classes: "
+                f"{n_proto} prototypes do not divide into {num_classes} classes — "
                 "this looks like a pruned checkpoint; pass --proto-class "
                 "<file.npy> with the (P,) class-id array (in the reference: "
                 "`ppnet.prototype_class_identity.argmax(1)`)")

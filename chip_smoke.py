@@ -108,7 +108,33 @@ non-zero and prints no result:
    model's test accuracy equal to the trained one's; then seconds per
    step per phase and dtype, eval and push images/s, the head's general
    path at 3,920 and 4,900 rows and its plain backward, and a profile
-   of one f32 and one bf16 joint step.
+   of one f32 and one bf16 joint step;
+13. windowed eval, checkpoint interop and the analyses on the flagship
+   at full width (f32 IEEE, cuDNN deterministic), over four train and
+   two val frames written as phase 10 writes them: a
+   ``WindowedSegEvaluator`` with statistics in 513x513 windows at
+   overlap 0.25 (15 per frame, fused in chunks of 8 and 7: 2 head
+   launches per batch of 2, and 1 for the auto rule's memory probe)
+   against the same with the plain head (phase 4's tie budget and
+   near-tie rule), against the per-window driver with a device canvas
+   (identical counters, also under cuDNN's default settings), the
+   per-window driver's host canvas on the frames and on 384x1024 crops
+   smaller than the window, and a deferred queue mixing both canvases
+   (identical counters, agree_counts and purity), and a frame-sized
+   window against whole-frame eval (the tie budget), with the interior
+   argmax agreement printed as a reading; then through the CLI
+   ``eval-valid --windowed 513,513 --stats`` (counters equal to the
+   direct run's) and ``eval-test --windowed`` (PNGs against a direct
+   run), ``import-protoseg`` of a reference-layout state_dict and of a
+   pickled module (bit-equal), ``eval-valid`` on the imported run
+   (counters equal), ``export-torch`` and a second import (bit-equal),
+   ``analyze-local --top-k 10 --per-class-top 3`` against the plain
+   head (ranks moved only on a near-tie of the minimum distances) and
+   ``analyze-global --k 5`` over the four train frames against
+   ``find_k_nearest_patches``; then windowed and whole-frame img/s at
+   batch 2 in f32 and bf16, a fused window batch's peak memory against
+   the auto rule's reservation, and the head at a fused chunk's 67,600
+   rows.
 
 Precision: f32 runs with TF32 off for convolutions and matmuls (the
 entry points' ``ieee_f32`` scope; the comparisons here run in the same
@@ -1947,13 +1973,14 @@ def run_probes():
 
 
 def run_command(argv, rec, launches_by_cmd):
-    """One CLI command in-process, its launches counted from 0."""
+    """One CLI command in-process, its launches counted from 0; its
+    standard output is kept in ``rec["stdout"]``."""
     import torch
     from adlm_tpu_torch import cli
     from adlm_tpu_torch.ops import _build
 
     tag = " ".join([argv[0]] + [a for a in argv[1:] if a in (
-        "U", "H", "push", "pruned", "--halt-after", "--resume", "--pruned")])
+        "U", "H", "push", "pruned", "--halt-after", "--resume", "--pruned", "--windowed")])
     torch.cuda.synchronize()
     _build.reset_launches()
     rec["first_window"] = None
@@ -1967,6 +1994,7 @@ def run_command(argv, rec, launches_by_cmd):
         raise
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
+    rec["stdout"] = out.getvalue()
     launches = dict(_build.LAUNCHES)
     launches_by_cmd.append((tag, launches))
     start = (rec["first_window"] - t0) if rec["first_window"] is not None else None
@@ -3743,6 +3771,547 @@ def check_classifier(report, card: str) -> None:
     log(f"  classifier phase {time.perf_counter() - t_phase:.1f} s  [{card}]")
 
 
+# ---------------------------------------------------------------------------
+# phase 13: windowed eval, checkpoint import/export and the analyses
+# ---------------------------------------------------------------------------
+
+# the flagship in 513² windows at overlap 0.25: 15 windows per
+# 1024x2048 frame (a 3 x 5 grid), fused in chunks of 8 and 7, so 2 head
+# launches per batch of 2; a full chunk is 8 x 2 x 65 x 65 head rows
+WIN = (513, 513)
+WIN_OVERLAP = 0.25
+WIN_BS = 2
+WIN_CHUNK = 8
+# the stats grid of a window by DeepLab's output-stride arithmetic: 65
+# x 65 for 513 x 513
+WIN_GRID = tuple((s - 1) // 8 + 1 for s in WIN)
+WIN_HEAD_ROWS = WIN_CHUNK * WIN_BS * WIN_GRID[0] * WIN_GRID[1]
+WIN_SEAM = 32             # the interior reading leaves out this band round every seam
+WIN_SMALL = (384, 1024)   # crops lower than a window: 3 windows, each padded
+WIN_TRAIN_FRAMES, WIN_VAL_FRAMES = 4, 2
+WIN_TIME_ITERS = 3
+
+
+@contextlib.contextmanager
+def recorded_updates(module, name: str):
+    """Patch ``module.<name>``, an evaluator class, with a subclass that
+    keeps its instances and each update's output."""
+    orig = getattr(module, name)
+    seen = {"instances": [], "outs": []}
+
+    class Recording(orig):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            seen["instances"].append(self)
+
+        def update(self, *args, **kwargs):
+            out = super().update(*args, **kwargs)
+            seen["outs"].append(out)
+            return out
+
+    setattr(module, name, Recording)
+    try:
+        yield seen
+    finally:
+        setattr(module, name, orig)
+
+
+def run_windowed(model, batches, pc, mean_std, **kw):
+    """A statistics ``WindowedSegEvaluator`` over ``batches``: (results and
+    per-batch outputs in ``compare_eval``'s form, the evaluator, the
+    predictions)."""
+    import torch
+    from adlm_tpu_torch.interpret.windowed import WindowedSegEvaluator
+
+    ev = WindowedSegEvaluator(model, 19, WIN, overlap=WIN_OVERLAP, with_stats=True,
+                              n_random_pixels=N_RANDOM, seed=SEED, normalize=mean_std, **kw)
+    outs, preds = [], []
+    for img, lab in batches:
+        with purity_inputs() as seen:
+            o = ev.update(pc, img, lab)
+        out = {k: o[k].cpu() for k in ("intersection", "union", "correct", "total",
+                                       "agree_counts", "topk_purity")}
+        out["sample_d"] = torch.cat([d for d, _ in seen])
+        out["sample_pred"] = torch.cat([p for _, p in seen])
+        if o["stat_windows"] != 15 or tuple(o["stat_pred"].shape[1:]) != WIN_GRID:
+            raise AssertionError(f"windowed stats: {o['stat_windows']} windows, grid "
+                                 f"{tuple(o['stat_pred'].shape[1:])}; expected 15 of {WIN_GRID}")
+        outs.append(out)
+        preds.append(o["pred"])
+    return (ev.results(), outs), ev, preds
+
+
+def same_counters(a, b) -> bool:
+    import numpy as np
+
+    return (np.array_equal(a.intersection, b.intersection)
+            and np.array_equal(a.union, b.union)
+            and (a.correct, a.total) == (b.correct, b.total))
+
+
+def seam_interior(offsets):
+    """(H, W) bool: pixels farther than WIN_SEAM from every window edge
+    that lies inside the frame."""
+    import numpy as np
+
+    rows, cols = np.ones(H, bool), np.ones(W, bool)
+    for (sh, sw) in offsets:
+        for e in (sh, sh + WIN[0]):
+            if 0 < e < H:
+                rows[max(0, e - WIN_SEAM):e + WIN_SEAM] = False
+        for e in (sw, sw + WIN[1]):
+            if 0 < e < W:
+                cols[max(0, e - WIN_SEAM):e + WIN_SEAM] = False
+    return rows[:, None] & cols[None, :]
+
+
+def same_window_stats(a, b) -> bool:
+    import torch
+
+    return len(a) == len(b) and all(torch.equal(x[k], y[k]) for x, y in zip(a, b)
+                                    for k in ("agree_counts", "topk_purity"))
+
+
+def check_host_canvas(m32, pc, mean_std, batches, got, per, ev_w):
+    """The per-window driver's host canvas with statistics against its
+    device canvas: on the frames, on crops lower than the window (the
+    auto rule's host canvas), and a deferred queue of the fused driver's
+    frames and the crops' host canvas, drained at once."""
+    import numpy as np
+    from adlm_tpu_torch.interpret.windowed import WindowedSegEvaluator
+
+    host, ev_h, _ = run_windowed(m32, batches, pc, mean_std, fused=False,
+                                 device_stitch=False)
+    ok_frames = same_counters(ev_h, ev_w) and same_window_stats(host[1], per[1])
+    small = [(img[:, :WIN_SMALL[0], :WIN_SMALL[1]], lab[:, :WIN_SMALL[0], :WIN_SMALL[1]])
+             for img, lab in batches]
+
+    def evaluator(**kw):
+        return WindowedSegEvaluator(m32, 19, WIN, overlap=WIN_OVERLAP, with_stats=True,
+                                    n_random_pixels=N_RANDOM, seed=SEED,
+                                    normalize=mean_std, **kw)
+
+    def small_run(**kw):
+        ev = evaluator(**kw)
+        outs = [ev.update(pc, img, lab) for img, lab in small]
+        if {o["stat_windows"] for o in outs} != {3}:
+            raise AssertionError(f"crops {WIN_SMALL}: {[o['stat_windows'] for o in outs]} windows")
+        return ev, [{k: o[k].cpu() for k in ("agree_counts", "topk_purity")} for o in outs]
+
+    ev_sh, sh = small_run()                    # the auto rule: a host canvas
+    ev_sd, sd = small_run(device_stitch=True)
+    ok_small = same_counters(ev_sh, ev_sd) and same_window_stats(sh, sd)
+
+    queue = evaluator(defer_sync=True)
+    for img, lab in batches + small:
+        queue.update(pc, img, lab)
+    drained = queue.drain()
+    ok_queue = (len(drained) == len(batches) + len(small)
+                and np.array_equal(queue.intersection,
+                                   ev_w.intersection + ev_sh.intersection)
+                and np.array_equal(queue.union, ev_w.union + ev_sh.union)
+                and (queue.correct, queue.total) == (ev_w.correct + ev_sh.correct,
+                                                     ev_w.total + ev_sh.total)
+                and all(np.array_equal(d[1], o["agree_counts"].numpy())
+                        for d, o in zip(drained, got[1] + sd)))
+    log(f"  host canvas with statistics vs device canvas: frames "
+        f"{'identical' if ok_frames else 'DIFFER'}, {len(small)} batch of {WIN_SMALL[0]}x"
+        f"{WIN_SMALL[1]} crops (3 padded windows each) {'identical' if ok_small else 'DIFFER'}; "
+        f"a deferred queue of fused frames and host-canvas crops drained at once: "
+        f"{'identical' if ok_queue else 'DIFFER'} (counters and agree_counts)")
+    if not (ok_frames and ok_small and ok_queue):
+        raise AssertionError("the host canvas disagrees with the device canvas")
+
+
+def check_windowed_eval(m32, pc, mean_std, batches, launches_by_cmd):
+    """(a): the kernel path against the plain head, the fused driver
+    against the per-window driver, a frame-sized window against
+    whole-frame eval.  Returns the kernel run's evaluator."""
+    import numpy as np
+    import torch
+    from adlm_tpu_torch.interpret.evaluate import SegEvaluator
+    from adlm_tpu_torch.interpret.windowed import (
+        WindowedSegEvaluator,
+        _grid_extent,
+        window_offsets,
+    )
+    from adlm_tpu_torch.ops import _build
+
+    n_pixels = WIN_BS * H * W
+    budget = math.ceil(TIE_SHARE * n_pixels)
+    offsets = window_offsets(H, W, WIN, WIN_OVERLAP)
+    if len(offsets) != 15 or _grid_extent(WIN, *WIN, *WIN_GRID) != WIN_GRID:
+        raise AssertionError(f"window grid: {offsets}")
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    got, ev_k, preds = run_windowed(m32, batches, pc, mean_std)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    launches_by_cmd.append(("WindowedSegEvaluator (fused)", launches))
+    log(f"  fused windowed eval (stats, f32 IEEE): {len(batches)} batch of {WIN_BS} in "
+        f"{secs:.2f} s, launches {launches} (2 per batch expected: chunks of 8 and 7; "
+        f"1 for the memory probe); the probe measured "
+        f"{ev_k._act_bytes_per_pixel:.1f} bytes per window pixel")
+    if launches["prototype_head"] != 2 * len(batches) + 1 or launches["upsample_argmin"]:
+        raise AssertionError("the fused windowed eval did not launch the head once per chunk")
+
+    with plain_versions():
+        want, _, _ = run_windowed(m32, batches, pc, mean_std)
+    compare_eval("windowed f32", got, want, n_pixels)
+
+    _build.reset_launches()
+    per, ev_w, preds_w = run_windowed(m32, batches, pc, mean_std, fused=False,
+                                      device_stitch=True)
+    n_per = _build.LAUNCHES["prototype_head"]
+    agree_eq = all(torch.equal(a["agree_counts"], b["agree_counts"])
+                   for a, b in zip(got[1], per[1]))
+    pred_eq = all(torch.equal(a, b) for a, b in zip(preds, preds_w))
+    log(f"  fused vs per-window driver (device canvas, {n_per} head launches): counters "
+        f"{'identical' if same_counters(ev_k, ev_w) else 'DIFFER'}, agree_counts "
+        f"{'identical' if agree_eq else 'DIFFER'}, pred maps "
+        f"{'identical' if pred_eq else 'DIFFER'}; topk_purity max_abs "
+        f"{max((a['topk_purity'] - b['topk_purity']).abs().max().item() for a, b in zip(got[1], per[1])):.2e}")
+    if not same_counters(ev_k, ev_w) or n_per != 15 * len(batches):
+        raise AssertionError("the fused and per-window drivers give different counters")
+
+    # the same two drivers under cuDNN's default settings, which the CLI keeps
+    saved_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = False
+    try:
+        _, ev_fd, _ = run_windowed(m32, batches, pc, mean_std)
+        _, ev_wd, _ = run_windowed(m32, batches, pc, mean_std, fused=False,
+                                   device_stitch=True)
+    finally:
+        torch.backends.cudnn.deterministic = saved_det
+    log(f"  fused vs per-window driver under cuDNN's default settings: counters "
+        f"{'identical' if same_counters(ev_fd, ev_wd) else 'DIFFER'}; fused counters "
+        f"{'identical' if same_counters(ev_fd, ev_k) else 'DIFFER'} to the deterministic run's")
+    if not same_counters(ev_fd, ev_wd):
+        raise AssertionError("under cuDNN's default settings the drivers give different counters")
+    check_host_canvas(m32, pc, mean_std, batches, got, per, ev_w)
+
+    # one window the size of the frame against whole-frame eval
+    frame = WindowedSegEvaluator(m32, 19, (H, W), normalize=mean_std)
+    whole = SegEvaluator(m32, 19, normalize=mean_std)
+    whole_preds = [whole.update(pc, img, lab)["pred"] for img, lab in batches]
+    for img, lab in batches:
+        frame.update(pc, img, lab)
+    diffs = {"intersection": int(np.abs(frame.intersection - whole.intersection).sum()),
+             "union": int(np.abs(frame.union - whole.union).sum()),
+             "correct": abs(frame.correct - whole.correct),
+             "total": abs(frame.total - whole.total)}
+    limits = {"intersection": budget, "union": 2 * budget, "correct": budget, "total": 0}
+    log(f"  frame-sized window vs whole-frame make_inference_fn: |diff| {diffs} (budget "
+        f"{budget} px, x2 for union); mIoU {frame.results()['mean_iou']:.6f} vs "
+        f"{whole.results()['mean_iou']:.6f}")
+    if any(diffs[k] > v for k, v in limits.items()):
+        raise AssertionError("a frame-sized window disagrees with whole-frame eval")
+
+    inside = torch.from_numpy(seam_interior(offsets)).cuda()
+    agree = [((pw == pf) & inside).sum().item() / (inside.sum().item() * pw.shape[0])
+             for pw, pf in zip(preds, whole_preds)]
+    log(f"  reading: windowed vs whole-frame argmax agreement in the window interiors "
+        f"({inside.float().mean().item():.1%} of the frame, seams +-{WIN_SEAM} px left out) "
+        f"{min(agree):.4f}; random weights, so no floor")
+    return ev_k, got
+
+
+def check_windowed_cli(m32, pc, cfg, data, results, ev_k, got, launches_by_cmd):
+    """(b) eval-valid --windowed --stats and eval-test --windowed through
+    the CLI on a run holding the same weights, and (c) import-protoseg /
+    export-torch round trips.  Returns the source run directory."""
+    import json
+    import os
+
+    import numpy as np
+    import torch
+    from adlm_tpu_torch.core.checkpoint import CheckpointStore
+    from adlm_tpu_torch.data.constants import get_class_table
+    from adlm_tpu_torch.data.dataset import SegmentationDataset
+    from adlm_tpu_torch.interpret import windowed as win_mod
+
+    rec = {"first_window": None}
+    src = os.path.join(results, "src")
+    sd = {k: v.detach().cpu() for k, v in m32.state_dict().items()}
+    store = CheckpointStore(src)
+    store.save_config(cfg.to_json())
+    store.save("push", "last", {"state_dict": sd, "proto_class": pc.cpu(), "step": 0})
+    eval_args = ["push", "--data-path", data, "--windowed", f"{WIN[0]},{WIN[1]}", "--stats",
+                 "--batch-size", str(WIN_BS), "--examples", "0"]
+
+    def windowed_eval_valid(run):
+        with recorded_updates(win_mod, "WindowedSegEvaluator") as seen:
+            run_command(["eval-valid", run] + eval_args, rec, launches_by_cmd)
+        (ev,), outs = seen["instances"], seen["outs"]
+        return ev, outs, json.loads(rec["stdout"])
+
+    ev_c, outs_c, res_c = windowed_eval_valid(src)
+    agree_eq = all(torch.equal(o["agree_counts"].cpu(), g["agree_counts"])
+                   for o, g in zip(outs_c, got[1]))
+    log(f"  eval-valid --windowed {WIN[0]},{WIN[1]} --stats: counters "
+        f"{'equal' if same_counters(ev_c, ev_k) else 'DIFFER'} to the direct run's, "
+        f"agree_counts {'equal' if agree_eq else 'DIFFER'}; mIoU {res_c['mean_iou']:.6f}, "
+        f"stats_mode {res_c.get('stats_mode')}")
+    if not same_counters(ev_c, ev_k) or not agree_eq or res_c.get("stats_mode") != "grid":
+        raise AssertionError("eval-valid --windowed differs from the direct windowed run")
+
+    run_command(["eval-test", src, "push", "--data-path", data, "--windowed",
+                 f"{WIN[0]},{WIN[1]}"], rec, launches_by_cmd)
+    ds = SegmentationDataset(cfg.data, "val", data_path=data, is_eval=True)
+    lut = get_class_table(cfg.data.class_table).submission_lut(19)
+    direct = win_mod.WindowedSegEvaluator(m32, 19, WIN, normalize=(cfg.data.mean, cfg.data.std))
+    pred_dir = os.path.join(src, "evaluation", "push", "test_predictions")
+    for i, (img, lab) in enumerate(ds.eval_items(raw=True)):
+        want = lut[direct.update(pc, img, lab)["pred"][0].cpu().numpy()]
+        got_png = read_png(os.path.join(pred_dir, ds.img_ids[i] + ".png"))
+        if got_png.shape != (H, W) or not np.array_equal(got_png, want):
+            raise AssertionError(f"eval-test --windowed PNG {i} differs from submission_lut[pred]")
+    log(f"  eval-test --windowed: {len(ds)} PNGs decode to submission_lut of a direct "
+        f"batch-1 windowed run")
+
+    # (c) the reference's layouts: a state_dict with torch BN's
+    # num_batches_tracked, and the whole module pickled with its
+    # prototype_class_identity, as the reference saves its stages
+    root = os.path.dirname(results)
+    ref_sd = dict(sd)
+    for k in sd:
+        if k.endswith("bn.running_mean"):
+            ref_sd[k[:-len("running_mean")] + "num_batches_tracked"] = torch.tensor(0)
+    torch.save(ref_sd, os.path.join(root, "ref_sd.pth"))
+    module = copy.deepcopy(m32).cpu()
+    module.prototype_class_identity = torch.nn.functional.one_hot(pc.cpu(), 19).float()
+    torch.save(module, os.path.join(root, "ref_module.pth"))
+    del module
+    name = cfg.name
+
+    def imported(run):
+        payload = CheckpointStore(os.path.join(results, run)).restore("push", "best")
+        if not torch.equal(payload["proto_class"], pc.cpu()):
+            raise AssertionError(f"{run}: proto_class differs")
+        return payload["state_dict"]
+
+    def bit_equal(a, b) -> list:
+        return [k for k in sorted(set(a) | set(b))
+                if k not in a or k not in b or a[k].dtype != b[k].dtype
+                or not torch.equal(a[k], b[k])]
+
+    for run, f in (("imp_sd", "ref_sd.pth"), ("imp_mod", "ref_module.pth")):
+        run_command(["import-protoseg", name, run, os.path.join(root, f)], rec, launches_by_cmd)
+        bad = bit_equal(imported(run), sd)
+        log(f"  import-protoseg {f}: {len(sd) - len(bad)} of {len(sd)} tensors bit-equal "
+            f"to the source weights")
+        if bad:
+            raise AssertionError(f"import-protoseg {f} changed {bad[:8]}")
+    ev_i, _, _ = windowed_eval_valid(os.path.join(results, "imp_mod"))
+    log(f"  eval-valid --windowed on the imported run: counters "
+        f"{'equal' if same_counters(ev_i, ev_c) else 'DIFFER'} to the source run's")
+    if not same_counters(ev_i, ev_c):
+        raise AssertionError("the imported run evaluates differently from its source")
+    out = os.path.join(root, "export.pth")
+    run_command(["export-torch", os.path.join(results, "imp_mod"), "push", "--out", out],
+                rec, launches_by_cmd)
+    exported = torch.load(out, map_location="cpu", weights_only=True)
+    bad = bit_equal(exported, sd)
+    pc_file = np.load(os.path.splitext(out)[0] + "_proto_class.npy")
+    run_command(["import-protoseg", name, "imp_again", out], rec, launches_by_cmd)
+    again = bit_equal(imported("imp_again"), imported("imp_mod"))
+    log(f"  export-torch: {len(exported)} tensors, {len(bad)} not bit-equal to the source "
+        f"(ones regenerated), class ids {'equal' if pc_file.tolist() == pc.tolist() else 'DIFFER'}; "
+        f"re-import of the export: {len(again)} tensors differ")
+    if bad or again or pc_file.tolist() != pc.tolist():
+        raise AssertionError("the export/import round trip is not bit-equal")
+    return src
+
+
+def check_analysis_cli(m32, pc, cfg, data, src, launches_by_cmd):
+    """(d) analyze-local (kernel path against the plain head, near-ties
+    counted) and analyze-global (against find_k_nearest_patches)."""
+    import itertools
+    import json
+    import os
+
+    import numpy as np
+    import torch
+    from adlm_tpu_torch.core.device import ieee_f32
+    from adlm_tpu_torch.data.dataset import SegmentationDataset
+    from adlm_tpu_torch.interpret.analysis import local_analysis
+    from adlm_tpu_torch.interpret.evaluate import _images_nchw
+    from adlm_tpu_torch.interpret.nearest import find_k_nearest_patches
+
+    rec = {"first_window": None}
+    run_command(["analyze-local", src, "push", "--data-path", data, "--top-k", "10",
+                 "--per-class-top", "3"], rec, launches_by_cmd)
+    res = json.loads(rec["stdout"])
+    ds = SegmentationDataset(cfg.data, "val", data_path=data, is_eval=True)
+    img = ds.get_eval_item(0)[0][None]
+    out_dir = os.path.join(src, "local_analysis", ds.img_ids[0])
+    files = sorted(os.listdir(out_dir))
+    n_png = sum(f.endswith(".png") for f in files)
+    sections = [f for f in files if f.endswith("_class_prototypes")]
+    if n_png != 20 or not sections or len(res["top_prototypes"]) != 10:
+        raise AssertionError(f"analyze-local wrote {files}")
+    with plain_versions():
+        plain = local_analysis(m32, pc, img, top_k=10)
+    # each prototype's minimum distance over the frame, both heads: the
+    # ranking is by activation, a decreasing function of it
+    dmin = []
+    for ctx in (contextlib.nullcontext(), plain_versions()):
+        with ctx, torch.inference_mode(), ieee_f32():
+            _, d = m32(_images_nchw(m32, torch.from_numpy(img).cuda()))
+            dmin.append(d.amin(dim=(0, 1, 2)).double().cpu().numpy())
+    dk, dp = dmin
+    tol = D_ATOL + D_RTOL * np.abs(dp)
+    d_ok = bool((np.abs(dk - dp) <= tol).all())
+    top_k, top_p = res["top_prototypes"], plain["top_prototypes"].tolist()
+    moved = [(r, a, b) for r, (a, b) in enumerate(zip(top_k, top_p)) if a != b]
+    unexplained = [(r, a, b) for r, a, b in moved if abs(dp[a] - dp[b]) > tol[a] + tol[b]]
+    log(f"  analyze-local --top-k 10 --per-class-top 3: {n_png} PNGs and {len(sections)} "
+        f"class sections written; top prototypes {top_k}, plain head {top_p}; min-d "
+        f"max_abs {np.abs(dk - dp).max():.2e} (d tolerance {'ok' if d_ok else 'EXCEEDED'}), "
+        f"{len(moved)} ranks on a near-tie {moved}, unexplained {unexplained}; own class "
+        f"strongest: {res['own_class_is_strongest']}")
+    if not d_ok or unexplained:
+        raise AssertionError("analyze-local with the head kernel disagrees with the plain head")
+
+    run_command(["analyze-global", src, "push", "--data-path", data, "--split", "train",
+                 "--k", "5", "--max-images", str(WIN_TRAIN_FRAMES), "--batch-size", "2"],
+                rec, launches_by_cmd)
+    ids = np.load(os.path.join(src, "global_analysis", "full_class_id.npy"))
+    train = SegmentationDataset(cfg.data, "train", data_path=data, is_eval=True,
+                                push_prototypes=True)
+    want = find_k_nearest_patches(m32, pc, itertools.islice(train.eval_items(), WIN_TRAIN_FRAMES),
+                                  19, k=5, batch_size=2)
+    log(f"  analyze-global --k 5 over {WIN_TRAIN_FRAMES} frames: class ids {ids.shape} "
+        f"{'equal' if np.array_equal(ids, want) else 'DIFFER'} to find_k_nearest_patches; "
+        f"{int((ids == pc.cpu().numpy()[:, None]).sum())} of {ids.size} of the prototype's class")
+    if ids.shape != (190, 5) or not np.array_equal(ids, want):
+        raise AssertionError("analyze-global differs from find_k_nearest_patches")
+
+
+def time_windowed(m32, pc, mean_std, batches, card: str) -> None:
+    """(e) windowed and whole-frame eval img/s at batch 2, f32 and bf16;
+    a fused window batch's peak memory against the auto rule's probe;
+    the head at the fused chunk's rows."""
+    import torch
+    from adlm_tpu_torch.core.device import cast_params, ieee_f32
+    from adlm_tpu_torch.interpret.evaluate import make_inference_fn
+    from adlm_tpu_torch.interpret.windowed import WindowedSegEvaluator
+    from adlm_tpu_torch.ops.prototype import prototype_head_cuda, prototype_head_reference
+
+    img, lab = batches[0]
+    img, lab = torch.from_numpy(img).cuda(), torch.from_numpy(lab).cuda()
+    models = {"float32": m32,
+              "bfloat16": cast_params(copy.deepcopy(m32), torch.bfloat16)}
+    for dt, model in models.items():
+        wev = WindowedSegEvaluator(model, 19, WIN, overlap=WIN_OVERLAP, normalize=mean_std)
+        whole = make_inference_fn(model, 19, normalize=mean_std)
+        rates = {}
+        for mode, fn in (("windowed", lambda: wev.update(pc, img, lab)),
+                         ("whole-frame", lambda: whole(pc, img, lab))):
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(WIN_TIME_ITERS):
+                fn()
+            torch.cuda.synchronize()
+            rates[mode] = (time.perf_counter() - t0) / WIN_TIME_ITERS
+        log(f"  eval batch {WIN_BS} {dt:8s}: windowed {WIN[0]}x{WIN[1]} "
+            f"{WIN_BS / rates['windowed']:.3f} img/s ({rates['windowed'] * 1e3:.1f} ms/batch), "
+            f"whole-frame {WIN_BS / rates['whole-frame']:.3f} img/s "
+            f"({rates['whole-frame'] * 1e3:.1f} ms/batch), ratio "
+            f"{rates['windowed'] / rates['whole-frame']:.2f}  [{card}]")
+        if dt == "float32":
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            wev.update(pc, img, lab)
+            torch.cuda.synchronize()
+            canvas = 4 * WIN_BS * H * W * (19 + 4)   # frames, canvas and norm
+            act = (torch.cuda.max_memory_allocated() - base - canvas) / (WIN_CHUNK * WIN_BS * WIN[0] * WIN[1])
+            log(f"  fused window batch ({WIN_CHUNK} x {WIN_BS} windows, f32): peak "
+                f"{(torch.cuda.max_memory_allocated() - base) / 2**30:.2f} GiB over the "
+                f"model, of it the frames, canvas and norm {canvas / 2**30:.2f} GiB; the rest "
+                f"{act:.0f} bytes per window pixel (the auto rule's probe measured "
+                f"{wev._act_bytes_per_pixel:.1f})  [{card}]")
+    del models
+    torch.cuda.empty_cache()
+
+    C, P, K = 64, 190, 19
+    g = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    x = torch.rand(WIN_HEAD_ROWS, C, device="cuda", generator=g)
+    protos = torch.rand(P, C, device="cuda", generator=g)
+    wt = torch.randn(P, K, device="cuda", generator=g)
+    with torch.inference_mode(), ieee_f32():
+        for emit in (True, False):
+            ms = cuda_ms(lambda: prototype_head_cuda(x, protos, wt, "log", 1e-4, emit), 50)
+            plain = cuda_ms(lambda: prototype_head_reference(x, protos, wt, "log"), 20)
+            ops = WIN_HEAD_ROWS * P * (C + K + HEAD_EPILOGUE_OPS["log"])
+            nbytes = 4 * (WIN_HEAD_ROWS * C + P * C + P * K + WIN_HEAD_ROWS * K
+                          + (WIN_HEAD_ROWS * P if emit else 0))
+            b_ms, b_by = bound(ops, nbytes, PEAK_F32_OPS)
+            log(f"  prototype_head at a fused chunk's {WIN_HEAD_ROWS} rows f32 dist={emit!s:5s}: "
+                f"kernel {ms:.4f} ms  plain {plain:.4f} ms  bound {b_ms:.4f} ms ({b_by})  [{card}]")
+
+
+def check_windowed(report, card: str) -> None:
+    """Phase 13: windowed eval, checkpoint import/export and the analyses
+    on the flagship at full width, f32 IEEE under cuDNN deterministic."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+    from adlm_tpu_torch.core import config as config_mod
+    from adlm_tpu_torch.data.dataset import SegmentationDataset
+    from adlm_tpu_torch.models.ppnet import default_proto_class
+
+    t_phase = time.perf_counter()
+    cfg = config_mod.get_experiment("cityscapes_kld_imnet")
+    mean_std = (cfg.data.mean, cfg.data.std)
+    root = tempfile.mkdtemp(prefix="adlm_win_")
+    saved_env = os.environ.get("RESULTS_DIR")
+    saved_det = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    launches_by_cmd = []
+    try:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+        data, results = os.path.join(root, "data"), os.path.join(root, "runs")
+        os.environ["RESULTS_DIR"] = results
+        t0 = time.perf_counter()
+        write_dataset(data, WIN_TRAIN_FRAMES, SEED + 31, n_val=WIN_VAL_FRAMES)
+        m32 = random_model(cfg.model, SEED + 13)
+        pc = default_proto_class(190, 19, device="cuda")
+        ds = SegmentationDataset(cfg.data, "val", data_path=data, is_eval=True)
+        batches = [(img, lab) for img, lab, _ in ds.eval_batches(WIN_BS, with_counts=True,
+                                                                 raw=True)]
+        log(f"  wrote {WIN_TRAIN_FRAMES} train and {WIN_VAL_FRAMES} val frames {H}x{W}, "
+            f"built the model in {time.perf_counter() - t0:.1f} s")
+        ev_k, got = check_windowed_eval(m32, pc, mean_std, batches, launches_by_cmd)
+        src = check_windowed_cli(m32, pc, cfg, data, results, ev_k, got, launches_by_cmd)
+        check_analysis_cli(m32, pc, cfg, data, src, launches_by_cmd)
+        # the main path's launches: the fused windowed eval and the commands
+        for _, counts in launches_by_cmd:
+            for name, n in counts.items():
+                report[name]["launches"] += n
+        log("  launches by command: " + "; ".join(
+            f"{tag}: head {c['prototype_head']}, upsample-argmin {c['upsample_argmin']}"
+            for tag, c in launches_by_cmd))
+        if any(c["upsample_argmin"] for _, c in launches_by_cmd):
+            raise AssertionError("the windowed path launched the upsample-argmin kernel")
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved_det
+        if saved_env is None:
+            os.environ.pop("RESULTS_DIR", None)
+        else:
+            os.environ["RESULTS_DIR"] = saved_env
+        shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    time_windowed(m32, pc, mean_std, batches, card)
+    log(f"  timings {time.perf_counter() - t0:.1f} s; windowed phase "
+        f"{time.perf_counter() - t_phase:.1f} s  [{card}]")
+
+
 
 # ---------------------------------------------------------------------------
 
@@ -3847,6 +4416,10 @@ def main() -> int:
             "K=200, batch 80): kernel vs plain head per phase, f64 and TF32, bf16, push "
             "vs f64, cls-train, cls-prune, import-protopnet, timings")
         check_classifier(report, card)
+
+        log("[13] windowed eval (513x513 windows, fused), import-protoseg / export-torch and "
+            "analyze-local / analyze-global through the CLI, flagship at full width, f32 IEEE")
+        check_windowed(report, card)
     except Exception:  # report any failure and exit non-zero
         traceback.print_exc()
         log(f"FAILED after {time.perf_counter() - t_start:.1f} s")

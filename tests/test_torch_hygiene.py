@@ -34,7 +34,7 @@ from adlm_tpu_torch.core.config import (
     UNoiseConfig,
 )
 from adlm_tpu_torch.data import pipeline
-from adlm_tpu_torch.interpret import analysis, evaluate, figures, nearest, prune, push
+from adlm_tpu_torch.interpret import analysis, evaluate, figures, nearest, prune, push, windowed
 from adlm_tpu_torch.models import calibrate
 from adlm_tpu_torch.models.ppnet import PPNet
 from adlm_tpu_torch.ops import _build
@@ -72,7 +72,8 @@ def test_port_imports_nothing_of_jax():
               "train.unoise_pipeline", "interpret.unoise_vis", "interpret.figures",
               "data.warps", "data.unoise_data", "data.nifti", "data.preprocess",
               "models.backbones", "data.image_folder", "train.classification",
-              "train.classification_pipeline", "utils.receptive_field"):
+              "train.classification_pipeline", "utils.receptive_field",
+              "interpret.windowed"):
         assert f"adlm_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
@@ -198,6 +199,13 @@ ENTRY_POINTS = {
         log=lambda *_: None, **kw),
     "global_analysis": lambda m, **kw: analysis.global_analysis(
         m, torch.arange(6) // 2, _images_and_labels(), 3, k=2, **kw),
+    "local_analysis": lambda m, **kw: analysis.local_analysis(
+        m, torch.arange(6) // 2, torch.rand(1, 33, 33, 3).numpy(), top_k=2, **kw),
+    "make_windowed_inference_fn": lambda m, **kw: windowed.make_windowed_inference_fn(
+        m, (33, 33), **kw)(torch.rand(1, 40, 50, 3).numpy()),
+    "WindowedSegEvaluator": lambda m, **kw: windowed.WindowedSegEvaluator(
+        m, 3, (33, 33), with_stats=True, **kw).update(torch.arange(6) // 2,
+                                                      *_images_and_labels(1)[0]),
     "device_prefetch": lambda m, **kw: list(pipeline.device_prefetch(
         iter(_images_and_labels()), **kw)),
     "calibrate_frozen_bn": lambda m, **kw: calibrate.calibrate_frozen_bn(
