@@ -201,11 +201,13 @@ class PPNet(nn.Module):
         """ProtoPNet image classification: global min-pool over patch
         distances (reference model.py:285-299) → (logits (B, K), (B, P)).
 
-        The head's own logits are dropped, so its last-layer operand
-        carries no gradient: the distances alone reach the backward."""
+        The head is asked for its distances alone (the kernel's
+        distances-only route), so its last-layer operand carries no
+        gradient: the distances alone reach the backward."""
         rows = conv_features.permute(0, 2, 3, 1)
         _, d = prototype_head(rows, self.prototypes(), self.last_layer_pk().detach(),
-                              self.cfg.prototype_activation, self.cfg.epsilon, True)
+                              self.cfg.prototype_activation, self.cfg.epsilon, True,
+                              return_logits=False)
         min_d = d.amin(dim=(1, 2))
         act = distance_to_similarity(min_d, self.cfg.prototype_activation,
                                      self.cfg.epsilon)

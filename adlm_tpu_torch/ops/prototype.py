@@ -11,7 +11,9 @@ Prototypes are 1x1 kernels in every shipped config, so the reference's
 ``prototype_head`` sends a CUDA tensor to the hand-written kernel
 (``csrc/prototype_head.cu``), which keeps ``act`` on chip and writes
 ``d`` only when asked; a CPU tensor goes to the plain PyTorch version
-``prototype_head_reference``, which is also the kernel's oracle.
+``prototype_head_reference``, which is also the kernel's oracle.  With
+``return_logits=False`` a caller asks for ``d`` alone (the classifier's
+min-pooled head): the kernel's general path then skips the logits.
 
 When a gradient is needed, the call goes through ``_PrototypeHead``, a
 ``torch.autograd.Function`` on either device: its forward is the same
@@ -106,16 +108,22 @@ def head_route(C: int, P: int, K: int, dtype: torch.dtype) -> str:
 def prototype_head_cuda(x: torch.Tensor, prototypes: torch.Tensor,
                         last_layer_weight: torch.Tensor,
                         activation: str = "log", epsilon: float = EPSILON,
-                        return_distances: bool = True
-                        ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+                        return_distances: bool = True, return_logits: bool = True
+                        ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
     """Launch the fused head kernel on CUDA tensors.
 
     x: (..., C) float32 or bfloat16; prototypes (P, C); weight (P, K),
     any C, P, K >= 1 (``head_route`` says which kernel takes the shape).
-    Returns logits (..., K) f32 and distances (..., P) f32 or None.
+    Returns logits (..., K) f32 or None and distances (..., P) f32 or
+    None.  ``return_logits=False`` asks for the distances alone: on a
+    general-path shape the kernel's distances-only route, which never
+    computes the logits; the persistent kernel computes them and they
+    are dropped.
     """
     if activation not in ("log", "linear"):
         raise ValueError(f"unknown prototype activation {activation!r}")
+    if not (return_logits or return_distances):
+        raise ValueError("prototype head asked for neither logits nor distances")
     if not (x.is_cuda and prototypes.is_cuda and last_layer_weight.is_cuda):
         raise ValueError("prototype_head_cuda takes CUDA tensors")
     if x.dtype not in (torch.float32, torch.bfloat16):
@@ -134,36 +142,48 @@ def prototype_head_cuda(x: torch.Tensor, prototypes: torch.Tensor,
     protos = prototypes.to(_F32).contiguous()
     if protos.data_ptr() % 16:
         protos = protos.clone()
-    w = last_layer_weight.to(_F32).contiguous()
-    logits = torch.empty((n, K), dtype=_F32, device=x.device)
+    # the persistent kernel always writes logits; the general path takes
+    # a null pointer as the distances-only route, which reads no W
+    with_logits = return_logits or head_route(C, P, K, x.dtype) == "persistent"
+    w = last_layer_weight.to(_F32).contiguous() if with_logits else None
+    logits = (torch.empty((n, K), dtype=_F32, device=x.device)
+              if with_logits else None)
     dist = (torch.empty((n, P), dtype=_F32, device=x.device)
             if return_distances else None)
-    # the general path's act and norms (none for the persistent kernel)
-    nbytes = lib.adlm_prototype_head_scratch(n, C, P, K, bf16)
-    scratch = (torch.empty(nbytes // 4, dtype=_F32, device=x.device)
-               if nbytes else None)
     with torch.cuda.device(x.device):
+        # the general path's partial logits (none for the other routes)
+        nbytes = lib.adlm_prototype_head_scratch(n, C, P, K, bf16) if with_logits else 0
+        scratch = (torch.empty(nbytes // 4, dtype=_F32, device=x.device)
+                   if nbytes else None)
         status = lib.adlm_prototype_head(
             x2d.data_ptr(), bf16, protos.data_ptr(),
-            w.data_ptr(), logits.data_ptr(),
+            w.data_ptr() if with_logits else None,
+            logits.data_ptr() if with_logits else None,
             dist.data_ptr() if dist is not None else None,
             scratch.data_ptr() if scratch is not None else None,
             n, C, P, K, int(activation == "linear"), float(epsilon),
             _build.stream_ptr(x))
     _build.check(lib, status, "prototype_head")
     _build.LAUNCHES["prototype_head"] += 1
-    logits = logits.reshape(*lead, K)
-    return logits, (dist.reshape(*lead, P) if dist is not None else None)
+    return (logits.reshape(*lead, K) if return_logits else None,
+            dist.reshape(*lead, P) if dist is not None else None)
 
 
 def _head_forward(x: torch.Tensor, prototypes: torch.Tensor,
                   last_layer_weight: torch.Tensor, activation: str,
-                  epsilon: float, return_distances: bool
-                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """CUDA tensors to the kernel, CPU tensors to the plain version."""
+                  epsilon: float, return_distances: bool, return_logits: bool
+                  ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """CUDA tensors to the kernel, CPU tensors to the plain version (for
+    the distances alone, its ``l2_distances``: the same d, no logits)."""
     if x.is_cuda:
         return prototype_head_cuda(x, prototypes, last_layer_weight,
-                                   activation, epsilon, return_distances)
+                                   activation, epsilon, return_distances,
+                                   return_logits)
+    if not return_logits:
+        if not return_distances:
+            raise ValueError("prototype head asked for neither logits nor "
+                             "distances")
+        return None, l2_distances(x, prototypes)
     logits, d = prototype_head_reference(x, prototypes, last_layer_weight,
                                          activation, epsilon)
     return logits, (d if return_distances else None)
@@ -223,12 +243,12 @@ class _PrototypeHead(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, prototypes, last_layer_weight, activation, epsilon,
-                return_distances):
+                return_distances, return_logits):
         ctx.save_for_backward(x, prototypes, last_layer_weight)
         ctx.activation, ctx.epsilon = activation, epsilon
         ctx.set_materialize_grads(False)
         return _head_forward(x, prototypes, last_layer_weight, activation,
-                             epsilon, return_distances)
+                             epsilon, return_distances, return_logits)
 
     @staticmethod
     def backward(ctx, g_logits, g_dist):
@@ -237,13 +257,14 @@ class _PrototypeHead(torch.autograd.Function):
             x, prototypes, w, g_logits, g_dist, ctx.activation, ctx.epsilon)
         need = ctx.needs_input_grad
         return (gx if need[0] else None, gp if need[1] else None,
-                gw if need[2] else None, None, None, None)
+                gw if need[2] else None, None, None, None, None)
 
 
 def prototype_head(x: torch.Tensor, prototypes: torch.Tensor,
                    last_layer_weight: torch.Tensor, activation: str = "log",
-                   epsilon: float = EPSILON, return_distances: bool = True
-                   ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+                   epsilon: float = EPSILON, return_distances: bool = True,
+                   return_logits: bool = True
+                   ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
     """Fused prototype head: logits (+ distances) from feature rows.
 
     Args:
@@ -251,17 +272,21 @@ def prototype_head(x: torch.Tensor, prototypes: torch.Tensor,
       prototypes: (P, C).
       last_layer_weight: (P, K) — the JAX package's layout (transposed
         vs the torch ``last_layer.weight``).
+      return_logits: False for the distances alone (``(None, d)``), as
+        the classifier's min-pooled head reads them.
 
     Returns:
-      (logits (..., K), distances (..., P) or None), float32.
+      (logits (..., K) or None, distances (..., P) or None), float32.
 
     CUDA tensors go to the kernel, CPU tensors to the plain version.
     With autograd recording and an input that requires a gradient, the
-    call goes through ``_PrototypeHead`` (same forward, plain backward).
+    call goes through ``_PrototypeHead`` (same forward, plain backward;
+    without logits the weight's gradient is zero).
     """
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (x, prototypes, last_layer_weight)):
         return _PrototypeHead.apply(x, prototypes, last_layer_weight,
-                                    activation, epsilon, return_distances)
+                                    activation, epsilon, return_distances,
+                                    return_logits)
     return _head_forward(x, prototypes, last_layer_weight, activation,
-                         epsilon, return_distances)
+                         epsilon, return_distances, return_logits)

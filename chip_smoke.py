@@ -18,10 +18,12 @@ non-zero and prints no result:
    bf16, with and without distances, log and linear; then the batch-8
    bf16 rows the eval runs, every other preset's (C, P, K) and a ragged
    shape (``HEAD_CASES``, all on the persistent kernel), and the shapes
-   that take the general path (``GENERAL_CASES``: P = 257, C = 20 and
-   the classification preset's C = 128, P = 2000, K = 200), whose
-   logits limit must refuse logits products of TF32- and bf16-rounded
-   operands;
+   that take the general path (``GENERAL_CASES``: P = 257, C = 20, the
+   classification preset's C = 128, P = 2000, K = 200, Stanford Cars'
+   P = 1960, K = 196, and a pruned classifier's P = 1337 at 1 and
+   4,900 rows), each through both of its routes: logits, whose limit
+   must refuse logits products of TF32- and bf16-rounded operands, and
+   distances only, whose d must equal the logits route's bit for bit;
 3. kernel 2 (upsample + argmin) vs the plain exact-f32 scan:
    (2,129,257,190) → (2,1024,2048) in f32 and bf16, the batch-8 bf16
    map the eval runs, an all-equal tie map, a map quantised to three
@@ -97,7 +99,8 @@ non-zero and prints no result:
    (``ClassificationConfig``: VGG19 at 224x224, P = 2000, C = 128,
    K = 200, batch 80) on 600 seeded PNGs in a temporary image folder:
    one warm, joint and last step with the head kernel's general path
-   (one launch each) and from the same start with its plain forward,
+   (one distances-only launch each) and from the same start with its
+   plain forward,
    min-pooled at the kernel step's cells, compared metric by metric and
    gradient by gradient; the f32 joint
    step's gradients against an f64 step on the card, with a TF32 step
@@ -106,9 +109,10 @@ non-zero and prints no result:
    ``cls-train`` (3 epochs, a push, 2 last-layer iterations),
    ``cls-prune`` and ``import-protopnet`` through the CLI, the imported
    model's test accuracy equal to the trained one's; then seconds per
-   step per phase and dtype, eval and push images/s, the head's general
-   path at 3,920 and 4,900 rows and its plain backward, and a profile
-   of one f32 and one bf16 joint step;
+   step per phase and dtype, eval and push images/s, both routes of the
+   head's general path at 3,920 and 4,900 rows in f32 and bf16 (beside
+   the plain version, the bound and one cuBLAS product) and its plain
+   backward, and a profile of one f32 and one bf16 joint step;
 13. windowed eval, checkpoint interop and the analyses on the flagship
    at full width (f32 IEEE, cuDNN deterministic), over four train and
    two val frames written as phase 10 writes them: a
@@ -187,6 +191,9 @@ PEAK_F32_OPS = 33.5e12
 # linear activation is the d update and a negation.
 DIV_SASS, LOGF_SASS = 10, 26
 HEAD_EPILOGUE_OPS = {"log": 3 + 2 + DIV_SASS + LOGF_SASS, "linear": 4}
+# the distances alone (the general path's distances-only route): C FMAs
+# and the d update, per (row, prototype) pair
+HEAD_DIST_OPS = 3
 # the port's first kernels (head: one (row, prototype) pair per thread
 # step; upsample-argmin: direct 4-tap blend), f32 batch 2, on "NVIDIA
 # H100 80GB HBM3, 700.00 W" (PERF.md)
@@ -203,9 +210,9 @@ TRAIN_RTOL = 1e-4        # loss, cross_entropy, kld_loss, l1, grad_norm
 TRAIN_GRAD_REL = 1e-3    # each step-1 gradient tensor, relative L2
 TRAIN_TIE_SHARE = 1e-4   # n_correct, a share of the valid patches
 # the head's kernels in a profile: the persistent kernel, and the
-# general path's norms, distances and logits
-HEAD_KERNELS = ("head_kernel", "sq_norms_kernel", "general_dist_kernel",
-                "general_logits_kernel")
+# general path's distances-only route, logits route and partials' sum
+HEAD_KERNELS = ("head_kernel", "dist_tile_kernel", "logits_tile_kernel",
+                "sum_partials_kernel")
 REPLACES = {
     "prototype_head": "adlm_tpu/ops/prototype.py:110",
     "upsample_argmin": "adlm_tpu/ops/upsample_argmin.py:79",
@@ -274,12 +281,17 @@ HEAD_CASES = [
 ]
 # shapes the persistent kernel does not take (P > 256, C % 8 != 0, and
 # the classification preset at batch 80 of 7x7 grids, P = 2000 > 256,
-# K = 200 > 64): the general path of the same .cu file
+# K = 200 > 64; Stanford Cars' 1,960 prototypes of 196 classes; a
+# pruned classifier's 1,337 prototypes at one row and at eval batch 100):
+# the general path of the same .cu file, each through both routes
 CLS_N, CLS_C, CLS_P, CLS_K = 80 * 7 * 7, 128, 2000, 200
 GENERAL_CASES = [
     ("P=257 K=3", 3001, 64, 257, 3, _DTYPES, _ACTS, False),
     ("C=20", 3001, 20, 190, 19, _DTYPES, _ACTS, False),
     ("classification", CLS_N, CLS_C, CLS_P, CLS_K, _DTYPES, _ACTS, False),
+    ("cars", CLS_N, CLS_C, 1960, 196, _DTYPES, _ACTS, False),
+    ("pruned N=1", 1, CLS_C, 1337, CLS_K, _DTYPES, _ACTS, False),
+    ("pruned", 100 * 7 * 7, CLS_C, 1337, CLS_K, _DTYPES, _ACTS, False),
 ]
 # the general path's logits tolerance, relative to the sum's magnitude
 # sum_p |act·w|: its linear logits sum up to 2,000 terms of ~±21 that
@@ -403,6 +415,30 @@ def check_head_cases(cases, route: str, g) -> float:
                                                  f"with its plain version ({name})")
                         if dtype == torch.float32 and name == "flagship b2":
                             worst = max(worst, err.max().item())
+                        if emit:
+                            logits_route_d = got_d
+                    if general:  # the distances-only route: the same d, bit for bit
+                        before = _build.LAUNCHES["prototype_head"]
+                        none_l, only_d = prototype_head_cuda(xd, pd, wd, act,
+                                                             return_logits=False)
+                        torch.cuda.synchronize()
+                        if _build.LAUNCHES["prototype_head"] != before + 1:
+                            raise AssertionError("prototype_head_cuda did not "
+                                                 f"launch the kernel ({name})")
+                        derr = (only_d - want_d).abs().max().item()
+                        flips = int((only_d.argmin(-1) != want_d.argmin(-1)).sum())
+                        same = torch.equal(only_d, logits_route_d)
+                        log(f"  head {name:14s} [d only    ] {dt:8s} {act:6s} d max_abs="
+                            f"{derr:.3e} argmin_mismatch_rows={flips} bit-equal to the "
+                            f"logits route's d: {same}")
+                        ok = (none_l is None and same
+                              and torch.allclose(only_d, want_d, rtol=D_RTOL, atol=D_ATOL)
+                              and (dtype != torch.float32 or flips == 0))
+                        if not ok:
+                            raise AssertionError("the head's distances-only route disagrees "
+                                                 f"with its plain version or the logits "
+                                                 f"route ({name})")
+                        del only_d, logits_route_d
                 del want_l, want_d, got_l, got_d
         del x, protos, w
     return worst
@@ -510,9 +546,9 @@ def plain_versions():
     from adlm_tpu_torch.ops.prototype import prototype_head_reference
     from adlm_tpu_torch.ops.upsample_argmin import upsampled_argmin_reference
 
-    def head(x, p, w, act, eps, return_distances=True):
+    def head(x, p, w, act, eps, return_distances=True, return_logits=True):
         logits, d = prototype_head_reference(x, p, w, act, eps)
-        return logits, (d if return_distances else None)
+        return (logits if return_logits else None), (d if return_distances else None)
 
     def nearest(dist, size, chunk=16, exact=False):
         return upsampled_argmin_reference(dist, size, chunk, exact=True)
@@ -927,9 +963,9 @@ def plain_head_forward():
     same code either way."""
     import adlm_tpu_torch.ops.prototype as pm
 
-    def head(x, p, w, act="log", eps=1e-4, return_distances=True):
+    def head(x, p, w, act="log", eps=1e-4, return_distances=True, return_logits=True):
         logits, d = pm.prototype_head_reference(x, p, w, act, eps)
-        return logits, (d if return_distances else None)
+        return (logits if return_logits else None), (d if return_distances else None)
 
     saved = pm.prototype_head_cuda
     pm.prototype_head_cuda = head
@@ -1462,7 +1498,7 @@ def time_interpretation(model, frames, card: str, iters: int = 2) -> None:
             ops = N * P * (C + K + HEAD_EPILOGUE_OPS["log"])
             nbytes = 4 * (N * C + P * C + P * K + N * K + (N * P if emit else 0))
             b_ms, b_by = bound(ops, nbytes, PEAK_F32_OPS)
-            log(f"  head general path, classification shape N={N} C={C} P={P} K={K} "
+            log(f"  head general path (logits route), classification shape N={N} C={C} P={P} K={K} "
                 f"f32 dist={emit!s:5s}: kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
                 f"{b_ms:.4f} ms ({b_by})  [{card}]")
 
@@ -3207,8 +3243,9 @@ def cls_step(model, cfg, phase, images, labels):
 
 
 def cls_head_ties(model, cfg, images):
-    """The head kernel's and its plain version's distances at the step's
-    features (one comparison launch): (the largest |min_d difference| as
+    """The head kernel's (its distances-only route, as ``global_head``
+    runs it) and its plain version's distances at the step's features
+    (one comparison launch): (the largest |min_d difference| as
     a share of phase 2's d tolerance, the (image, prototype) pairs whose
     nearest cell differs, of them the ones not on a near-tie of the
     plain d under phase 8's rule)."""
@@ -3221,7 +3258,8 @@ def cls_head_ties(model, cfg, images):
         m = copy.deepcopy(model).eval()
         f = m.conv_features(torch.as_tensor(images, device="cuda").permute(0, 3, 1, 2))
         rows = f.permute(0, 2, 3, 1)
-        _, dk = prototype_head_cuda(rows, m.prototypes(), m.last_layer_pk(), act, eps, True)
+        _, dk = prototype_head_cuda(rows, m.prototypes(), m.last_layer_pk(), act, eps, True,
+                                    return_logits=False)
         _, dp = prototype_head_reference(rows, m.prototypes(), m.last_layer_pk(), act, eps)
         dk, dp = dk.flatten(1, 2), dp.flatten(1, 2)                   # (B, h*w, P)
         mk, mp = dk.amin(1), dp.amin(1)
@@ -3236,15 +3274,16 @@ def cls_head_ties(model, cfg, images):
 @contextlib.contextmanager
 def recorded_head_distances():
     """Keep a copy of the distances (B, h, w, P) of every head kernel
-    launch inside the block, in a list that the block receives; the
-    launches themselves are unchanged."""
+    launch inside the block, with whether the launch returned logits, in
+    a list of (d, logits returned) that the block receives; the launches
+    themselves are unchanged."""
     import adlm_tpu_torch.ops.prototype as pm
 
     seen, saved = [], pm.prototype_head_cuda
 
     def head(*args, **kwargs):
         logits, d = saved(*args, **kwargs)
-        seen.append(d.detach().clone())
+        seen.append((d.detach().clone(), logits is not None))
         return logits, d
 
     pm.prototype_head_cuda = head
@@ -3277,7 +3316,7 @@ def min_pool_at(pool):
     def global_head(self, conv_features):
         _, d = pp.prototype_head(conv_features.permute(0, 2, 3, 1), self.prototypes(),
                                  self.last_layer_pk().detach(), self.cfg.prototype_activation,
-                                 self.cfg.epsilon, True)
+                                 self.cfg.epsilon, True, return_logits=False)
         min_d = (d.flatten(1, 2) * pool).sum(1)
         act = pp.distance_to_similarity(min_d, self.cfg.prototype_activation,
                                         self.cfg.epsilon)
@@ -3325,8 +3364,12 @@ def check_cls_steps(report, model, cfg, images, labels):
             raise AssertionError(f"{phase} step launched {launches}: expected one head "
                                  "launch and no upsample-argmin launch")
         report["prototype_head"]["launches"] += 1
-        pool = min_pool_weights(seen[0])
-        del seen
+        d_seen, with_logits = seen[0]
+        if with_logits:
+            raise AssertionError(f"{phase} step's head launch computed logits: expected "
+                                 "the distances-only route")
+        pool = min_pool_weights(d_seen)
+        del seen, d_seen
         with plain_head_forward(), min_pool_at(pool):
             mp, gp, _ = cls_step(model, cfg, phase, images, labels)
         if any(_build.LAUNCHES[k] != launches[k] for k in launches):
@@ -3335,7 +3378,7 @@ def check_cls_steps(report, model, cfg, images, labels):
                 for k in ("loss", "cross_entropy", "cluster", "separation", "l1")}
         rel = {n: ((gk[n] - gp[n]).norm() / gp[n].norm().clamp_min(1e-30)).item() for n in gp}
         worst = max(rel, key=rel.get)
-        log(f"  {phase:5s} step (batch {CLS_BS}, f32 IEEE, general head path, 1 launch): "
+        log(f"  {phase:5s} step (batch {CLS_BS}, f32 IEEE, general path's distances-only route, 1 launch): "
             f"loss {mk['loss']:.6f} (plain {mp['loss']:.6f}), n_correct {mk['n_correct']:.0f} "
             f"({mp['n_correct']:.0f}); metrics rel err max {max(errs.values()):.2e} "
             f"(tolerance {CLS_RTOL:g}); {len(rel)} gradient tensors, worst relative L2 "
@@ -3628,14 +3671,17 @@ def check_cls_cli(report, root: str) -> None:
 
 def time_cls(model, cfg, images, labels, test_ds, card: str) -> None:
     """Seconds per warm, joint and last step at batch 80 in f32 and
-    bf16, eval images/s, the head's general path at the classifier's
-    rows, its plain backward, and a profile of one f32 and one bf16
-    joint step."""
+    bf16, eval images/s, both routes of the head's general path at the
+    classifier's rows (beside the plain version, the bound and one
+    cuBLAS product), its plain backward, and a profile of one f32 and
+    one bf16 joint step."""
     import dataclasses
 
     import torch
     from adlm_tpu_torch.core.device import ieee_f32
     from adlm_tpu_torch.ops.prototype import (
+        _lib,
+        l2_distances,
         prototype_head_backward,
         prototype_head_cuda,
         prototype_head_reference,
@@ -3697,17 +3743,39 @@ def time_cls(model, cfg, images, labels, test_ds, card: str) -> None:
         g_dist = torch.randn(N, P, device="cuda", generator=g)
         for dtype in (torch.float32, torch.bfloat16):
             xd, pd = x.to(dtype), protos.to(dtype)
+            xf = xd.float()
+            # the general path's two routes: (what runs, its plain version,
+            # f32 lane-instructions per pair, bytes besides x)
+            routes = {
+                "distances only": (
+                    lambda: prototype_head_cuda(xd, pd, w, "log", 1e-4, True, False),
+                    lambda: l2_distances(xd, pd), C + HEAD_DIST_OPS, 4 * (P * C + N * P)),
+                "logits and d": (
+                    lambda: prototype_head_cuda(xd, pd, w, "log", 1e-4, True),
+                    lambda: prototype_head_reference(xd, pd, w, "log"),
+                    C + K + HEAD_EPILOGUE_OPS["log"], 4 * (P * C + P * K + N * K + N * P)),
+            }
+            # the logits route's partials (groups x N x K floats; none for one group)
+            scratch_mb = _lib().adlm_prototype_head_scratch(
+                N, C, P, K, int(dtype == torch.bfloat16)) / 1e6
             with torch.inference_mode(), ieee_f32():
-                ms = cuda_ms(lambda: prototype_head_cuda(xd, pd, w, "log", 1e-4, True), 50)
-                plain = cuda_ms(lambda: prototype_head_reference(xd, pd, w, "log"), 20)
+                # one cuBLAS call for the distance product alone, as a yardstick
+                product = cuda_ms(lambda: torch.matmul(xf, protos.t()), 50)
+                for route, (kernel, plain_fn, per_pair, other_bytes) in routes.items():
+                    ms = cuda_ms(kernel, 50)
+                    plain = cuda_ms(plain_fn, 20)
+                    b_ms, b_by = bound(N * P * per_pair, N * C * xd.element_size() + other_bytes,
+                                       PEAK_F32_OPS)
+                    log(f"  head general path, {route:14s} N={N} C={C} P={P} K={K} "
+                        f"{str(dtype)[6:]:8s}: kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
+                        f"{b_ms:.4f} ms ({b_by}), {ms / b_ms:.2f}x bound; cuBLAS product "
+                        f"alone, not the function: {product:.4f} ms  [{card}]")
                 bwd = cuda_ms(lambda: prototype_head_backward(xd, pd, w, None, g_dist,
                                                               "log", 1e-4), 20)
-            ops = N * P * (C + K + HEAD_EPILOGUE_OPS["log"])
-            nbytes = N * C * xd.element_size() + 4 * (P * C + P * K + N * K + N * P)
-            b_ms, b_by = bound(ops, nbytes, PEAK_F32_OPS)
-            log(f"  head general path N={N} C={C} P={P} K={K} {str(dtype)[6:]:8s} dist=True: "
-                f"kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
-                f"{ms / b_ms:.1f}x bound; plain backward (g_dist only) {bwd:.4f} ms  [{card}]")
+            log(f"  head plain backward (g_dist only) N={N} {str(dtype)[6:]:8s}: "
+                f"{bwd:.4f} ms; the logits route's partials {scratch_mb:.2f} MB "
+                f"({max(1, round(scratch_mb * 1e6 / (4 * N * K)))} groups)  [{card}]")
+            del xf
         del x, g_dist
 
     for dt, c in cfgs.items():
