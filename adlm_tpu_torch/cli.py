@@ -13,6 +13,9 @@
     python -m adlm_tpu_torch.cli prepare-unoise <source_path> <target_path>
     python -m adlm_tpu_torch.cli cls-train <run_name> / cls-prune <run_dir>
     python -m adlm_tpu_torch.cli import-protopnet <run_name> <checkpoint>
+    python -m adlm_tpu_torch.cli export <run_dir> <stage> / cls-export <run_dir> <stage>
+    python -m adlm_tpu_torch.cli unoise-export <run_dir> [--model utility|noise]
+    python -m adlm_tpu_torch.cli serve <artifact_dir> / precompile <experiment>
 
 Environment: DATA_PATH (dataset root) and RESULTS_DIR (run outputs), as
 the reference's env.sh / settings.py.  Every command runs on the CUDA
@@ -334,22 +337,22 @@ def cmd_prune(args):
           f"`train ... --pruned`")
 
 
-def _unoise_model(results: str, run: str, kind: str, dev, bf16: bool,
-                  depth: int = 5, cf: int = 6):
-    """The U-Net of a U-Noise run's best ``kind`` checkpoint ('utility'
-    or 'noise'), in eval mode on ``dev``; its architecture from the run's
-    ``<kind>_config.json``, else from ``depth``/``cf`` (the flags)."""
+def _unoise_model(run_dir: str, kind: str, dev, bf16: bool,
+                  depth: int = 5, cf: int = 6, which: str = "best"):
+    """The U-Net of a U-Noise run's ``<kind>_<which>`` checkpoint (kind
+    'utility' or 'noise'), in eval mode on ``dev``; its architecture from
+    the run's ``<kind>_config.json``, else from ``depth``/``cf`` (the
+    flags)."""
     from adlm_tpu_torch.core.checkpoint import CheckpointStore
     from adlm_tpu_torch.core.device import cast_params
     from adlm_tpu_torch.train.unoise import build_unet
 
-    run_dir = os.path.join(results, run)
     arch = os.path.join(run_dir, f"{kind}_config.json")
     if os.path.exists(arch):
         with open(arch) as f:
             cfgd = json.load(f)
         depth, cf = cfgd["depth"], cfgd["channel_factor"]
-    payload = CheckpointStore(run_dir).restore(kind, "best")
+    payload = CheckpointStore(run_dir).restore(kind, which)
     model = build_unet(depth, cf, dev, state_dict=payload["state_dict"]).eval()
     return cast_params(model, "bfloat16") if bf16 else model
 
@@ -380,8 +383,8 @@ def cmd_unoise_visualize(args):
 
     dev = resolve_device(args.device)
     results = results_dir()
-    util_model = _unoise_model(results, args.utility_run, "utility", dev, args.bf16)
-    noise_model = _unoise_model(results, args.noise_run, "noise", dev, args.bf16,
+    util_model = _unoise_model(os.path.join(results, args.utility_run), "utility", dev, args.bf16)
+    noise_model = _unoise_model(os.path.join(results, args.noise_run), "noise", dev, args.bf16,
                                 args.depth, args.channel_factor)
     image, mask = load_split(args, raw=False)[2][args.index]
     image_t = torch.as_tensor(image[None], device=dev)
@@ -451,14 +454,14 @@ def cmd_unoise_figures(args):
                                  "dice_at_half_coverage": at_half[name]}
                           for name in curves}, indent=2))
         return
-    util_model = _unoise_model(results, args.utility_run, "utility", dev, args.bf16)
+    util_model = _unoise_model(os.path.join(results, args.utility_run), "utility", dev, args.bf16)
     test_imgs, test_masks = next(iter(batches(load_split(args, raw=False)[2],
                                              args.n_images)))
     predict = make_predict(util_model)
     curves, params_per_model, at_half, pickle_payload = {}, {}, {}, {}
     for run in args.noise_runs.split(","):
         # per-run architecture: sizes differ across --noise-runs
-        noise_model = _unoise_model(results, run, "noise", dev, args.bf16,
+        noise_model = _unoise_model(os.path.join(results, run), "noise", dev, args.bf16,
                                     args.depth, args.channel_factor)
         params_per_model[run] = num_params(noise_model)
         imp = unoise_importance(noise_model, torch.as_tensor(test_imgs, device=dev))
@@ -816,8 +819,113 @@ def cmd_analyze_global(args):
     print(f"nearest patch class ids saved; shape {ids.shape}")
 
 
+def _export_args(args, default_name: str):
+    """(platforms, compute dtype, output directory) of an export command."""
+    import torch
+
+    out = args.out or os.path.join(args.run_dir, "export", default_name)
+    return (tuple(args.platforms.split(",")),
+            torch.float32 if args.f32_compute else torch.bfloat16, out)
+
+
+def cmd_export(args):
+    """Export a run's ProtoSeg inference program (weights inside) to a
+    ``.pt2`` artifact and manifest for serving (deploy/export.py).  The
+    reference has no deployment path (its eval scripts rebuild the
+    model per run)."""
+    import torch
+
+    from adlm_tpu_torch.data.constants import get_class_table
+    from adlm_tpu_torch.deploy.export import export_inference_artifact
+
+    cfg, payload, model = _load_stage(args.run_dir, args.stage, args.kind,
+                                      torch.device("cpu"))
+    h, w = _window(args.size)
+    # uint8 inputs normalized on the device, unless the preset keeps raw
+    # ranges (cells) or the caller sends pre-normalized float32
+    normalize = None
+    if not args.f32_inputs and not cfg.data.cells:
+        normalize = (cfg.data.mean, cfg.data.std)
+    platforms, dtype, out_dir = _export_args(args, f"{args.stage}_{args.batch}x{h}x{w}")
+    manifest = export_inference_artifact(
+        model, payload["proto_class"], out_dir, args.batch, (h, w), normalize=normalize,
+        platforms=platforms, compute_dtype=dtype,
+        class_names=list(get_class_table(cfg.data.class_table).class_names))
+    print(f"exported {manifest['input']['shape']} {manifest['input']['dtype']} "
+          f"inference for platforms {manifest['platforms']} to {out_dir}")
+
+
+def cmd_unoise_export(args):
+    """Export a trained U-Noise model (utility segmenter or noise
+    importance map) for serving (deploy/export.py)."""
+    import torch
+
+    from adlm_tpu_torch.deploy.export import export_unoise_artifact
+
+    model = _unoise_model(args.run_dir, args.model, torch.device("cpu"), False,
+                          args.depth, args.channel_factor, which=args.kind)
+    h, w = _window(args.size)
+    platforms, dtype, out_dir = _export_args(args, f"{args.model}_{args.batch}x{h}x{w}")
+    manifest = export_unoise_artifact(model, args.model, out_dir, args.batch, (h, w),
+                                      platforms=platforms, compute_dtype=dtype)
+    print(f"exported {manifest['model']} {manifest['input']['shape']} "
+          f"for platforms {manifest['platforms']} to {out_dir}")
+
+
 def cmd_cls_export(args):
-    raise SystemExit("cls-export is not ported yet (ROADMAP.md Queue 1 item 10)")
+    """Export a trained ProtoPNet classifier (logits and the prototype
+    activation vector, weights inside) for serving (deploy/export.py)."""
+    from adlm_tpu_torch.core.checkpoint import CheckpointStore
+    from adlm_tpu_torch.data.image_folder import IMAGENET_MEAN, IMAGENET_STD
+    from adlm_tpu_torch.deploy.export import export_cls_artifact
+    from adlm_tpu_torch.train.classification import build_classifier, with_prototypes
+    from adlm_tpu_torch.train.classification_pipeline import load_cls_config
+
+    payload = CheckpointStore(args.run_dir).restore(args.stage, args.kind)
+    sd = payload["state_dict"]
+    cfg = with_prototypes(load_cls_config(args.run_dir), sd["prototype_vectors"].shape[0])
+    model = build_classifier(cfg, "cpu", state_dict=sd)
+    normalize = None if args.f32_inputs else (IMAGENET_MEAN, IMAGENET_STD)
+    size = cfg.model.img_size
+    platforms, dtype, out_dir = _export_args(args, f"{args.stage}_{args.batch}x{size}x{size}")
+    manifest = export_cls_artifact(model, payload["proto_class"], out_dir, args.batch,
+                                   (size, size), normalize=normalize, platforms=platforms,
+                                   compute_dtype=dtype)
+    print(f"exported {manifest['model']} {manifest['input']['shape']} "
+          f"for platforms {manifest['platforms']} to {out_dir}")
+
+
+def cmd_precompile(args):
+    """Build the kernel libraries before a run (deploy/precompile.py); a
+    library already built is reused.  The experiment is named as in the
+    JAX CLI and checked; every experiment launches the same libraries."""
+    from adlm_tpu_torch.core.config import get_experiment
+    from adlm_tpu_torch.deploy.precompile import precompile_kernels
+
+    get_experiment(args.experiment)  # an unknown name raises
+    built, sec = precompile_kernels()
+    names = sorted(n for n, b in built.items() if b)
+    print(f"precompiled {len(built)} kernel libraries, built {names or 'none'}, "
+          f"in {sec:.2f}s")
+
+
+def cmd_serve(args):
+    """Serve an exported artifact over HTTP (micro-batched, pipelined
+    dispatch; deploy/server.py)."""
+    from adlm_tpu_torch.deploy.server import InferenceServer
+
+    server = InferenceServer(args.artifact_dir, port=args.port, host=args.host,
+                             platform=args.platform, window_ms=args.window_ms)
+    shape = server.manifest["input"]["shape"]
+    print(f"serving {server.manifest['input']['dtype']} {shape} -> "
+          f"{server.known_outputs} on http://{args.host}:{server.port} "
+          f"(batch {shape[0]}, window {args.window_ms} ms)", flush=True)
+    try:
+        server.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        server.close()
 
 
 def _add_unoise_data(p) -> None:
@@ -1133,8 +1241,68 @@ def main(argv=None):
         _add_device(ap)
         ap.set_defaults(fn=fn)
 
-    cx = sub.add_parser("cls-export", help="not ported yet (ROADMAP.md Queue 1 item 10)")
-    cx.add_argument("rest", nargs=argparse.REMAINDER)
+    def add_export_flags(p) -> None:
+        p.add_argument("--platforms", default="cpu,cuda",
+                       help="comma-separated devices of cpu, cuda: one artifact each "
+                            "(cuda needs the card)")
+        p.add_argument("--f32-compute", action="store_true",
+                       help="keep float32 weights and activations (default bfloat16)")
+        p.add_argument("--out", default=None,
+                       help="artifact directory (default <run_dir>/export/...)")
+
+    xp = sub.add_parser("export", help="export a run's ProtoSeg inference program "
+                                       "(weights inside) for serving")
+    xp.add_argument("run_dir")
+    xp.add_argument("stage", choices=STAGES)
+    xp.add_argument("--kind", default="last", choices=["last", "best"])
+    xp.add_argument("--batch", type=int, default=1)
+    xp.add_argument("--size", default="1024,2048", metavar="H,W",
+                    help="input resolution of the artifact")
+    xp.add_argument("--f32-inputs", action="store_true",
+                    help="take pre-normalized float32 inputs instead of raw uint8 "
+                         "normalized on the device")
+    add_export_flags(xp)
+    xp.set_defaults(fn=cmd_export)
+
+    pcp = sub.add_parser("precompile", help="build the kernel libraries before a run")
+    pcp.add_argument("experiment")
+    pcp.set_defaults(fn=cmd_precompile)
+
+    sv = sub.add_parser("serve", help="HTTP inference server over an exported artifact "
+                                      "(micro-batched, pipelined)")
+    sv.add_argument("artifact_dir",
+                    help="directory written by export / unoise-export / cls-export")
+    sv.add_argument("--port", type=int, default=8000)
+    sv.add_argument("--host", default="127.0.0.1")
+    sv.add_argument("--platform", default="cuda",
+                    help="device to serve on: cuda (default) or cpu")
+    sv.add_argument("--window-ms", type=float, default=5.0,
+                    help="micro-batch coalescing window")
+    sv.set_defaults(fn=cmd_serve)
+
+    ux = sub.add_parser("unoise-export", help="export a trained U-Noise model (utility "
+                                              "segmenter or noise importance map)")
+    ux.add_argument("run_dir")
+    ux.add_argument("--model", default="utility", choices=["utility", "noise"])
+    ux.add_argument("--kind", default="best", choices=["last", "best"])
+    ux.add_argument("--batch", type=int, default=8)
+    ux.add_argument("--size", default="256,256", metavar="H,W")
+    ux.add_argument("--depth", type=int, default=5,
+                    help="fallback when the run has no config file")
+    ux.add_argument("--channel-factor", type=int, default=6)
+    add_export_flags(ux)
+    ux.set_defaults(fn=cmd_unoise_export)
+
+    cx = sub.add_parser("cls-export", help="export a trained ProtoPNet classifier (logits "
+                                           "and prototype activations, weights inside)")
+    cx.add_argument("run_dir")
+    cx.add_argument("stage", choices=["nopush", "push", "pruned"])
+    cx.add_argument("--kind", default="best", choices=["last", "best"])
+    cx.add_argument("--batch", type=int, default=1)
+    cx.add_argument("--f32-inputs", action="store_true",
+                    help="take pre-normalized float32 inputs instead of raw uint8 "
+                         "normalized on the device")
+    add_export_flags(cx)
     cx.set_defaults(fn=cmd_cls_export)
 
     pu = sub.add_parser("prepare-unoise",

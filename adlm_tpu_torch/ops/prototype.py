@@ -8,18 +8,22 @@ Prototypes are 1x1 kernels in every shipped config, so the reference's
     act    = log((d+1)/(d+eps))  or  -d           (N, P)
     logits = act . W                              (N, K)
 
-``prototype_head`` sends a CUDA tensor to the hand-written kernel
-(``csrc/prototype_head.cu``), which keeps ``act`` on chip and writes
-``d`` only when asked; a CPU tensor goes to the plain PyTorch version
-``prototype_head_reference``, which is also the kernel's oracle.  With
-``return_logits=False`` a caller asks for ``d`` alone (the classifier's
-min-pooled head): the kernel's general path then skips the logits.
+``prototype_head`` calls the registered operator
+``adlm_tpu_torch::prototype_head`` (``torch.library.custom_op``): a CUDA
+tensor goes to the hand-written kernel (``csrc/prototype_head.cu``),
+which keeps ``act`` on chip and writes ``d`` only when asked; a CPU
+tensor goes to the plain PyTorch version ``prototype_head_reference``,
+which is also the kernel's oracle.  With ``return_logits=False`` a
+caller asks for ``d`` alone (the classifier's min-pooled head): the
+kernel's general path then skips the logits.  Eager calls and programs
+exported with ``torch.export`` run the same op, so a loaded artifact
+launches the kernel and counts its launches; a process that loads one
+imports this module first, which registers the op.
 
-When a gradient is needed, the call goes through ``_PrototypeHead``, a
-``torch.autograd.Function`` on either device: its forward is the same
-dispatch, its backward is ``prototype_head_backward``, plain PyTorch to
-the JAX package's custom VJP (``_head_bwd``), which is plain XLA there
-too.  So the CPU tests hold the backward that the card runs.
+The op's gradient (``register_autograd``) is ``prototype_head_backward``,
+plain PyTorch to the JAX package's custom VJP (``_head_bwd``), which is
+plain XLA there too.  So the CPU tests hold the backward that the card
+runs.
 """
 
 from __future__ import annotations
@@ -169,24 +173,56 @@ def prototype_head_cuda(x: torch.Tensor, prototypes: torch.Tensor,
             dist.reshape(*lead, P) if dist is not None else None)
 
 
-def _head_forward(x: torch.Tensor, prototypes: torch.Tensor,
-                  last_layer_weight: torch.Tensor, activation: str,
-                  epsilon: float, return_distances: bool, return_logits: bool
-                  ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
-    """CUDA tensors to the kernel, CPU tensors to the plain version (for
-    the distances alone, its ``l2_distances``: the same d, no logits)."""
-    if x.is_cuda:
-        return prototype_head_cuda(x, prototypes, last_layer_weight,
-                                   activation, epsilon, return_distances,
-                                   return_logits)
+def _empty(x: torch.Tensor) -> torch.Tensor:
+    """The op's stand-in for an output the call did not ask for: a
+    registered operator returns tensors, never None."""
+    return x.new_empty((0,), dtype=_F32)
+
+
+def _check_request(return_distances: bool, return_logits: bool) -> None:
+    if not (return_logits or return_distances):
+        raise ValueError("prototype head asked for neither logits nor distances")
+
+
+@torch.library.custom_op("adlm_tpu_torch::prototype_head", mutates_args=(),
+                         device_types="cpu")
+def _head_op(x: torch.Tensor, prototypes: torch.Tensor,
+             last_layer_weight: torch.Tensor, activation: str, epsilon: float,
+             return_distances: bool, return_logits: bool
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The head as a registered operator, ``adlm_tpu_torch::prototype_head``:
+    (logits, distances), an output the call did not ask for empty.
+
+    This is its CPU implementation, the plain version (for the distances
+    alone its ``l2_distances``: the same d, no logits).  The CUDA one is
+    the kernel (``_head_op_cuda``); ``torch.export`` records the op and
+    its shapes (``_head_op_fake``), so an exported program launches the
+    kernel, and counts the launch, each time it runs on the card."""
+    _check_request(return_distances, return_logits)
     if not return_logits:
-        if not return_distances:
-            raise ValueError("prototype head asked for neither logits nor "
-                             "distances")
-        return None, l2_distances(x, prototypes)
+        return _empty(x), l2_distances(x, prototypes)
     logits, d = prototype_head_reference(x, prototypes, last_layer_weight,
                                          activation, epsilon)
-    return logits, (d if return_distances else None)
+    return logits, (d if return_distances else _empty(x))
+
+
+@_head_op.register_kernel("cuda")
+def _head_op_cuda(x, prototypes, last_layer_weight, activation, epsilon,
+                  return_distances, return_logits):
+    logits, d = prototype_head_cuda(x, prototypes, last_layer_weight, activation,
+                                    epsilon, return_distances, return_logits)
+    return (_empty(x) if logits is None else logits,
+            _empty(x) if d is None else d)
+
+
+@_head_op.register_fake
+def _head_op_fake(x, prototypes, last_layer_weight, activation, epsilon,
+                  return_distances, return_logits):
+    _check_request(return_distances, return_logits)
+    lead = tuple(x.shape[:-1])
+    P, K = last_layer_weight.shape
+    return (x.new_empty(lead + (K,) if return_logits else (0,), dtype=_F32),
+            x.new_empty(lead + (P,) if return_distances else (0,), dtype=_F32))
 
 
 def prototype_head_backward(x: torch.Tensor, prototypes: torch.Tensor,
@@ -237,27 +273,28 @@ def prototype_head_backward(x: torch.Tensor, prototypes: torch.Tensor,
             gw.to(last_layer_weight.dtype))
 
 
-class _PrototypeHead(torch.autograd.Function):
-    """The head with its gradient.  Like ``jax.custom_vjp`` in the JAX
-    package, it saves only the inputs and recomputes ``d`` backward."""
+def _head_setup_context(ctx, inputs, output) -> None:
+    """Like ``jax.custom_vjp`` in the JAX package, the op saves only its
+    inputs and recomputes ``d`` backward."""
+    x, prototypes, last_layer_weight, activation, epsilon, with_d, with_logits = inputs
+    ctx.save_for_backward(x, prototypes, last_layer_weight)
+    ctx.activation, ctx.epsilon = activation, epsilon
+    ctx.returned = (with_logits, with_d)
+    ctx.set_materialize_grads(False)
 
-    @staticmethod
-    def forward(ctx, x, prototypes, last_layer_weight, activation, epsilon,
-                return_distances, return_logits):
-        ctx.save_for_backward(x, prototypes, last_layer_weight)
-        ctx.activation, ctx.epsilon = activation, epsilon
-        ctx.set_materialize_grads(False)
-        return _head_forward(x, prototypes, last_layer_weight, activation,
-                             epsilon, return_distances, return_logits)
 
-    @staticmethod
-    def backward(ctx, g_logits, g_dist):
-        x, prototypes, w = ctx.saved_tensors
-        gx, gp, gw = prototype_head_backward(
-            x, prototypes, w, g_logits, g_dist, ctx.activation, ctx.epsilon)
-        need = ctx.needs_input_grad
-        return (gx if need[0] else None, gp if need[1] else None,
-                gw if need[2] else None, None, None, None, None)
+def _head_backward(ctx, g_logits, g_dist):
+    x, prototypes, w = ctx.saved_tensors
+    with_logits, with_d = ctx.returned
+    gx, gp, gw = prototype_head_backward(
+        x, prototypes, w, g_logits if with_logits else None,
+        g_dist if with_d else None, ctx.activation, ctx.epsilon)
+    need = ctx.needs_input_grad
+    return (gx if need[0] else None, gp if need[1] else None,
+            gw if need[2] else None, None, None, None, None)
+
+
+_head_op.register_autograd(_head_backward, setup_context=_head_setup_context)
 
 
 def prototype_head(x: torch.Tensor, prototypes: torch.Tensor,
@@ -278,15 +315,13 @@ def prototype_head(x: torch.Tensor, prototypes: torch.Tensor,
     Returns:
       (logits (..., K) or None, distances (..., P) or None), float32.
 
-    CUDA tensors go to the kernel, CPU tensors to the plain version.
-    With autograd recording and an input that requires a gradient, the
-    call goes through ``_PrototypeHead`` (same forward, plain backward;
-    without logits the weight's gradient is zero).
+    Every call goes through the registered op
+    ``adlm_tpu_torch::prototype_head``: CUDA tensors to the kernel, CPU
+    tensors to the plain version, and a gradient through
+    ``prototype_head_backward`` (without logits the weight's gradient is
+    zero).
     """
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (x, prototypes, last_layer_weight)):
-        return _PrototypeHead.apply(x, prototypes, last_layer_weight,
-                                    activation, epsilon, return_distances,
-                                    return_logits)
-    return _head_forward(x, prototypes, last_layer_weight, activation,
-                         epsilon, return_distances, return_logits)
+    logits, d = torch.ops.adlm_tpu_torch.prototype_head(
+        x, prototypes, last_layer_weight, activation, float(epsilon),
+        return_distances, return_logits)
+    return (logits if return_logits else None), (d if return_distances else None)

@@ -20,8 +20,8 @@ non-zero and prints no result:
    shape (``HEAD_CASES``, all on the persistent kernel), and the shapes
    that take the general path (``GENERAL_CASES``: P = 257, C = 20, the
    classification preset's C = 128, P = 2000, K = 200, Stanford Cars'
-   P = 1960, K = 196, and a pruned classifier's P = 1337 at 1 and
-   4,900 rows), each through both of its routes: logits, whose limit
+   P = 1960, K = 196, the preset's 98 rows of a served batch of 2, and
+   a pruned classifier's P = 1337 at 1 and 4,900 rows), each through both of its routes: logits, whose limit
    must refuse logits products of TF32- and bf16-rounded operands, and
    distances only, whose d must equal the logits route's bit for bit;
 3. kernel 2 (upsample + argmin) vs the plain exact-f32 scan:
@@ -138,7 +138,23 @@ non-zero and prints no result:
    ``find_k_nearest_patches``; then windowed and whole-frame img/s at
    batch 2 in f32 and bf16, a fused window batch's peak memory against
    the auto rule's reservation, and the head at a fused chunk's 67,600
-   rows.
+   rows;
+14. deployment: ``precompile`` twice (the second call builds nothing);
+   ``export`` of the flagship at 1024x2048, batch 2, in f32 and bf16,
+   ``cls-export`` of the classifier preset and ``unoise-export`` of the
+   shipped U-Net (batch 8 of 256x256) through the CLI for the card, from
+   run directories written here; the four artifacts served by
+   ``InferenceServer`` in a fresh process that imports only the port's
+   ops and deploy modules (``serve_child``) at the default coalescing
+   window: single-item and full-batch requests one after another, then
+   a sustained window of single items from several client threads;
+   every answer held to the eager model on this card (values within
+   the head check's d tolerance, f32 and bf16 alike; a choice moved
+   only on a near-tie, within phase 4's budget), head launches equal to
+   the served batches of the flagship and the classifier and none for
+   the U-Net; export seconds, artifact MB, latency per request at fill
+   1 and a full batch, and the sustained window's requests/s and
+   latency over all of its requests.
 
 Precision: f32 runs with TF32 off for convolutions and matmuls (the
 entry points' ``ieee_f32`` scope; the comparisons here run in the same
@@ -282,7 +298,8 @@ HEAD_CASES = [
 # shapes the persistent kernel does not take (P > 256, C % 8 != 0, and
 # the classification preset at batch 80 of 7x7 grids, P = 2000 > 256,
 # K = 200 > 64; Stanford Cars' 1,960 prototypes of 196 classes; a
-# pruned classifier's 1,337 prototypes at one row and at eval batch 100):
+# pruned classifier's 1,337 prototypes at one row and at eval batch 100;
+# the preset at 98 rows, the served batch of 2 of cls-export in phase 14):
 # the general path of the same .cu file, each through both routes
 CLS_N, CLS_C, CLS_P, CLS_K = 80 * 7 * 7, 128, 2000, 200
 GENERAL_CASES = [
@@ -290,6 +307,7 @@ GENERAL_CASES = [
     ("C=20", 3001, 20, 190, 19, _DTYPES, _ACTS, False),
     ("classification", CLS_N, CLS_C, CLS_P, CLS_K, _DTYPES, _ACTS, False),
     ("cars", CLS_N, CLS_C, 1960, 196, _DTYPES, _ACTS, False),
+    ("classification b2", 2 * 7 * 7, CLS_C, CLS_P, CLS_K, _DTYPES, _ACTS, False),
     ("pruned N=1", 1, CLS_C, 1337, CLS_K, _DTYPES, _ACTS, False),
     ("pruned", 100 * 7 * 7, CLS_C, 1337, CLS_K, _DTYPES, _ACTS, False),
 ]
@@ -2944,7 +2962,8 @@ def check_unoise_cli(root: str, card: str) -> None:
             np.load(os.path.join(data, "images.npy")), np.load(os.path.join(data, "masks.npy")),
             np.load(os.path.join(data, "bounding_boxes.npy"), allow_pickle=True))
         image, _ = test_ds[0]
-        model = cli._unoise_model(results, "noise", "noise", torch.device("cuda"), False)
+        model = cli._unoise_model(os.path.join(results, "noise"), "noise",
+                                  torch.device("cuda"), False)
         direct = unoise_importance(model, torch.as_tensor(image[None], device="cuda"))
         if not np.array_equal(rec["importance"][0], direct):
             raise AssertionError("unoise-visualize's importance map differs from a direct "
@@ -4382,6 +4401,414 @@ def check_windowed(report, card: str) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 14: deployment
+# ---------------------------------------------------------------------------
+
+# the artifacts' batches: the flagship and the classifier at 2, the
+# U-Net at unoise-export's default of 8 (cuDNN's IEEE-f32 algorithms
+# for it are several times slower per item at 2; PERF.md §7)
+DEPLOY_BATCH = {"flagship_f32": 2, "flagship_bf16": 2, "classifier_f32": 2,
+                "unoise_utility_f32": 8}
+DEPLOY_ITEMS = 4          # items the flagship's and classifier's requests cycle through
+DEPLOY_SEQ_S = 2.0        # seconds of sequential requests of 1 item, then of a full batch
+# the sustained window: client threads sending single items back to
+# back, and its seconds
+DEPLOY_CLIENTS, DEPLOY_SUSTAIN_S = 4, 10.0
+UN_DEPLOY_HW = 256
+# artifact → (outputs held as values, outputs held as choices)
+DEPLOY_OUTPUTS = {
+    "seg": (("grid_logits",), ("pred", "nearest_proto")),
+    "cls": (("logits", "min_distances", "proto_activation"), ("pred",)),
+    "unoise": (("mask_prob",), ("mask",)),
+}
+
+
+def serve_child(dirs) -> int:
+    """The serving process of phase 14 (started by ``check_deploy`` as
+    ``python -c``, importing this file): ``InferenceServer`` on each
+    artifact directory, on the card, at the default coalescing window.  It prints one JSON line (ports,
+    the ``adlm_tpu_torch`` subpackages it imported, launch counts and
+    batches per server), then one more such line for each line it reads
+    on stdin, and stops its servers at EOF."""
+    from adlm_tpu_torch.deploy.server import InferenceServer
+    from adlm_tpu_torch.ops import _build
+
+    servers = [InferenceServer(d, port=0, platform="cuda") for d in dirs]
+    try:
+        for srv in servers:
+            srv.start()
+
+        def state():
+            return {"launches": dict(_build.LAUNCHES),
+                    "batches": [srv.batcher.n_batches for srv in servers]}
+
+        mods = sorted({m.split(".")[1] for m in sys.modules
+                       if m.startswith("adlm_tpu_torch.")})
+        print(json.dumps({"ports": [srv.port for srv in servers], "modules": mods,
+                          **state()}), flush=True)
+        for _ in sys.stdin:
+            print(json.dumps(state()), flush=True)
+    finally:
+        for srv in servers:
+            srv.close()
+    return 0
+
+
+def deploy_runs(root: str, m32, cls_model, unet):
+    """Run directories as training writes them: the flagship's push_last,
+    the classifier's push_best and the U-Net's utility_best."""
+    import os
+
+    from adlm_tpu_torch.core.checkpoint import CheckpointStore
+    from adlm_tpu_torch.core.config import get_experiment
+    from adlm_tpu_torch.models.ppnet import default_proto_class
+    from adlm_tpu_torch.train.classification import ClassificationConfig
+    from adlm_tpu_torch.train.classification_pipeline import save_cls_config
+
+    def cpu_sd(m):
+        return {k: v.detach().cpu() for k, v in m.state_dict().items()}
+
+    runs = {k: os.path.join(root, k) for k in ("seg", "cls", "unoise")}
+    store = CheckpointStore(runs["seg"])
+    store.save_config(get_experiment("cityscapes_kld_imnet").to_json())
+    store.save("push", "last", {"state_dict": cpu_sd(m32),
+                                "proto_class": default_proto_class(190, 19), "step": 0})
+    save_cls_config(runs["cls"], ClassificationConfig())
+    CheckpointStore(runs["cls"]).save("push", "best", {
+        "state_dict": cpu_sd(cls_model), "proto_class": default_proto_class(2000, 200),
+        "step": 0})
+    store = CheckpointStore(runs["unoise"])
+    store.save("utility", "best", {"state_dict": cpu_sd(unet), "step": 0})
+    store.save_metadata("utility_config", {"depth": 5, "channel_factor": 6})
+    return runs
+
+
+def deploy_exports(runs, root: str, card: str):
+    """``export`` (f32 and bf16), ``cls-export`` and ``unoise-export``
+    through the CLI, for the card: {artifact: directory}."""
+    import os
+
+    from adlm_tpu_torch import cli
+
+    cmds = {
+        "flagship_f32": ["export", runs["seg"], "push", "--size", f"{H},{W}", "--f32-compute"],
+        "flagship_bf16": ["export", runs["seg"], "push", "--size", f"{H},{W}"],
+        "classifier_f32": ["cls-export", runs["cls"], "push", "--f32-compute"],
+        "unoise_utility_f32": ["unoise-export", runs["unoise"], "--model", "utility",
+                               "--size", f"{UN_DEPLOY_HW},{UN_DEPLOY_HW}", "--f32-compute"],
+    }
+    dirs = {}
+    for name, argv in cmds.items():
+        dirs[name] = os.path.join(root, "artifacts", name)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as out:
+            cli.main(argv + ["--batch", str(DEPLOY_BATCH[name]), "--platforms", "cuda",
+                             "--out", dirs[name]])
+        sec = time.perf_counter() - t0
+        mb = os.path.getsize(os.path.join(dirs[name], "inference_cuda.pt2")) / 2 ** 20
+        log(f"  {argv[0]} {name}: {sec:.1f} s, artifact {mb:.1f} MB ({out.getvalue().strip()})"
+            f"  [{card}]")
+    return dirs
+
+
+def eager_in_batches(fn, x, batch: int):
+    """``fn`` (→ (values, scores)) over ``x`` in batches of the
+    artifact's ``batch``: the same convolution shapes, so cuDNN takes the
+    same algorithms as in the served program."""
+    import torch
+
+    parts = [fn(x[i:i + batch]) for i in range(0, len(x), batch)]
+    return tuple({k: torch.cat([p[j][k] for p in parts]) for k in parts[0][j]}
+                 for j in range(2))
+
+
+def eager_seg(model, frames, mean_std):
+    """The artifact's program run eagerly on ``model``: values and the
+    scores each choice took its argmax of."""
+    import torch
+    from adlm_tpu_torch.core.device import ieee_f32, model_dtype
+    from adlm_tpu_torch.ops.normalize import normalize
+    from adlm_tpu_torch.ops.resize import resize_bilinear
+
+    with torch.inference_mode(), ieee_f32():
+        x = normalize(frames, mean_std).to(model_dtype(model))
+        gl, d = model(x.permute(0, 3, 1, 2), return_distances=True)
+        up = resize_bilinear(gl, (H, W))
+    return {"grid_logits": gl.float()}, {"pred": up, "nearest_proto": -d}
+
+
+def eager_cls(model, images):
+    import torch
+    from adlm_tpu_torch.core.device import ieee_f32
+    from adlm_tpu_torch.data.image_folder import IMAGENET_MEAN, IMAGENET_STD
+    from adlm_tpu_torch.ops.normalize import normalize
+    from adlm_tpu_torch.ops.prototype import distance_to_similarity
+
+    with torch.inference_mode(), ieee_f32():
+        x = normalize(images, (IMAGENET_MEAN, IMAGENET_STD))
+        logits, min_d = model(x.permute(0, 3, 1, 2))
+    cfg = model.cfg
+    act = distance_to_similarity(min_d, cfg.prototype_activation, cfg.epsilon)
+    return ({"logits": logits, "min_distances": min_d, "proto_activation": act},
+            {"pred": logits})
+
+
+def eager_unoise(unet, slices):
+    import torch
+    from adlm_tpu_torch.core.device import ieee_f32
+    from adlm_tpu_torch.train.unoise import _prep_images
+
+    with torch.inference_mode(), ieee_f32():
+        logits = unet(_prep_images(slices, True)).permute(0, 2, 3, 1)
+    return ({"mask_prob": torch.sigmoid(logits)},
+            {"mask": torch.stack([torch.zeros_like(logits[..., 0]), logits[..., 0]], -1)[..., None, :]})
+
+
+def hold_served(tag, kind, got, values, scores) -> str:
+    """Served answers ([(item, {output: array})]) against the eager run
+    on the same card, f32 and bf16 alike (the same kernels and cuDNN
+    algorithms on both sides).  Values within the head check's d
+    tolerance; a choice may differ only where the eager scores of the
+    two choices lie within twice the score's own tolerance, and on at
+    most phase 4's tie budget."""
+    import numpy as np
+    import torch
+
+    def limit(t):
+        return D_ATOL + D_RTOL * float(t.abs().max())
+
+    value_names, choice_names = DEPLOY_OUTPUTS[kind]
+    worst, flips = {}, {}
+    for i, out in got:
+        for k in value_names:
+            want = values[k][i]
+            err = float((torch.as_tensor(np.asarray(out[k])).to(want.device) - want).abs().max())
+            worst[k] = max(worst.get(k, 0.0), err)
+            if err > limit(values[k]):
+                raise AssertionError(f"{tag} item {i}: served {k} off by {err:.3e} "
+                                     f"(limit {limit(values[k]):.3e})")
+        for k in choice_names:
+            sc = scores[k][i]
+            pick = torch.as_tensor(np.asarray(out[k])).to(sc.device).long()
+            want = sc.argmax(-1)
+            differ = pick != want
+            n = int(differ.sum())
+            flips[k] = flips.get(k, 0) + n
+            if n:
+                margin = (sc.gather(-1, want[..., None]) - sc.gather(-1, pick[..., None]))[..., 0]
+                if (float(margin[differ].max()) > 2 * limit(sc)
+                        or n > math.ceil(TIE_SHARE * pick.numel())):
+                    raise AssertionError(f"{tag} item {i}: {n} {k} differ, margin "
+                                         f"{float(margin[differ].max()):.3e}")
+    return (", ".join(f"{k} max|diff| {v:.2e}" for k, v in worst.items()) + "; choices off "
+            + ", ".join(f"{k} {v}" for k, v in flips.items()))
+
+
+def post(port: int, arr):
+    """One /predict request: (outputs with the request's leading axis,
+    seconds)."""
+    import http.client
+
+    import numpy as np
+
+    buf = io.BytesIO()
+    np.save(buf, arr)
+    t0 = time.perf_counter()
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    try:
+        conn.request("POST", "/predict", body=buf.getvalue(),
+                     headers={"Content-Type": "application/x-npy"})
+        resp = conn.getresponse()
+        body = resp.read()
+    finally:
+        conn.close()
+    sec = time.perf_counter() - t0
+    if resp.status != 200:
+        raise AssertionError(f"/predict answered {resp.status}: {body[:300]!r}")
+    out = dict(np.load(io.BytesIO(body)))
+    return out, sec
+
+
+def drive_server(port: int, items, child, slot: int, batch: int):
+    """The requests of one artifact: one untimed single item (the
+    server's first call); single items one after another for
+    DEPLOY_SEQ_S seconds (each a padded batch), then full batches for as
+    long; then DEPLOY_CLIENTS threads sending single items back to back
+    for DEPLOY_SUSTAIN_S seconds.  Returns ([(item, served outputs)] of
+    every request, timings, and the launches and batches the child
+    counted over all of them)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    def ask():
+        child.stdin.write("\n")
+        child.stdin.flush()
+        line = child.stdout.readline()
+        if not line:
+            raise AssertionError("the serving process ended")
+        return json.loads(line)
+
+    n = len(items)
+    before = ask()
+    got = [(0, post(port, items[0])[0])]
+
+    def sequential(k):
+        secs = []
+        t_end = time.perf_counter() + DEPLOY_SEQ_S
+        while time.perf_counter() < t_end:
+            idx = [(k * len(secs) + j) % n for j in range(k)]
+            if k == 1:
+                out, sec = post(port, items[idx[0]])
+                got.append((idx[0], out))
+            else:
+                out, sec = post(port, np.stack([items[i] for i in idx]))
+                got.extend((i, {key: v[j] for key, v in out.items()})
+                           for j, i in enumerate(idx))
+            secs.append(sec)
+        return secs
+
+    one, full = sequential(1), sequential(batch)
+
+    def client(c):
+        mine = []
+        while time.perf_counter() < t_end:
+            i = (c + DEPLOY_CLIENTS * len(mine)) % n
+            out, sec = post(port, items[i])
+            mine.append((i, out, sec))
+        return mine
+
+    t0 = time.perf_counter()
+    t_end = t0 + DEPLOY_SUSTAIN_S
+    with ThreadPoolExecutor(DEPLOY_CLIENTS) as pool:
+        runs = [r for mine in pool.map(client, range(DEPLOY_CLIENTS)) for r in mine]
+    wall = time.perf_counter() - t0
+    got.extend((i, out) for i, out, _ in runs)
+    lat = 1e3 * np.array([sec for _, _, sec in runs])
+    after = ask()
+    counts = {k: after["launches"][k] - before["launches"][k] for k in after["launches"]}
+    batches = after["batches"][slot] - before["batches"][slot]
+    times = {"fill1_ms": 1e3 * float(np.mean(one)), "n_fill1": len(one),
+             "full_ms": 1e3 * float(np.mean(full)), "n_full": len(full),
+             "rps": len(runs) / wall, "n_sustained": len(runs), "wall_s": wall,
+             "lat_mean": float(lat.mean()), "lat_p50": float(np.percentile(lat, 50)),
+             "lat_p99": float(np.percentile(lat, 99)), "requests": len(got)}
+    return got, times, counts, batches
+
+
+def check_deploy(report, card: str) -> None:
+    """Phase 14: precompile twice, export the flagship (f32, bf16), the
+    classifier preset and the shipped U-Net through the CLI for the
+    card, serve the four artifacts from a fresh process that imports
+    only the port's ops and deploy modules, and hold every answer to
+    the eager model on this card."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from adlm_tpu_torch import cli
+    from adlm_tpu_torch.core.config import get_experiment
+    from adlm_tpu_torch.core.device import cast_params
+    from adlm_tpu_torch.ops import _build
+    from adlm_tpu_torch.train.classification import ClassificationConfig, build_classifier
+    from adlm_tpu_torch.train.unoise import build_unet
+
+    t_phase = time.perf_counter()
+    stamps = {n: os.stat(_build._target(n)).st_mtime_ns for n in _build.KERNELS}
+    for i in range(2):
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as out:
+            cli.main(["precompile", "cityscapes_kld_imnet"])
+        text = out.getvalue()
+        log(f"  precompile call {i + 1}: {time.perf_counter() - t0:.2f} s: "
+            + " | ".join(text.strip().splitlines()))
+        if "built none" not in text or text.count("reused") != len(_build.KERNELS):
+            raise AssertionError("precompile rebuilt a kernel library that was built")
+    if {n: os.stat(_build._target(n)).st_mtime_ns for n in _build.KERNELS} != stamps:
+        raise AssertionError("precompile touched a built library")
+
+    cfg = get_experiment("cityscapes_kld_imnet")
+    mean_std = (cfg.data.mean, cfg.data.std)
+    m32 = random_model(cfg.model, SEED + 71).to("cuda", memory_format=torch.channels_last).eval()
+    m16 = cast_params(copy.deepcopy(m32), "bfloat16")
+    cls_model = build_classifier(ClassificationConfig(), "cuda", seed=SEED + 72).eval()
+    unet = build_unet(5, 6, torch.device("cuda"), seed=SEED + 73).eval()
+    frames = torch.cat([img for img, _ in make_batches(DEPLOY_ITEMS // 2, 2, SEED + 74)])
+    rng = np.random.RandomState(SEED + 75)
+    cls_images = rng.randint(0, 256, (DEPLOY_ITEMS, CLS_HW, CLS_HW, 3)).astype(np.uint8)
+    slices = unoise_slices(DEPLOY_BATCH["unoise_utility_f32"], UN_DEPLOY_HW,
+                           SEED + 76)[0][..., None]
+    inputs = {"flagship_f32": frames.cpu().numpy(), "flagship_bf16": frames.cpu().numpy(),
+              "classifier_f32": cls_images, "unoise_utility_f32": slices}
+    eager = {"flagship_f32": ("seg", lambda x: eager_seg(m32, x, mean_std), frames),
+             "flagship_bf16": ("seg", lambda x: eager_seg(m16, x, mean_std), frames),
+             "classifier_f32": ("cls", lambda x: eager_cls(cls_model, x),
+                                torch.from_numpy(cls_images).cuda()),
+             "unoise_utility_f32": ("unoise", lambda x: eager_unoise(unet, x),
+                                    torch.from_numpy(slices).cuda())}
+    refs = {name: (kind, eager_in_batches(fn, x, DEPLOY_BATCH[name]))
+            for name, (kind, fn, x) in eager.items()}
+    root = tempfile.mkdtemp(prefix="adlm_deploy_")
+    child, err = None, tempfile.TemporaryFile(mode="w+")
+    try:
+        runs = deploy_runs(root, m32, cls_model, unet)
+        dirs = deploy_exports(runs, root, card)
+        names = list(dirs)
+        t0 = time.perf_counter()
+        child = subprocess.Popen(
+            [sys.executable, "-c", "import sys, chip_smoke as c; "
+             "sys.exit(c.serve_child(sys.argv[1:]))", *dirs.values()],
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=err, text=True,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+        line = child.stdout.readline()
+        if not line:
+            raise AssertionError("the serving process ended before it served")
+        hello = json.loads(line)
+        log(f"  serving process up in {time.perf_counter() - t0:.1f} s with "
+            f"{len(names)} artifacts; it imported adlm_tpu_torch.{hello['modules']}")
+        if set(hello["modules"]) != {"core", "deploy", "ops"}:
+            raise AssertionError("the serving process imported more than the ops and deploy "
+                                 "modules")
+        for slot, name in enumerate(names):
+            kind, (values, scores) = refs[name]
+            items = list(inputs[name])
+            got, times, counts, batches = drive_server(
+                hello["ports"][slot], items, child, slot, DEPLOY_BATCH[name])
+            held = hold_served(name, kind, got, values, scores)
+            want = batches if kind != "unoise" else 0
+            log(f"  served {name}: {times['requests']} requests in {batches} batches, "
+                f"head launches {counts['prototype_head']}, upsample-argmin "
+                f"{counts['upsample_argmin']}; {held}")
+            log(f"    sequential: {times['fill1_ms']:.2f} ms/request at fill 1 "
+                f"({times['n_fill1']} requests), {times['full_ms']:.2f} ms at fill "
+                f"{DEPLOY_BATCH[name]} ({times['n_full']})  [{card}]")
+            log(f"    sustained, {DEPLOY_CLIENTS} clients of single items: "
+                f"{times['n_sustained']} requests in {times['wall_s']:.2f} s, "
+                f"{times['rps']:.2f} requests/s; latency mean {times['lat_mean']:.2f} ms, "
+                f"p50 {times['lat_p50']:.2f}, p99 {times['lat_p99']:.2f}  [{card}]")
+            if counts["prototype_head"] != want or counts["upsample_argmin"]:
+                raise AssertionError(f"{name}: {counts} launches for {batches} served batches")
+            report["prototype_head"]["launches"] += counts["prototype_head"]
+        child.stdin.close()
+        if child.wait(timeout=120) != 0:
+            raise AssertionError(f"the serving process exited {child.returncode}")
+    except Exception:
+        if child is not None:
+            err.seek(0)
+            log("  serving process stderr (last 4000 chars):\n" + err.read()[-4000:])
+        raise
+    finally:
+        if child is not None and child.poll() is None:
+            child.kill()
+            child.wait()
+        err.close()
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"  deploy phase {time.perf_counter() - t_phase:.1f} s  [{card}]")
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -4488,6 +4915,11 @@ def main() -> int:
         log("[13] windowed eval (513x513 windows, fused), import-protoseg / export-torch and "
             "analyze-local / analyze-global through the CLI, flagship at full width, f32 IEEE")
         check_windowed(report, card)
+
+        log("[14] deployment: precompile twice; export (f32, bf16), cls-export and "
+            "unoise-export through the CLI for the card; the artifacts served from a fresh "
+            "process, answers held to the eager models")
+        check_deploy(report, card)
     except Exception:  # report any failure and exit non-zero
         traceback.print_exc()
         log(f"FAILED after {time.perf_counter() - t_start:.1f} s")

@@ -73,7 +73,8 @@ def test_port_imports_nothing_of_jax():
               "data.warps", "data.unoise_data", "data.nifti", "data.preprocess",
               "models.backbones", "data.image_folder", "train.classification",
               "train.classification_pipeline", "utils.receptive_field",
-              "interpret.windowed"):
+              "interpret.windowed", "deploy", "deploy.export", "deploy.server",
+              "deploy.precompile"):
         assert f"adlm_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
