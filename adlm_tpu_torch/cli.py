@@ -11,6 +11,9 @@
     python -m adlm_tpu_torch.cli unoise-train-util / unoise-train-noise
     python -m adlm_tpu_torch.cli unoise-visualize / unoise-figures
     python -m adlm_tpu_torch.cli prepare-unoise <source_path> <target_path>
+    python -m adlm_tpu_torch.cli preprocess-cityscapes / preprocess-pancreas <source_path> <target_path>
+    python -m adlm_tpu_torch.cli gen-image-list <target_path>
+    python -m adlm_tpu_torch.cli img-to-numpy <data_path> [--margin M]
     python -m adlm_tpu_torch.cli cls-train <run_name> / cls-prune <run_dir>
     python -m adlm_tpu_torch.cli import-protopnet <run_name> <checkpoint>
     python -m adlm_tpu_torch.cli export <run_dir> <stage> / cls-export <run_dir> <stage>
@@ -489,6 +492,38 @@ def cmd_prepare_unoise(args):
     # host-only work; the device check keeps every command's contract
     resolve_device(args.device)
     prepare_unoise_data(args.source_path, args.target_path)
+
+
+def cmd_preprocess(args):
+    """preprocess-cityscapes / preprocess-pancreas: host numpy, as in the
+    JAX package."""
+    from adlm_tpu_torch.core.device import resolve_device
+    from adlm_tpu_torch.data import preprocess
+
+    if args.cmd == "preprocess-pascal":
+        raise SystemExit("preprocess-pascal is not ported yet: its images are JPEG "
+                         "(ROADMAP.md Queue 1 item 11)")
+    resolve_device(args.device)
+    fn = {"preprocess-cityscapes": preprocess.preprocess_cityscapes,
+          "preprocess-pancreas": preprocess.preprocess_pancreas}[args.cmd]
+    fn(args.source_path, args.target_path)
+
+
+def cmd_gen_image_list(args):
+    from adlm_tpu_torch.core.device import resolve_device
+    from adlm_tpu_torch.data.preprocess import generate_image_list
+
+    resolve_device(args.device)
+    generate_image_list(args.target_path)
+
+
+def cmd_img_to_numpy(args):
+    from adlm_tpu_torch.core.device import resolve_device
+    from adlm_tpu_torch.data.preprocess import convert_images_to_numpy
+
+    resolve_device(args.device)
+    n = convert_images_to_numpy(args.data_path, margin=args.margin)
+    print(f"converted {n} images")
 
 
 def cmd_cls_train(args):
@@ -1311,6 +1346,27 @@ def main(argv=None):
     pu.add_argument("target_path")
     _add_device(pu)
     pu.set_defaults(fn=cmd_prepare_unoise)
+
+    for name in ("preprocess-cityscapes", "preprocess-pascal", "preprocess-pancreas"):
+        sp = sub.add_parser(name, help="raw dataset -> the npy layout" + (
+            " (not ported yet: JPEG)" if name == "preprocess-pascal" else ""))
+        sp.add_argument("source_path")
+        sp.add_argument("target_path")
+        _add_device(sp)
+        sp.set_defaults(fn=cmd_preprocess)
+
+    itn = sub.add_parser("img-to-numpy",
+                         help="PNG->npy pass over existing img_with_margin dirs "
+                              "(reference segmentation/img_to_numpy.py)")
+    itn.add_argument("data_path")
+    itn.add_argument("--margin", type=int, default=0)
+    _add_device(itn)
+    itn.set_defaults(fn=cmd_img_to_numpy)
+
+    gp = sub.add_parser("gen-image-list", help="all_images.json from an npy layout")
+    gp.add_argument("target_path")
+    _add_device(gp)
+    gp.set_defaults(fn=cmd_gen_image_list)
 
     raw = list(sys.argv[1:] if argv is None else argv)
     args = p.parse_args(raw)

@@ -1,6 +1,6 @@
 """Image-folder dataset of the ProtoPNet classifier (counterpart of
 ``adlm_tpu.data.image_folder``; reference main.py:50-105: resize to
-``img_size``, /255, normalize).  Layout::
+``img_size``, /255, normalize), and the port's PNG codec.  Layout::
 
     root/<class_name>/*.png|*.npy
 
@@ -10,17 +10,21 @@ The port reads images without PIL, whose pixels the JAX package's come
 from, and gives the same ones bit for bit:
 
 * ``.npy`` arrays (H, W) or (H, W, 3|4) are taken as uint8;
-* PNG files (8-bit grey, grey + alpha, RGB or RGBA, not interlaced,
-  any of the five scanline filters) are inflated with ``zlib`` and
-  unfiltered with numpy;
-* grey becomes RGB by replication and alpha is dropped, as PIL's
-  ``convert("RGB")`` does;
+* PNG files (``read_png``: 8-bit grey, grey + alpha, RGB, RGBA or
+  palette, and 16-bit grey; not interlaced; any of the five scanline
+  filters) are inflated with ``zlib`` and unfiltered with numpy;
+* ``to_rgb`` is PIL's ``convert("RGB")`` of each of those: grey is
+  replicated, alpha dropped, 16-bit grey clipped to 255 and palette
+  indices looked up in the PLTE table (black past its end);
 * the resize is PIL's 8-bit ``Image.BILINEAR`` (``resize_bilinear_u8``):
   the horizontal pass, then the vertical pass on its rounded uint8
   result, each in PIL's 22-bit fixed point.
 
-Any other file type listed (JPEG, BMP, WebP) raises ``ValueError``,
-naming the conversion to ``.npy``.  This module imports no torch.
+``write_png`` writes 8-bit grey or RGB with filter 0 and zlib level 6:
+PIL's encoder picks other filters, so the bytes differ from PIL's and
+the pixels do not.  Any other file type listed (JPEG, BMP, WebP) raises
+``ValueError``, naming the conversion to ``.npy``.  This module imports
+no torch.
 """
 
 from __future__ import annotations
@@ -39,7 +43,8 @@ IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 _EXTS = (".jpg", ".jpeg", ".png", ".bmp", ".webp", ".npy")
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
-_PNG_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}  # color type → samples per pixel
+_PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}  # colour type → samples per pixel
+_PNG_TYPES = {0: "grey", 2: "RGB", 3: "palette", 4: "grey + alpha", 6: "RGBA"}
 _PRECISION_BITS = 32 - 8 - 2               # PIL's Resample.c
 
 
@@ -64,14 +69,17 @@ def _unfilter_wavefront(filt: np.ndarray, ftype: np.ndarray) -> np.ndarray:
     return out[1:, 1:].astype(np.uint8)
 
 
-def read_png(path: str) -> np.ndarray:
-    """(H, W, channels) uint8 pixels of an 8-bit, non-interlaced PNG of
-    colour type grey, grey + alpha, RGB or RGBA."""
+def read_png(path: str, palette: bool = False):
+    """(H, W, channels) pixels of a non-interlaced PNG: uint8 for 8-bit
+    grey, grey + alpha, RGB, RGBA and palette (the indices, as
+    ``np.asarray(Image.open(path))``), uint16 for 16-bit grey.  With
+    ``palette=True``, ``(pixels, table)``: the PLTE entries as (n, 3)
+    uint8 for a palette image, else None."""
     with open(path, "rb") as fh:
         data = fh.read()
     if data[:8] != _PNG_SIGNATURE:
         raise ValueError(f"{path}: not a PNG file")
-    pos, header, idat = 8, None, []
+    pos, header, idat, table = 8, None, [], None
     while pos < len(data):
         (length,) = struct.unpack(">I", data[pos:pos + 4])
         kind, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + length]
@@ -80,6 +88,10 @@ def read_png(path: str) -> np.ndarray:
             raise ValueError(f"{path}: corrupt {kind!r} chunk")
         if kind == b"IHDR":
             header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"PLTE":
+            if length % 3 or length > 3 * 256:
+                raise ValueError(f"{path}: PLTE chunk of {length} bytes")
+            table = np.frombuffer(body, np.uint8).reshape(-1, 3).copy()
         elif kind == b"IDAT":
             idat.append(body)
         elif kind == b"IEND":
@@ -88,12 +100,17 @@ def read_png(path: str) -> np.ndarray:
     if header is None:
         raise ValueError(f"{path}: no IHDR chunk")
     w, h, depth, color, _, _, interlace = header
-    if depth != 8 or color not in _PNG_CHANNELS or interlace:
+    if not (depth == 8 and color in _PNG_CHANNELS or depth == 16 and color == 0) or interlace:
+        kind = _PNG_TYPES.get(color, "unknown")
         raise ValueError(
-            f"{path}: PNG with bit depth {depth}, colour type {color}, interlace "
-            f"{interlace}; the port reads 8-bit grey, grey+alpha, RGB or RGBA "
-            "without interlace: convert the image to an (H, W, 3) uint8 .npy")
-    bpp = _PNG_CHANNELS[color]
+            f"{path}: PNG with bit depth {depth}, colour type {color} ({kind}), interlace "
+            f"{interlace}; the port reads 8-bit grey, grey+alpha, RGB, RGBA and palette "
+            "and 16-bit grey without interlace (other PNG types: ROADMAP.md Queue 1 item "
+            "11): convert the image to an (H, W, 3) uint8 .npy")
+    if color == 3 and table is None:
+        raise ValueError(f"{path}: palette PNG without a PLTE chunk")
+    channels = _PNG_CHANNELS[color]
+    bpp = channels * depth // 8        # bytes per pixel, the filters' stride
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
     if raw.size != h * (w * bpp + 1):
         raise ValueError(f"{path}: {raw.size} bytes of image data, expected "
@@ -102,9 +119,51 @@ def read_png(path: str) -> np.ndarray:
     ftype, filt = raw[:, 0], raw[:, 1:].reshape(h, w, bpp)
     if ftype.max() > 4:
         raise ValueError(f"{path}: unknown scanline filter {int(ftype.max())}")
-    if not ftype.any():
-        return filt.copy()
-    return _unfilter_wavefront(filt, ftype)
+    px = _unfilter_wavefront(filt, ftype) if ftype.any() else filt.copy()
+    if depth == 16:                    # big-endian samples
+        px = (px[:, :, 0::2].astype(np.uint16) << 8) | px[:, :, 1::2]
+    return (px, table if color == 3 else None) if palette else px
+
+
+def to_rgb(pixels: np.ndarray, palette=None) -> np.ndarray:
+    """PIL's ``convert("RGB")`` of ``read_png``'s (H, W, channels) pixels:
+    (H, W, 3) uint8.  ``palette`` (n, 3), where given, maps the indices
+    (those past its end to black); uint16 grey is clipped to 255; grey is
+    replicated and alpha dropped."""
+    if palette is not None:
+        lut = np.zeros((256, 3), np.uint8)
+        lut[:len(palette)] = palette
+        return lut[pixels[:, :, 0]]
+    if pixels.dtype == np.uint16:
+        pixels = np.minimum(pixels, 255).astype(np.uint8)
+    if pixels.shape[2] <= 2:      # grey (+ alpha)
+        return np.repeat(pixels[:, :, :1], 3, axis=2)
+    return np.ascontiguousarray(pixels[:, :, :3])
+
+
+def _png_chunk(tag: bytes, data: bytes) -> bytes:
+    return (struct.pack(">I", len(data)) + tag + data
+            + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+
+def write_png(path: str, pixels: np.ndarray) -> None:
+    """Write (H, W, 3) RGB or (H, W) grey uint8 pixels as an 8-bit PNG."""
+    pixels = np.ascontiguousarray(pixels, np.uint8)
+    if pixels.ndim == 2:
+        color = 0
+    elif pixels.ndim == 3 and pixels.shape[2] == 3:
+        color = 2
+    else:
+        raise ValueError(f"PNG pixels must be (H, W) or (H, W, 3), got {pixels.shape}")
+    h, w = pixels.shape[:2]
+    rows = pixels.reshape(h, -1)
+    # filter type 0 (none) before every scanline
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), rows], axis=1).tobytes()
+    with open(path, "wb") as f:
+        f.write(_PNG_SIGNATURE
+                + _png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color, 0, 0, 0))
+                + _png_chunk(b"IDAT", zlib.compress(raw, 6))
+                + _png_chunk(b"IEND", b""))
 
 
 def _resize_axis_u8(x: np.ndarray, out_size: int, axis: int) -> np.ndarray:
@@ -144,20 +203,17 @@ def load_rgb(path: str) -> np.ndarray:
     if path.endswith(".npy"):
         arr = np.load(path)
         if arr.ndim == 2:
-            arr = np.stack([arr] * 3, axis=-1)
+            arr = arr[:, :, None]
         arr = arr.astype(np.uint8)
-    elif path.lower().endswith(".png"):
-        arr = read_png(path)
-    else:
-        raise ValueError(f"{path}: the port reads .npy and PNG images only (no "
-                         "JPEG/BMP/WebP decoder without PIL); convert it to an "
-                         "(H, W, 3) uint8 .npy, e.g. np.save(out, "
-                         "np.asarray(Image.open(path).convert('RGB')))")
-    if arr.ndim != 3 or arr.shape[2] not in (1, 2, 3, 4):
-        raise ValueError(f"{path}: image of shape {arr.shape}")
-    if arr.shape[2] <= 2:      # grey (+ alpha)
-        return np.repeat(arr[:, :, :1], 3, axis=2)
-    return np.ascontiguousarray(arr[:, :, :3])
+        if arr.ndim != 3 or arr.shape[2] not in (1, 2, 3, 4):
+            raise ValueError(f"{path}: image of shape {arr.shape}")
+        return to_rgb(arr)
+    if path.lower().endswith(".png"):
+        return to_rgb(*read_png(path, palette=True))
+    raise ValueError(f"{path}: the port reads .npy and PNG images only (no "
+                     "JPEG/BMP/WebP decoder without PIL); convert it to an "
+                     "(H, W, 3) uint8 .npy, e.g. np.save(out, "
+                     "np.asarray(Image.open(path).convert('RGB')))")
 
 
 class ImageFolderDataset:

@@ -15,18 +15,18 @@ here because their libraries are not the port's:
   cubic with a = −0.5, weights renormalized over the taps inside the
   image, in f32.  ``F.interpolate(mode="bicubic")`` is another filter
   (a = −0.75, border clamp), so the weight matrices are built here.
-* PNG files are written with ``zlib`` and ``struct`` (8-bit RGB or
-  grey, no filter), not PIL.
+* PNG files are written with ``data/image_folder.py::write_png``
+  (``zlib``, 8-bit RGB or grey, no filter), not PIL.
 """
 
 from __future__ import annotations
 
 import os
-import struct
-import zlib
 from typing import Dict, Optional, Tuple
 
 import numpy as np
+
+from adlm_tpu_torch.data.image_folder import write_png
 
 _F32 = np.float32
 
@@ -151,31 +151,6 @@ def normalize01(a: np.ndarray) -> np.ndarray:
 
 def _to_uint8(img: np.ndarray) -> np.ndarray:
     return np.clip(img * 255.0, 0, 255).astype(np.uint8)
-
-
-def _png_chunk(tag: bytes, data: bytes) -> bytes:
-    return (struct.pack(">I", len(data)) + tag + data
-            + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
-
-
-def write_png(path: str, pixels: np.ndarray) -> None:
-    """Write (H, W, 3) RGB or (H, W) grey uint8 pixels as an 8-bit PNG."""
-    pixels = np.ascontiguousarray(pixels, np.uint8)
-    if pixels.ndim == 2:
-        color = 0
-    elif pixels.ndim == 3 and pixels.shape[2] == 3:
-        color = 2
-    else:
-        raise ValueError(f"PNG pixels must be (H, W) or (H, W, 3), got {pixels.shape}")
-    h, w = pixels.shape[:2]
-    rows = pixels.reshape(h, -1)
-    # filter type 0 (none) before every scanline
-    raw = np.concatenate([np.zeros((h, 1), np.uint8), rows], axis=1).tobytes()
-    with open(path, "wb") as f:
-        f.write(b"\x89PNG\r\n\x1a\n"
-                + _png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color, 0, 0, 0))
-                + _png_chunk(b"IDAT", zlib.compress(raw, 6))
-                + _png_chunk(b"IEND", b""))
 
 
 def _save(path: str, img: np.ndarray) -> None:

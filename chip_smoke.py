@@ -154,7 +154,25 @@ non-zero and prints no result:
    the served batches of the flagship and the classifier and none for
    the U-Net; export seconds, artifact MB, latency per request at fill
    1 and a full batch, and the sustained window's requests/s and
-   latency over all of its requests.
+   latency over all of its requests;
+15. dataset preparation on the card's machine: a raw Cityscapes tree at
+   2048x1024 (2 cities per split, 6 train and 4 val frames: leftImg8bit
+   RGB, 8-bit labelIds of raw ids 0..33, 16-bit instanceIds with one
+   frame holding no instance) and 3 Pancreas volumes of 512x512x8 with
+   unannotated slices, written by the phase's own PNG encoder (scanline
+   filters 0-4) and NIfTI writer; ``preprocess-cityscapes``,
+   ``gen-image-list``, ``img-to-numpy`` and ``preprocess-pancreas`` in
+   subprocesses of ``python -m adlm_tpu_torch.cli``, as a user runs
+   them, the function at ``n_jobs=1`` on one city and
+   ``preprocess_cityscapes_obj_masks``, every output held to the source
+   arrays; then ``import-protoseg`` of the seeded flagship and
+   ``eval-valid --stats --stats-upsampled`` on the prepared val split
+   (batch 2, f32 IEEE, cuDNN deterministic), whose mIoU, per-class IoU
+   and nearest-prototype counts must equal bit for bit a
+   ``SegEvaluator`` fed the source arrays, with one head and one
+   upsample-argmin launch per batch; host seconds per frame, volume and
+   slice, and one frame's split between PNG decoding, writing and
+   ``np.save``.
 
 Precision: f32 runs with TF32 off for convolutions and matmuls (the
 entry points' ``ieee_f32`` scope; the comparisons here run in the same
@@ -2076,7 +2094,7 @@ def same_payload(a, b):
 
 def read_png(path: str):
     """The (H, W) or (H, W, 3) pixels of an 8-bit greyscale or RGB PNG
-    whose scanlines use filter 0 (what ``interpret/visualize.py::write_png``
+    whose scanlines use filter 0 (what ``data/image_folder.py::write_png``
     writes)."""
     import struct
     import zlib
@@ -4809,6 +4827,555 @@ def check_deploy(report, card: str) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 15: dataset preparation on the card's machine, fed to the flagship
+# ---------------------------------------------------------------------------
+
+# a raw Cityscapes tree at the dataset's 2048x1024 (10 of its 5,000
+# frames: 3 train and 2 val frames a city, 2 cities a split) and 3
+# Task07-like Pancreas volumes of 512x512x8 (of its 281)
+PREP_CITIES = {"train": ("aachen", "bremen"), "val": ("frankfurt", "lindau")}
+PREP_PER_CITY = {"train": 3, "val": 2}
+PREP_VOL_SHAPE = (512, 512, 8)
+PREP_VOLUMES = 3
+PREP_ANNOTATED = (2, 5)          # each volume's slices with a label; the others are empty
+# raw ids whose blocks hold instances (person .. bus), two per class:
+# instanceIds class * 1000 + k; every other block its raw id (stuff)
+PREP_THING_IDS = (24, 25, 26, 27, 28)
+PREP_EVAL_BS = 2
+PREP_TIMEOUT = 300               # seconds allowed a preparation command
+
+
+def encode_png(path: str, data, color: int, depth: int = 8) -> None:
+    """The phase's own PNG encoder, of (H, W, bytes per pixel) uint8
+    ``data`` (16-bit samples big-endian): row r carries scanline filter
+    r % 5, so that the reader undoes every filter."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    h, w, bpp = data.shape
+    x = data.reshape(h, w * bpp).astype(np.int16)
+    left, up, upleft = np.zeros_like(x), np.zeros_like(x), np.zeros_like(x)
+    left[:, bpp:] = x[:, :-bpp]
+    up[1:] = x[:-1]
+    upleft[1:, bpp:] = x[:-1, :-bpp]
+    p = left + up - upleft
+    pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - upleft)
+    paeth = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, upleft))
+    ftype = np.arange(h) % 5
+    pred = np.zeros_like(x)
+    for t, arr in ((1, left), (2, up), (3, (left + up) >> 1), (4, paeth)):
+        pred[ftype == t] = arr[ftype == t]
+    rows = np.concatenate([ftype[:, None].astype(np.uint8),
+                           ((x - pred) & 255).astype(np.uint8)], axis=1)
+
+    def chunk(tag: bytes, body: bytes) -> bytes:
+        return (struct.pack(">I", len(body)) + tag + body
+                + struct.pack(">I", zlib.crc32(tag + body) & 0xFFFFFFFF))
+
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n"
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, color, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)) + chunk(b"IEND", b""))
+
+
+def write_nifti(path: str, data) -> None:
+    """The phase's own NIfTI-1 writer (``tests/test_nifti.py``'s layout):
+    a gzipped single file, the 348-byte header, the 4-byte extension
+    flag, then ``data`` (int16 or uint8) in Fortran order, unscaled."""
+    import gzip
+    import struct
+
+    import numpy as np
+
+    code = {np.dtype(np.int16): 4, np.dtype(np.uint8): 2}[data.dtype]
+    hdr = bytearray(348)
+    struct.pack_into("<i", hdr, 0, 348)
+    struct.pack_into("<8h", hdr, 40, data.ndim, *data.shape, *([1] * (7 - data.ndim)))
+    struct.pack_into("<hh", hdr, 70, code, data.dtype.itemsize * 8)
+    struct.pack_into("<f", hdr, 108, 352.0)
+    hdr[344:348] = b"n+1\x00"
+    with open(path, "wb") as f:
+        f.write(gzip.compress(bytes(hdr) + bytes(4) + data.astype("<" + data.dtype.str[1:])
+                              .tobytes(order="F"), compresslevel=1))
+
+
+def write_raw_cityscapes(root: str, seed: int):
+    """The raw tree (``gtFine_trainvaltest/gtFine`` and
+    ``leftImg8bit_trainvaltest/leftImg8bit``): RGB frames with structure
+    at two scales, 8-bit labelIds of raw ids 0..33 in 30-pixel blocks,
+    16-bit instanceIds (the first frame has no instance), all through
+    ``encode_png``.  Returns {split: {id: (rgb, ids, inst)}}."""
+    import os
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    frames, jobs = {}, []
+    for split, cities in PREP_CITIES.items():
+        frames[split] = {}
+        for city in cities:
+            lab_dir = os.path.join(root, "gtFine_trainvaltest", "gtFine", split, city)
+            img_dir = os.path.join(root, "leftImg8bit_trainvaltest", "leftImg8bit", split, city)
+            os.makedirs(lab_dir)
+            os.makedirs(img_dir)
+            for k in range(PREP_PER_CITY[split]):
+                fid = f"{city}_{k:06d}_000019"
+                coarse = rng.randint(0, 200, (H // 64, W // 64, 3)).astype(np.uint8)
+                rgb = np.repeat(np.repeat(coarse, 64, 0), 64, 1)
+                rgb += rng.randint(0, 56, (H, W, 3)).astype(np.uint8)
+                blocks = rng.randint(0, 34, (-(-H // 30), -(-W // 30)))
+                inst_k = rng.randint(0, 2, blocks.shape)
+                things = np.isin(blocks, PREP_THING_IDS) & bool(frames[split] or split != "train")
+                inst_blocks = np.where(things, blocks * 1000 + inst_k, blocks)
+                ids = np.repeat(np.repeat(blocks, 30, 0), 30, 1)[:H, :W].astype(np.uint8)
+                inst = np.repeat(np.repeat(inst_blocks, 30, 0), 30, 1)[:H, :W].astype(np.uint16)
+                frames[split][fid] = (rgb, ids, inst)
+                jobs += [(os.path.join(img_dir, fid + "_leftImg8bit.png"), rgb, 2, 8),
+                         (os.path.join(lab_dir, fid + "_gtFine_labelIds.png"),
+                          ids[:, :, None], 0, 8),
+                         (os.path.join(lab_dir, fid + "_gtFine_instanceIds.png"),
+                          np.stack([inst >> 8, inst & 255], -1).astype(np.uint8), 0, 16)]
+    with ThreadPoolExecutor(8) as pool:   # zlib leaves the GIL
+        list(pool.map(lambda job: encode_png(*job), jobs))
+    return frames
+
+
+def write_raw_pancreas(root: str, seed: int):
+    """``imagesTr``/``labelsTr`` int16 CT-like volumes (-1024..1500 HU)
+    and uint8 labels 0..2 on ``PREP_ANNOTATED`` slices.  Returns
+    {file name: (volume, labels)}."""
+    import os
+
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    vols = {}
+    for sub in ("imagesTr", "labelsTr"):
+        os.makedirs(os.path.join(root, sub))
+    h, w, d = PREP_VOL_SHAPE
+    for i in range(PREP_VOLUMES):
+        coarse = rng.randint(-1024, 1300, (h // 32, w // 32, d))
+        vol = (np.repeat(np.repeat(coarse, 32, 0), 32, 1) + rng.randint(0, 200, (h, w, d)))
+        seg = np.zeros((h, w, d), np.uint8)
+        for z in PREP_ANNOTATED:
+            y0, x0 = rng.randint(100, 300, 2)
+            seg[y0:y0 + 96, x0:x0 + 128, z] = np.repeat(np.repeat(
+                rng.randint(0, 3, (12, 16)), 8, 0), 8, 1)
+            seg[y0, x0, z] = 1   # every annotated slice has a label
+        name = f"pancreas_{i:03d}.nii.gz"
+        vols[name] = (vol.astype(np.int16), seg)
+        write_nifti(os.path.join(root, "imagesTr", name), vols[name][0])
+        write_nifti(os.path.join(root, "labelsTr", name), seg)
+    return vols
+
+
+def prep_command(argv, what: str):
+    """(seconds, standard output) of one preparation command in a
+    process of its own, as a user runs it (its process pool, if any,
+    killed with it on a timeout)."""
+    import os
+    import signal
+
+    proc = subprocess.Popen(argv, cwd=os.path.dirname(os.path.abspath(__file__)),
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    t0 = time.perf_counter()
+    try:
+        out, err = proc.communicate(timeout=PREP_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)   # the command and its pool
+        proc.communicate()
+        raise
+    secs = time.perf_counter() - t0
+    if proc.returncode != 0:
+        log("\n".join(err.splitlines()[-40:]))
+        raise AssertionError(f"{what} exited {proc.returncode}")
+    return secs, out
+
+
+def cli_argv(*args):
+    return [sys.executable, "-m", "adlm_tpu_torch.cli", *args]
+
+
+def same_files(a: str, b: str) -> int:
+    """Every file under ``a`` byte-equal to the file of its name under
+    ``b`` (the port's writers are deterministic); returns the count."""
+    import os
+
+    names = [os.path.relpath(os.path.join(d, f), a) for d, _, fs in os.walk(a) for f in fs]
+    for name in names:
+        with open(os.path.join(a, name), "rb") as fa, open(os.path.join(b, name), "rb") as fb:
+            if fa.read() != fb.read():
+                raise AssertionError(f"{name} differs between {a} and {b}")
+    return len(names)
+
+
+def cityscapes_lut():
+    """Raw Cityscapes id → category index, from the class table."""
+    import numpy as np
+    from adlm_tpu_torch.data.constants import CITYSCAPES_CATEGORIES, CITYSCAPES_ID_2_LABEL
+
+    lut = np.zeros(256, np.uint8)
+    for raw_id, name in CITYSCAPES_ID_2_LABEL.items():
+        if raw_id >= 0:
+            lut[raw_id] = CITYSCAPES_CATEGORIES.index(name)
+    return lut
+
+
+def check_prepared_cityscapes(out: str, frames, lut) -> None:
+    """Annotations, images (``.npy`` and PNG) and ``all_images.json``
+    against the source arrays."""
+    import json
+    import os
+
+    import numpy as np
+
+    with open(os.path.join(out, "all_images.json")) as f:
+        listed = json.load(f)
+    want = {s: sorted(frames.get(s, {})) for s in ("train", "val", "test")}
+    if listed != want:
+        raise AssertionError(f"all_images.json lists {listed}")
+    for split, items in frames.items():
+        for fid, (rgb, ids, _) in items.items():
+            ann = np.load(os.path.join(out, "annotations", split, fid + ".npy"))
+            img = np.load(os.path.join(out, "img_with_margin_0", split, fid + ".npy"))
+            png = read_png(os.path.join(out, "img_with_margin_0", split, fid + ".png"))
+            if ann.dtype != np.uint8 or not np.array_equal(ann, lut[ids]):
+                raise AssertionError(f"{fid}: annotation is not the class table of the ids")
+            if img.dtype != np.uint8 or not np.array_equal(img, rgb) or not np.array_equal(png, rgb):
+                raise AssertionError(f"{fid}: image .npy or PNG differs from the source")
+
+
+def check_object_masks(out: str, frames) -> int:
+    """Each frame's masks are ``inst == id`` for its sorted ids ≥ 1000;
+    returns the number of masks."""
+    import os
+
+    import numpy as np
+
+    n_masks = n_empty = 0
+    for split, items in frames.items():
+        for fid, (_, _, inst) in items.items():
+            with np.load(os.path.join(out, "obj_masks", split, fid + ".npz")) as z:
+                masks, got_ids = z["masks"], z["instance_ids"]
+            want_ids = np.unique(inst[inst >= 1000]).astype(np.int32)
+            if got_ids.dtype != np.int32 or not np.array_equal(got_ids, want_ids):
+                raise AssertionError(f"{fid}: instance ids {got_ids[:8]}")
+            if masks.dtype != np.uint8 or masks.shape != (len(want_ids), H, W):
+                raise AssertionError(f"{fid}: masks {masks.dtype} {masks.shape}")
+            for m, i in zip(masks, want_ids):
+                if not np.array_equal(m, inst == i):
+                    raise AssertionError(f"{fid}: mask {i} is not inst == {i}")
+            n_masks += len(want_ids)
+            n_empty += not len(want_ids)
+    if n_empty != 1:
+        raise AssertionError(f"{n_empty} frames without an instance, expected 1")
+    return n_masks
+
+
+def check_prepared_pancreas(out: str, vols) -> int:
+    """The annotated slices only, in file and slice order, at
+    (1024, 2048, 3) grey within the slice's normalized range, labels a
+    subset of the source slice's; returns the slice count."""
+    import json
+    import os
+
+    import numpy as np
+
+    with open(os.path.join(out, "all_images.json")) as f:
+        listed = json.load(f)
+    want = [f"{name.split('.')[0]}_slice{z:03d}" for name in sorted(vols)
+            for z in PREP_ANNOTATED]
+    if listed != {"train": want, "val": [], "test": []}:
+        raise AssertionError(f"all_images.json lists {listed}")
+    for name, (vol, seg) in sorted(vols.items()):
+        v = vol.astype(np.float64)
+        norm = (v - v.min()) / (v.max() - v.min() + 1e-8) * 255.0
+        for z in PREP_ANNOTATED:
+            sid = f"{name.split('.')[0]}_slice{z:03d}"
+            img = np.load(os.path.join(out, "img_with_margin_0", "train", sid + ".npy"))
+            png = read_png(os.path.join(out, "img_with_margin_0", "train", sid + ".png"))
+            lab = np.load(os.path.join(out, "annotations", "train", sid + ".npy"))
+            src = norm[:, :, z].astype(np.float32).astype(np.uint8)
+            if (img.shape != (H, W, 3) or img.dtype != np.uint8 or not np.array_equal(png, img)
+                    or not (img == img[:, :, :1]).all()
+                    or img.min() < src.min() or img.max() > src.max()):
+                raise AssertionError(f"{sid}: image {img.dtype} {img.shape} is not the "
+                                     "grey slice upsampled")
+            if (lab.shape != (H, W) or lab.dtype != np.uint8
+                    or not set(np.unique(lab)) <= set(np.unique(seg[:, :, z]))
+                    or not lab.any()):
+                raise AssertionError(f"{sid}: labels {np.unique(lab)} not of the source slice")
+    return len(want)
+
+
+def time_png_frame(raw: str, out: str, fid: str, split: str) -> str:
+    """One frame's host work split: PNG decoding (labelIds,
+    leftImg8bit, instanceIds; filters 0-4), ``to_rgb``, PNG writing and
+    ``np.save``."""
+    import os
+
+    import numpy as np
+    from adlm_tpu_torch.data.image_folder import read_png as port_read_png
+    from adlm_tpu_torch.data.image_folder import to_rgb, write_png
+
+    city = fid.split("_")[0]
+    lab_dir = os.path.join(raw, "gtFine_trainvaltest", "gtFine", split, city)
+    img_path = os.path.join(raw, "leftImg8bit_trainvaltest", "leftImg8bit", split, city,
+                            fid + "_leftImg8bit.png")
+    secs = {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        r = fn()
+        secs[name] = time.perf_counter() - t0
+        return r
+
+    timed("decode labelIds", lambda: port_read_png(
+        os.path.join(lab_dir, fid + "_gtFine_labelIds.png")))
+    timed("decode instanceIds (16-bit)", lambda: port_read_png(
+        os.path.join(lab_dir, fid + "_gtFine_instanceIds.png")))
+    px = timed("decode leftImg8bit", lambda: port_read_png(img_path))
+    rgb = timed("to_rgb", lambda: to_rgb(px))
+    timed("write_png", lambda: write_png(os.path.join(out, "t.png"), rgb))
+    timed("np.save", lambda: np.save(os.path.join(out, "t.npy"), rgb))
+    timed("decode the written PNG (filter 0)", lambda: port_read_png(os.path.join(out, "t.png")))
+    return ", ".join(f"{k} {v:.3f} s" for k, v in secs.items())
+
+
+def check_prepared_feed(report, cfg, data: str, results: str, frames, lut) -> dict:
+    """import-protoseg of the seeded flagship into a run, then
+    ``eval-valid --stats --stats-upsampled`` on the prepared val split
+    against a direct ``SegEvaluator`` fed the source arrays: mIoU,
+    per-class IoU and nearest-prototype counts bit-equal.  Returns the
+    commands' launches."""
+    import json
+    import os
+
+    import numpy as np
+    import torch
+    import adlm_tpu_torch.interpret.stats as stats_mod
+    from adlm_tpu_torch import cli
+    from adlm_tpu_torch.data.constants import get_class_table
+    from adlm_tpu_torch.interpret.evaluate import SegEvaluator
+    from adlm_tpu_torch.interpret.stats import ProtoStatsAccumulator
+    from adlm_tpu_torch.ops import _build
+
+    m32 = random_model(cfg.model, SEED)
+    sd = {k: v.detach().cpu() for k, v in m32.state_dict().items()}
+    del m32
+    for k in list(sd):   # the reference's layout, as phase 13 writes it
+        if k.endswith("bn.running_mean"):
+            sd[k[:-len("running_mean")] + "num_batches_tracked"] = torch.tensor(0)
+    ckpt = os.path.join(os.path.dirname(results), "flagship.pth")
+    torch.save(sd, ckpt)
+    rec, launches_by_cmd, plots = {"first_window": None}, [], []
+    run = os.path.join(results, "prepared")
+    run_command(["import-protoseg", cfg.name, "prepared", ckpt], rec, launches_by_cmd)
+    orig_plots = stats_mod.save_eval_plots
+
+    def record_plots(out_dir, *args, **kwargs):
+        plots.append(kwargs)
+        return orig_plots(out_dir, *args, **kwargs)
+
+    stats_mod.save_eval_plots = record_plots
+    try:
+        with _RecordedEvaluators() as recorded:
+            run_command(["eval-valid", run, "push", "--data-path", data, "--stats",
+                         "--stats-upsampled", "--batch-size", str(PREP_EVAL_BS),
+                         "--examples", "0"], rec, launches_by_cmd)
+    finally:
+        stats_mod.save_eval_plots = orig_plots
+    (cli_ev,) = recorded.instances
+    res = cli_ev.results()
+    counts = plots[0]["stats"]["nearest_proto_counts"]
+
+    # the same frames straight from the source arrays
+    _, payload, model = cli._load_stage(run, "push", "last", "cuda")
+    pc = payload["proto_class"]
+    table = get_class_table(cfg.data.class_table)
+    ev = SegEvaluator(model, cfg.model.num_classes, with_stats=True, stats_upsampled=True,
+                      normalize=(cfg.data.mean, cfg.data.std), device="cuda")
+    acc = ProtoStatsAccumulator(pc.numel(), cfg.model.num_classes, pc.cpu().numpy())
+    val = [frames["val"][fid] for fid in sorted(frames["val"])]
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    for i in range(0, len(val), PREP_EVAL_BS):
+        chunk = val[i:i + PREP_EVAL_BS]
+        img = torch.from_numpy(np.stack([rgb for rgb, _, _ in chunk])).cuda()
+        lab = torch.from_numpy(np.stack([table.convert_labels(lut[ids]).astype(np.uint8)
+                                         for _, ids, _ in chunk])).cuda()
+        o = ev.update(pc, img, lab)
+        acc.update_counts(o["agree_counts"][:len(chunk)], o["topk_purity"][:len(chunk)],
+                          n_images=len(chunk))
+    torch.cuda.synchronize()
+    direct_launches = dict(_build.LAUNCHES)
+    want = ev.results()
+    want_counts = acc.results()["nearest_proto_counts"]
+    with open(os.path.join(run, "evaluation", "push", "mean_iou.txt")) as f:
+        miou_file = float(f.read())
+    with open(os.path.join(run, "evaluation", "push", "iou_scores.json")) as f:
+        ious_file = json.load(f)
+    diff = max([abs(res["mean_iou"] - want["mean_iou"])]
+               + [abs(res["iou_per_class"].get(k, math.inf) - v)
+                  for k, v in want["iou_per_class"].items()]
+               + [int(np.abs(np.asarray(counts) - np.asarray(want_counts)).max())])
+    n_batches = -(-len(val) // PREP_EVAL_BS)
+    log(f"  eval-valid --stats --stats-upsampled on the prepared val split ({len(val)} "
+        f"frames, batch {PREP_EVAL_BS}): mIoU {res['mean_iou']!r}, direct from the source "
+        f"arrays {want['mean_iou']!r}; per-class IoU and {int(np.sum(want_counts))} "
+        f"nearest-prototype counts max |diff| {diff}; direct launches {direct_launches}")
+    if (res["mean_iou"] != want["mean_iou"] or res["iou_per_class"] != want["iou_per_class"]
+            or res["pixel_accuracy"] != want["pixel_accuracy"]
+            or not np.array_equal(counts, want_counts) or miou_file != res["mean_iou"]
+            or ious_file != {str(k): v for k, v in res["iou_per_class"].items()}
+            or not math.isfinite(res["mean_iou"])):
+        raise AssertionError("eval-valid on the prepared split differs from the source "
+                             "arrays' direct evaluation")
+    (_, imp), (_, evl) = launches_by_cmd
+    for name in _build.KERNELS:
+        report[name]["launches"] += evl[name]
+    if (any(imp.values()) or evl["prototype_head"] != n_batches
+            or evl["upsample_argmin"] != n_batches or direct_launches != evl):
+        raise AssertionError(f"launches: import-protoseg {imp}, eval-valid {evl}, direct "
+                             f"{direct_launches}; expected {n_batches} of each kernel")
+    return evl
+
+
+def check_prepare(report, card: str) -> None:
+    """Phase 15: a raw Cityscapes tree and Pancreas volumes prepared by
+    the port's commands on the card's host, checked against the source
+    arrays, then the flagship on the card evaluating the prepared frames
+    bit-equal to the same frames fed from memory."""
+    import json
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from adlm_tpu_torch.core import config as config_mod
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="adlm_prep_")
+    saved_env = os.environ.get("RESULTS_DIR")
+    saved_det = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    try:
+        raw, out = os.path.join(root, "raw"), os.path.join(root, "cityscapes")
+        t0 = time.perf_counter()
+        frames = write_raw_cityscapes(raw, SEED + 41)
+        vols = write_raw_pancreas(os.path.join(root, "task07"), SEED + 43)
+        n_frames = sum(len(v) for v in frames.values())
+        ids_seen = set(np.unique(np.stack([ids for f in frames.values()
+                                           for _, ids, _ in f.values()])))
+        if ids_seen != set(range(34)):
+            raise AssertionError(f"the labelIds cover {sorted(ids_seen)}")
+        log(f"  wrote {n_frames} raw frames {W}x{H} (leftImg8bit RGB, labelIds ids 0..33, "
+            f"16-bit instanceIds; scanline filters 0-4) and {PREP_VOLUMES} volumes "
+            f"{PREP_VOL_SHAPE} in {time.perf_counter() - t0:.1f} s")
+        # what every command pays before its work: an interpreter that
+        # imports torch (here), then the device check (CUDA's start-up;
+        # gen-image-list below is little else)
+        start_torch, _ = prep_command([sys.executable, "-c", "import torch"], "import torch")
+        lut = cityscapes_lut()
+
+        secs_cli, _ = prep_command(cli_argv("preprocess-cityscapes", raw, out),
+                                   "preprocess-cityscapes")
+        check_prepared_cityscapes(out, frames, lut)
+        # the function at n_jobs=1 on one city (linked into a tree of its own)
+        raw1, out1 = os.path.join(root, "raw_1city"), os.path.join(root, "cityscapes_1job")
+        city = PREP_CITIES["val"][0]
+        for part in (("gtFine_trainvaltest", "gtFine"),
+                     ("leftImg8bit_trainvaltest", "leftImg8bit")):
+            os.makedirs(os.path.join(raw1, *part, "val"))
+            os.symlink(os.path.join(raw, *part, "val", city),
+                       os.path.join(raw1, *part, "val", city))
+        secs_1, _ = prep_command(
+            [sys.executable, "-c", "import sys; from adlm_tpu_torch.data.preprocess import "
+             "preprocess_cityscapes as f; f(sys.argv[1], sys.argv[2], n_jobs=1)", raw1, out1],
+            "preprocess_cityscapes(n_jobs=1)")
+        os.remove(os.path.join(out1, "all_images.json"))
+        n_files = same_files(out1, out)
+        shutil.rmtree(out1)
+        n_city = PREP_PER_CITY["val"]
+        log(f"  preprocess-cityscapes (CLI, its default 8 jobs over 4 cities): {secs_cli:.2f} s, "
+            f"{secs_cli / n_frames:.3f} s per frame; the function at n_jobs=1 on {city} "
+            f"({n_city} frames): {secs_1:.2f} s, {secs_1 / n_city:.3f} s per frame ({n_files} "
+            f"files byte-equal to the CLI's); an interpreter importing torch starts in "
+            f"{start_torch:.2f} s  [host of {card}]")
+
+        from adlm_tpu_torch.data.preprocess import preprocess_cityscapes_obj_masks
+        t0 = time.perf_counter()
+        preprocess_cityscapes_obj_masks(raw, out)
+        secs_masks = time.perf_counter() - t0
+        n_masks = check_object_masks(out, frames)
+        log(f"  preprocess_cityscapes_obj_masks: {n_masks} masks (one frame without an "
+            f"instance) equal inst == id, {secs_masks:.2f} s, "
+            f"{secs_masks / n_frames:.3f} s per frame  [host of {card}]")
+
+        # gen-image-list lists the same ids, its splits in sorted order (the
+        # JAX function's; preprocess-cityscapes writes train, val, test)
+        listing = os.path.join(out, "all_images.json")
+        with open(listing) as f:
+            want_listing = json.load(f)
+        os.remove(listing)
+        secs_list, _ = prep_command(cli_argv("gen-image-list", out), "gen-image-list")
+        with open(listing) as f:
+            if f.read() != json.dumps({k: want_listing[k] for k in sorted(want_listing)}):
+                raise AssertionError("gen-image-list wrote another all_images.json")
+        val_dir = os.path.join(out, "img_with_margin_0", "val")
+        want_npy = {}
+        for fid in frames["val"]:
+            with open(os.path.join(val_dir, fid + ".npy"), "rb") as f:
+                want_npy[fid] = f.read()
+            os.remove(os.path.join(val_dir, fid + ".npy"))
+        secs_itn, said = prep_command(cli_argv("img-to-numpy", out), "img-to-numpy")
+        for fid, data in want_npy.items():
+            with open(os.path.join(val_dir, fid + ".npy"), "rb") as f:
+                if f.read() != data:
+                    raise AssertionError(f"img-to-numpy wrote another {fid}.npy")
+        if said.strip() != f"converted {len(want_npy)} images":
+            raise AssertionError(f"img-to-numpy said {said!r}")
+        log(f"  gen-image-list: all_images.json the same lists, {secs_list:.2f} s (the start "
+            f"with the device check: its own work is a directory listing); img-to-numpy: "
+            f"{len(want_npy)} val images byte-equal, {secs_itn:.2f} s, "
+            f"{secs_itn / len(want_npy):.3f} s per frame  [host of {card}]")
+
+        pan = os.path.join(root, "pancreas")
+        secs_pan, _ = prep_command(cli_argv("preprocess-pancreas", os.path.join(root, "task07"),
+                                            pan), "preprocess-pancreas")
+        n_slices = check_prepared_pancreas(pan, vols)
+        n_all = PREP_VOLUMES * PREP_VOL_SHAPE[2]
+        log(f"  preprocess-pancreas: {n_slices} annotated slices of {n_all} at {H}x{W}x3, "
+            f"{secs_pan:.2f} s, "
+            f"{secs_pan / PREP_VOLUMES:.3f} s per volume, {secs_pan / n_slices:.3f} s per "
+            f"written slice  [host of {card}]")
+        log("  one frame's host work: " + time_png_frame(
+            raw, root, sorted(frames["val"])[0], "val") + f"  [host of {card}]")
+
+        cfg = config_mod.get_experiment("cityscapes_kld_imnet")
+        results = os.path.join(root, "runs")
+        os.environ["RESULTS_DIR"] = results
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+        t0 = time.perf_counter()
+        launches = check_prepared_feed(report, cfg, out, results, frames, lut)
+        log(f"  feed: import-protoseg and eval-valid {time.perf_counter() - t0:.1f} s, "
+            f"launches head {launches['prototype_head']}, upsample-argmin "
+            f"{launches['upsample_argmin']}")
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved_det
+        if saved_env is None:
+            os.environ.pop("RESULTS_DIR", None)
+        else:
+            os.environ["RESULTS_DIR"] = saved_env
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"  prepare phase {time.perf_counter() - t_phase:.1f} s  [{card}]")
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -4920,6 +5487,11 @@ def main() -> int:
             "unoise-export through the CLI for the card; the artifacts served from a fresh "
             "process, answers held to the eager models")
         check_deploy(report, card)
+
+        log("[15] dataset preparation on the card's machine: preprocess-cityscapes, "
+            "gen-image-list, img-to-numpy and preprocess-pancreas through the CLI on raw "
+            "trees, object masks, then the flagship's eval-valid on the prepared frames")
+        check_prepare(report, card)
     except Exception:  # report any failure and exit non-zero
         traceback.print_exc()
         log(f"FAILED after {time.perf_counter() - t_start:.1f} s")

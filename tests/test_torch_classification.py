@@ -69,6 +69,7 @@ UPDATE_ATOL = 1e-3
 NOISE_SHARE = 1e-3
 DRIFT_LRS = 2.0
 RUN_RTOL = 1e-2
+EPOCH_RTOL = 1e-3
 STATS = dict(rtol=1e-4, atol=1e-5)
 BF16_LOSS = 0.05
 CLOSE = dict(rtol=1e-5, atol=1e-5)
@@ -391,18 +392,20 @@ def test_k_nearest_scan_and_prune(setup, push_batches, jax_k_nearest, threshold)
                                   np.asarray(jparams["last_layer"]))
 
 
-def test_tiny_training_run_against_the_jax_run(setup, tmp_path, monkeypatch):
-    """``run_classification_training`` of both packages from ``setup``'s
-    variables (in place of each run's own seeded init): 3 epochs (1
-    warm), a push at epoch 2 and 2 last-layer iterations."""
-    from adlm_tpu.core.checkpoint import CheckpointStore as JaxStore
+# the tiny run's schedule: 3 epochs (1 warm), a push at epoch 2 and 2
+# last-layer iterations; RUN_PHASES is the phase of each epoch it steps
+RUN = dict(num_epochs=3, last_layer_iterations=2, push_every=1)
+RUN_PHASES = ("warm", "joint", "joint", "last", "last")
+
+
+@pytest.fixture(scope="module")
+def jax_run(setup, tmp_path_factory):
+    """The JAX package's tiny run from ``setup``'s variables (in place of
+    its own seeded init), with the state before and after each epoch it
+    steps (``epochs``)."""
     from adlm_tpu.train import classification_pipeline as jpipe
 
-    from adlm_tpu_torch.core.checkpoint import CheckpointStore
-    from adlm_tpu_torch.train import classification_pipeline as tpipe
-
-    kw = dict(num_warm_epochs=1, push_start=2)
-    jcfg, tcfg = configs(**kw)
+    jcfg, _ = configs(num_warm_epochs=1, push_start=2)
     rng = np.random.RandomState(9)
     images = rng.randn(2 * B, HW, HW, 3).astype(np.float32)
     labels = np.arange(2 * B) % 3
@@ -411,32 +414,61 @@ def test_tiny_training_run_against_the_jax_run(setup, tmp_path, monkeypatch):
         for i in range(0, 2 * B, B):
             yield images[i:i + B], labels[i:i + B]
 
-    run = dict(num_epochs=3, last_layer_iterations=2, push_every=1)
-
     def jax_init(model, cfg, phase, rng, sample, params=None, batch_stats=None, **kw):
         if params is None:   # the run's first state
             params, batch_stats = setup["params"], setup["batch_stats"]
         return jcls.init_classifier_state(model, cfg, phase, rng, sample, params=params,
                                           batch_stats=batch_stats, **kw)
 
-    monkeypatch.setattr(jpipe, "init_classifier_state", jax_init)
-    jstate = jpipe.run_classification_training(jcfg, str(tmp_path / "jax"), batches, batches,
-                                               **run)
+    epochs = []
+    epoch = jpipe._epoch
+
+    def recorded(step_fn, state, batches):
+        out, acc = epoch(step_fn, state, batches)
+        epochs.append((state, out))
+        return out, acc
+
+    run_dir = tmp_path_factory.mktemp("cls_run") / "jax"
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jpipe, "init_classifier_state", jax_init)
+        mp.setattr(jpipe, "_epoch", recorded)
+        jstate = jpipe.run_classification_training(jcfg, str(run_dir), batches, batches,
+                                                   **RUN)
+    assert len(epochs) == len(RUN_PHASES)
+    return dict(jcfg=jcfg, jstate=jstate, dir=run_dir, epochs=epochs, images=images,
+                labels=labels, batches=batches,
+                eval=jcls.make_cls_eval_step(JaxPPNet(cfg=jcfg.model), jcfg))
+
+
+def test_tiny_training_run_against_the_jax_run(setup, jax_run, tmp_path, monkeypatch):
+    """``run_classification_training`` of both packages from ``setup``'s
+    variables (in place of each run's own seeded init): 3 epochs (1
+    warm), a push at epoch 2 and 2 last-layer iterations."""
+    from adlm_tpu.core.checkpoint import CheckpointStore as JaxStore
+
+    from adlm_tpu_torch.core.checkpoint import CheckpointStore
+    from adlm_tpu_torch.train import classification_pipeline as tpipe
+
+    _, tcfg = configs(num_warm_epochs=1, push_start=2)
+    jcfg, jstate, images, batches = (jax_run[k] for k in ("jcfg", "jstate", "images",
+                                                          "batches"))
+    labels = jax_run["labels"]
+    dirs = {"jax": jax_run["dir"], "port": tmp_path / "port"}
     sd = cls_state_dict_from_jax(setup["params"], setup["batch_stats"], "resnet18")
     monkeypatch.setattr(tpipe, "build_classifier",
                         lambda cfg, dev, seed: tcls.build_classifier(cfg, dev, state_dict=sd))
-    state = tpipe.run_classification_training(tcfg, str(tmp_path / "port"), batches,
-                                              batches, device="cpu", **run)
+    state = tpipe.run_classification_training(tcfg, str(dirs["port"]), batches,
+                                              batches, device="cpu", **RUN)
     for sub in ("jax", "port"):
-        assert (tmp_path / sub / "cls_config.json").exists()
-    jstore, store = JaxStore(str(tmp_path / "jax")), CheckpointStore(str(tmp_path / "port"))
+        assert (dirs[sub] / "cls_config.json").exists()
+    jstore, store = JaxStore(str(dirs["jax"])), CheckpointStore(str(dirs["port"]))
     for stage in ("nopush", "push", "pruned"):
         for kind in ("last", "best"):
             assert store.exists(stage, kind) == jstore.exists(stage, kind), (stage, kind)
     assert store.exists("push", "best") and store.exists("nopush", "last")
 
     def rows(sub):
-        with open(tmp_path / sub / "logs" / "classification_metrics.csv") as f:
+        with open(dirs[sub] / "logs" / "classification_metrics.csv") as f:
             return list(csv.DictReader(f))
 
     got, want = rows("port"), rows("jax")
@@ -445,11 +477,10 @@ def test_tiny_training_run_against_the_jax_run(setup, tmp_path, monkeypatch):
         assert (g["step"], g["phase"]) == (w["step"], w["phase"])
         for k in ("accuracy", "train_accuracy"):
             assert g[k] == w[k], (g, w)
-    log = (tmp_path / "port" / "logs" / "classification.log").read_text()
+    log = (dirs["port"] / "logs" / "classification.log").read_text()
     assert "epoch 2: prototype push" in log
     # the final states' eval loss
-    jm = jcls.make_cls_eval_step(JaxPPNet(cfg=jcfg.model), jcfg)(
-        jstate, jnp.asarray(images[:B]), jnp.asarray(labels[:B]))
+    jm = jax_run["eval"](jstate, jnp.asarray(images[:B]), jnp.asarray(labels[:B]))
     m = tcls.make_cls_eval_step(state.model, tcfg, device="cpu")(state, images[:B],
                                                                  labels[:B])
     same = tcls.build_classifier(tcfg, "cpu", state_dict={
@@ -459,11 +490,82 @@ def test_tiny_training_run_against_the_jax_run(setup, tmp_path, monkeypatch):
     assert_metrics(m_same, dict(jm, loss=0.0), keys=METRICS[1:])
     for k in ("cross_entropy", "cluster", "separation"):
         np.testing.assert_allclose(float(m[k]), float(jm[k]), rtol=RUN_RTOL, err_msg=k)
-    assert tpipe.load_cls_config(str(tmp_path / "port")) == tcfg
-    with open(tmp_path / "jax" / "cls_config.json") as f, \
-            open(tmp_path / "port" / "cls_config.json") as g:
+    assert tpipe.load_cls_config(str(dirs["port"])) == tcfg
+    with open(dirs["jax"] / "cls_config.json") as f, \
+            open(dirs["port"] / "cls_config.json") as g:
         assert f.read() == g.read()
 
+
+
+def _adam_node(tree):
+    """The ``ScaleByAdamState`` inside one group's optax state, or None
+    (a frozen group's ``set_to_zero``)."""
+    import optax
+
+    if isinstance(tree, optax.ScaleByAdamState):
+        return tree
+    if isinstance(tree, tuple):
+        for child in tree:
+            node = _adam_node(child)
+            if node is not None:
+                return node
+    return None
+
+
+def _port_state_from_jax(jstate, tcfg, phase: str, steps_per_epoch: int):
+    """A port state of ``phase`` on the CPU holding the JAX state: its
+    weights, BN statistics, prototype classes, update count and each
+    trained group's Adam moments (masked-out leaves of optax's moment
+    trees are zeros, and no group of the port's holds them)."""
+    import optax
+
+    model = tcls.build_classifier(tcfg, "cpu", state_dict={
+        k: torch.from_numpy(v) for k, v in _sd(jstate).items()})
+    state = tcls.init_classifier_state(
+        model, tcfg, phase, steps_per_epoch,
+        proto_class=torch.from_numpy(np.asarray(jstate.proto_class)), device="cpu")
+    state.step = int(jstate.step)
+    params = jax.tree.map(np.asarray, jstate.params)
+    labels = tcls.label_cls_params(model)
+    named = dict(model.named_parameters())
+    loaded = set()
+    for label, inner in jstate.opt_state.inner_states.items():
+        node = _adam_node(inner)
+        if node is None:
+            continue
+        mu, nu = (cls_state_dict_from_jax(jax.tree.map(
+            lambda p, m: np.zeros(np.shape(p), np.float32) if isinstance(m, optax.MaskedNode)
+            else np.asarray(m), params, tree), None, "resnet18") for tree in (node.mu, node.nu))
+        for name in (n for n, lab in labels.items() if lab == label):
+            p = named[name]
+            state.optimizer.state[p] = {
+                "step": torch.tensor(float(np.asarray(node.count)), dtype=torch.float32),
+                "exp_avg": torch.empty_like(p).copy_(mu[name].reshape(p.shape)),
+                "exp_avg_sq": torch.empty_like(p).copy_(nu[name].reshape(p.shape))}
+            loaded.add(name)
+    assert loaded == {n for n, lab in labels.items() if lab in tcls.cls_phase_groups(tcfg, phase)}
+    return state
+
+
+@pytest.mark.parametrize("epoch", range(len(RUN_PHASES)))
+def test_each_epoch_of_the_tiny_run_from_the_jax_runs_state(jax_run, epoch):
+    """The tiny run's drift (``RUN_RTOL``) is accumulation: the port
+    started from the JAX run's state where one of its epochs starts
+    (after the push for the last-layer epochs) ends that epoch within
+    ``EPOCH_RTOL`` of the JAX epoch's eval terms."""
+    jcfg, (_, tcfg) = jax_run["jcfg"], configs(num_warm_epochs=1, push_start=2)
+    phase = RUN_PHASES[epoch]
+    start, end = jax_run["epochs"][epoch]
+    state = _port_state_from_jax(start, tcfg, phase, steps_per_epoch=2)
+    step = tcls.make_cls_train_step(state.model, tcfg, phase, device="cpu")
+    for images, labels in jax_run["batches"]():
+        state, _ = step(state, images, labels)
+    assert state.step == int(end.step)
+    images, labels = jax_run["images"][:B], jax_run["labels"][:B]
+    jm = jax_run["eval"](end, jnp.asarray(images), jnp.asarray(labels))
+    m = tcls.make_cls_eval_step(state.model, tcfg, device="cpu")(state, images, labels)
+    for k in ("cross_entropy", "cluster", "separation"):
+        np.testing.assert_allclose(float(m[k]), float(jm[k]), rtol=EPOCH_RTOL, err_msg=k)
 
 def _write_folder(root, rng, n_per_class):
     from adlm_tpu_torch.interpret.visualize import write_png

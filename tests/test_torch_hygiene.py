@@ -456,3 +456,34 @@ def test_unoise_commands_raise_without_a_card_and_write_nothing(
     # with --device cpu the same command gets past the device check
     with pytest.raises(FileNotFoundError):   # no arrays, runs or volumes there
         cli.main(argv + ["--device", "cpu"])
+
+
+# the dataset preprocessors → (argv after ``python -m adlm_tpu_torch.cli``
+# on raw trees that do not exist, what ``--device cpu`` then gives: the
+# error, or the file the command writes from an empty tree)
+_PREP_CLI = {
+    "preprocess-cityscapes": (["preprocess-cityscapes", "{d}/raw", "{d}/out"],
+                              "out/all_images.json"),
+    "preprocess-pancreas": (["preprocess-pancreas", "{d}/raw", "{d}/out"], FileNotFoundError),
+    "gen-image-list": (["gen-image-list", "{d}/out"], FileNotFoundError),
+    "img-to-numpy": (["img-to-numpy", "{d}/out", "--margin", "2"], None),
+}
+
+
+@pytest.mark.parametrize("command", list(_PREP_CLI))
+def test_preprocess_commands_raise_without_a_card_and_write_nothing(
+        no_cuda, tmp_path, command):
+    from adlm_tpu_torch import cli
+
+    argv, after = _PREP_CLI[command]
+    argv = [a.format(d=tmp_path) for a in argv]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main(argv)
+    assert not any(tmp_path.iterdir())
+    # with --device cpu the same command gets past the device check
+    if isinstance(after, type):
+        with pytest.raises(after):
+            cli.main(argv + ["--device", "cpu"])
+    else:
+        cli.main(argv + ["--device", "cpu"])
+        assert after is None or (tmp_path / after).is_file()

@@ -38,9 +38,12 @@ def _paeth(a, b, c):
     return np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
 
 
-def encode_png(path, pixels: np.ndarray, interlace: int = 0, depth: int = 8) -> None:
-    """An 8-bit PNG of (H, W, C) pixels whose row ``r`` carries scanline
-    filter ``r % 5``."""
+def encode_png(path, pixels: np.ndarray, interlace: int = 0, depth: int = 8,
+               color=None, plte=None) -> None:
+    """A PNG of (H, W, C) 8-bit pixels, or with ``color`` given of (H, W,
+    bytes per pixel) data (16-bit samples big-endian), whose row ``r``
+    carries scanline filter ``r % 5``; ``plte`` (n, 3) is written as the
+    PLTE chunk."""
     h, w, ch = pixels.shape
     px = pixels.astype(np.int32)
     rows = []
@@ -52,10 +55,12 @@ def encode_png(path, pixels: np.ndarray, interlace: int = 0, depth: int = 8) -> 
         ftype = r % 5
         pred = [0, left, up, (left + up) >> 1, _paeth(left, up, upleft)][ftype]
         rows.append(bytes([ftype]) + ((cur - pred) & 255).astype(np.uint8).tobytes())
+    color = COLOR_TYPE[ch] if color is None else color
+    body = _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, color, 0, 0, interlace))
+    if plte is not None:
+        body += _chunk(b"PLTE", np.asarray(plte, np.uint8).tobytes())
     with open(path, "wb") as f:
-        f.write(b"\x89PNG\r\n\x1a\n"
-                + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, COLOR_TYPE[ch],
-                                              0, 0, interlace))
+        f.write(b"\x89PNG\r\n\x1a\n" + body
                 + _chunk(b"IDAT", zlib.compress(b"".join(rows), 6))
                 + _chunk(b"IEND", b""))
 

@@ -1,0 +1,365 @@
+"""PyTorch port, the dataset preprocessors: ``adlm_tpu_torch.data.preprocess``,
+the new PNG types of ``data/image_folder.py`` and the commands
+``preprocess-cityscapes``, ``preprocess-pancreas``, ``gen-image-list``
+and ``img-to-numpy`` against ``adlm_tpu.data.preprocess`` and the JAX
+CLI, which read and write images with PIL.
+
+Each case writes a small raw tree, with PIL and with the test's own
+encoder (which puts each of the five scanline filters on some rows,
+at 8 and 16 bits and for palette images), and runs both packages on
+copies of it.  Every comparison is exact: ``.npy`` files and
+``all_images.json`` byte for byte, PNGs pixel for pixel (PIL's encoder
+chooses other filters than the port's ``write_png``, so their bytes
+differ), ``.npz`` files array for array (``np.savez_compressed`` stamps
+the time into its zip entries).
+"""
+
+import os
+import shutil
+import zlib
+
+import numpy as np
+import pytest
+from PIL import Image
+
+from adlm_tpu import cli as jax_cli
+from adlm_tpu.data import preprocess as jpre
+
+from adlm_tpu_torch import cli
+from adlm_tpu_torch.data import preprocess as tpre
+from adlm_tpu_torch.data.image_folder import read_png, to_rgb
+
+from test_nifti import _make_nifti
+from test_torch_image_folder import _smooth, encode_png
+
+H, W = 24, 40
+CITIES = {"train": ("aachen", "bremen"), "val": ("frankfurt", "lindau")}
+
+
+def encode_grey16(path, values: np.ndarray) -> None:
+    v = values.astype(np.uint16)
+    encode_png(path, np.stack([v >> 8, v & 255], -1).astype(np.uint8), color=0, depth=16)
+
+
+def _pil(path) -> np.ndarray:
+    with Image.open(path) as im:
+        return np.asarray(im)
+
+
+def _pil_rgb(path) -> np.ndarray:
+    with Image.open(path) as im:
+        return np.asarray(im.convert("RGB"))
+
+
+def assert_same_tree(got_root, want_root) -> int:
+    """The same files under both roots; ``.npy``/``.json`` byte-equal,
+    PNGs pixel-equal (decoded with PIL), ``.npz`` array for array.
+    Returns the number of files compared."""
+    def files(root):
+        return sorted(os.path.relpath(os.path.join(d, f), root)
+                      for d, _, fs in os.walk(root) for f in fs)
+
+    def dirs(root):
+        return sorted(os.path.relpath(d, root) for d, _, _ in os.walk(root))
+
+    names = files(want_root)
+    assert files(got_root) == names
+    assert dirs(got_root) == dirs(want_root)
+    for name in names:
+        a, b = os.path.join(got_root, name), os.path.join(want_root, name)
+        if name.endswith(".png"):
+            np.testing.assert_array_equal(_pil(a), _pil(b), err_msg=name)
+            np.testing.assert_array_equal(read_png(a).reshape(_pil(b).shape), _pil(b),
+                                          err_msg=name)
+        elif name.endswith(".npz"):
+            with np.load(a) as za, np.load(b) as zb:
+                assert sorted(za.files) == sorted(zb.files), name
+                for k in zb.files:
+                    assert za[k].dtype == zb[k].dtype, (name, k)
+                    np.testing.assert_array_equal(za[k], zb[k], err_msg=f"{name}:{k}")
+        else:
+            with open(a, "rb") as fa, open(b, "rb") as fb:
+                assert fa.read() == fb.read(), name
+    return len(names)
+
+
+# ---------------------------------------------------------------------------
+# the reader and to_rgb
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def pngs(tmp_path_factory):
+    """Every type the reader reads, written by PIL and by the encoder."""
+    root = tmp_path_factory.mktemp("pngs")
+    rng = np.random.RandomState(0)
+    for mode, ch in (("L", 1), ("LA", 2), ("RGB", 3), ("RGBA", 4)):
+        px = _smooth(rng, 21, 30, ch)
+        Image.fromarray(px[:, :, 0] if ch == 1 else px, mode).save(root / f"pil_{mode}.png")
+    g16 = (_smooth(rng, 19, 33, 1)[:, :, 0].astype(np.uint16) * 257
+           + rng.randint(0, 257, (19, 33))).astype(np.uint16)
+    g16[0, :6] = [0, 1, 255, 256, 1000, 65535]
+    Image.fromarray(g16).save(root / "pil_I16.png")
+    encode_grey16(root / "enc_I16.png", g16)
+    # 8-bit palette: PIL writes 8 bits from 17 colours on; indices past
+    # the table's end are black in convert("RGB")
+    table = rng.randint(0, 256, (20, 3)).astype(np.uint8)
+    idx = rng.randint(0, 20, (17, 26)).astype(np.uint8)
+    pal = Image.fromarray(idx, "P")
+    pal.putpalette(table.ravel().tolist())
+    pal.save(root / "pil_P.png")
+    idx[0, :4] = [20, 21, 200, 255]
+    encode_png(root / "enc_P.png", idx[:, :, None], color=3, plte=table)
+    return root
+
+
+def test_read_png_16_bit_grey_and_palette_equal_pil(pngs):
+    for name in ("pil_I16", "enc_I16", "pil_P", "enc_P"):
+        path = str(pngs / f"{name}.png")
+        want = _pil(path)
+        got, table = read_png(path, palette=True)
+        assert got.dtype == want.dtype and got.shape == want.shape + (1,), name
+        np.testing.assert_array_equal(got[:, :, 0], want, err_msg=name)
+        np.testing.assert_array_equal(read_png(path), got)
+        if name.endswith("_P"):
+            with Image.open(path) as im:
+                pil_table = np.frombuffer(im.palette.getdata()[1], np.uint8).reshape(-1, 3)
+            np.testing.assert_array_equal(table, pil_table[:len(table)])
+        else:
+            assert table is None
+    data = (pngs / "enc_I16.png").read_bytes()
+    raw = zlib.decompress(data[data.index(b"IDAT") + 4:data.index(b"IEND") - 8])
+    assert set(raw[::2 * 33 + 1]) == {0, 1, 2, 3, 4}
+
+
+def test_to_rgb_is_pils_convert_rgb(pngs):
+    paths = sorted(pngs.glob("*.png"))
+    assert len(paths) == 8
+    for path in paths:
+        got = to_rgb(*read_png(str(path), palette=True))
+        want = _pil_rgb(path)
+        assert got.dtype == np.uint8 and got.shape == want.shape, path.name
+        np.testing.assert_array_equal(got, want, err_msg=path.name)
+
+
+def test_other_png_types_raise_naming_the_type(tmp_path):
+    encode_png(tmp_path / "rgb16.png", np.zeros((4, 4, 6), np.uint8), color=2, depth=16)
+    with pytest.raises(ValueError, match=r"bit depth 16, colour type 2 \(RGB\).*item 11"):
+        read_png(str(tmp_path / "rgb16.png"))
+    Image.fromarray(np.zeros((8, 8), np.uint8), "P").save(tmp_path / "p1.png")  # 1-bit
+    with pytest.raises(ValueError, match=r"bit depth 1, colour type 3 \(palette\)"):
+        read_png(str(tmp_path / "p1.png"))
+
+
+# ---------------------------------------------------------------------------
+# add_margins_to_image
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("margin", [0, 1, 5, 13])
+def test_add_margins_equals_pils_pastes(margin):
+    img = np.random.RandomState(margin).randint(0, 256, (9, 11, 3)).astype(np.uint8)
+    want = np.asarray(jpre.add_margins_to_image(Image.fromarray(img), margin))
+    got = tpre.add_margins_to_image(img, margin)
+    assert got.dtype == np.uint8 and got.shape == (9 + 2 * margin, 11 + 2 * margin, 3)
+    np.testing.assert_array_equal(got, want)
+    if margin > 11:   # wider than the image: black past its edges
+        assert not got[:margin - 9].any() and not got[:, :margin - 11].any()
+
+
+# ---------------------------------------------------------------------------
+# Cityscapes
+# ---------------------------------------------------------------------------
+
+def write_cityscapes(root, seed: int = 0):
+    """2 cities per split (train and val, no test), 2 frames a city, 24x40:
+    leftImg8bit RGB, labelIds 8-bit (raw ids 0-33 and some 255), and
+    16-bit instanceIds (stuff below 1000, instances from 1000; the first
+    frame has no instance); PIL and the encoder take turns."""
+    rng = np.random.RandomState(seed)
+    n = 0
+    for split, cities in CITIES.items():
+        for city in cities:
+            lab_dir = os.path.join(root, "gtFine_trainvaltest", "gtFine", split, city)
+            img_dir = os.path.join(root, "leftImg8bit_trainvaltest", "leftImg8bit", split, city)
+            os.makedirs(lab_dir)
+            os.makedirs(img_dir)
+            for k in range(2):
+                fid = f"{city}_{k:06d}_000019"
+                rgb = _smooth(rng, H, W, 3) if n % 3 else rng.randint(
+                    0, 256, (H, W, 3)).astype(np.uint8)
+                ids = rng.randint(0, 34, (H, W)).astype(np.uint8)
+                ids[0, :3] = 255
+                inst = rng.choice([7, 11, 999, 1000, 24001, 26000], (H, W)).astype(np.uint16)
+                if n == 0:
+                    inst = np.minimum(inst, 999).astype(np.uint16)
+                if n % 2:
+                    Image.fromarray(rgb).save(os.path.join(img_dir, fid + "_leftImg8bit.png"))
+                    Image.fromarray(ids).save(os.path.join(lab_dir, fid + "_gtFine_labelIds.png"))
+                    Image.fromarray(inst).save(
+                        os.path.join(lab_dir, fid + "_gtFine_instanceIds.png"))
+                else:
+                    encode_png(os.path.join(img_dir, fid + "_leftImg8bit.png"), rgb)
+                    encode_png(os.path.join(lab_dir, fid + "_gtFine_labelIds.png"),
+                               ids[:, :, None])
+                    encode_grey16(os.path.join(lab_dir, fid + "_gtFine_instanceIds.png"), inst)
+                n += 1
+    return root
+
+
+@pytest.fixture(scope="module")
+def cityscapes(tmp_path_factory):
+    return write_cityscapes(str(tmp_path_factory.mktemp("cityscapes")))
+
+
+@pytest.mark.parametrize("margin,n_jobs", [(0, 1), (0, 2), (3, 1), (3, 2)])
+def test_preprocess_cityscapes_equals_the_jax_function(cityscapes, tmp_path, margin, n_jobs):
+    jpre.preprocess_cityscapes(cityscapes, str(tmp_path / "jax"), margin=margin, n_jobs=n_jobs)
+    tpre.preprocess_cityscapes(cityscapes, str(tmp_path / "port"), margin=margin,
+                               n_jobs=n_jobs)
+    n = assert_same_tree(str(tmp_path / "port"), str(tmp_path / "jax"))
+    assert n == 1 + 8 + 8 * 2      # all_images.json, annotations, images (.npy, .png)
+    ann = np.load(tmp_path / "port" / "annotations" / "val" / "lindau_000001_000019.npy")
+    raw = _pil(os.path.join(cityscapes, "gtFine_trainvaltest", "gtFine", "val", "lindau",
+                            "lindau_000001_000019_gtFine_labelIds.png"))
+    np.testing.assert_array_equal(ann, tpre._cityscapes_lut()[raw])
+    img = np.load(tmp_path / "port" / f"img_with_margin_{margin}" / "train" /
+                  "aachen_000000_000019.npy")
+    assert img.shape == (H + 2 * margin, W + 2 * margin, 3)
+
+
+def test_object_masks_equal_the_jax_function(cityscapes, tmp_path):
+    jpre.preprocess_cityscapes_obj_masks(cityscapes, str(tmp_path / "jax"))
+    tpre.preprocess_cityscapes_obj_masks(cityscapes, str(tmp_path / "port"))
+    assert assert_same_tree(str(tmp_path / "port"), str(tmp_path / "jax")) == 8
+    with np.load(tmp_path / "port" / "obj_masks" / "train" / "aachen_000000_000019.npz") as z:
+        assert z["masks"].shape == (0, H, W) and z["instance_ids"].size == 0
+    with np.load(tmp_path / "port" / "obj_masks" / "val" / "lindau_000001_000019.npz") as z:
+        assert z["instance_ids"].tolist() == [1000, 24001, 26000]
+        assert z["masks"].dtype == np.uint8 and z["masks"].sum() > 0
+
+
+# ---------------------------------------------------------------------------
+# Pancreas
+# ---------------------------------------------------------------------------
+
+def write_pancreas(root, n: int, depth: int = 3, seed: int = 0):
+    """``n`` int16 CT-like volumes of 20x24x``depth``; every other slice
+    annotated (labels 0-2), the rest empty."""
+    rng = np.random.RandomState(seed)
+    for sub in ("imagesTr", "labelsTr"):
+        os.makedirs(os.path.join(root, sub))
+    for i in range(n):
+        vol = rng.randint(-1024, 1500, (20, 24, depth)).astype(np.int16)
+        seg = np.zeros((20, 24, depth), np.uint8)
+        for z in range(0, depth, 2):
+            seg[4 + z:12 + z, 5:15, z] = rng.randint(1, 3, (8, 10))
+        name = f"pancreas_{i:03d}.nii.gz"
+        _make_nifti(os.path.join(root, "imagesTr", name), vol)
+        _make_nifti(os.path.join(root, "labelsTr", name), seg)
+    return root
+
+
+@pytest.mark.parametrize("size", [(48, 40), (12, 10)], ids=["up", "down"])
+def test_preprocess_pancreas_equals_the_jax_function(tmp_path, size):
+    src = write_pancreas(str(tmp_path / "src"), 3)
+    kw = dict(train_n=1, val_n=1, upsample_to=size)
+    jpre.preprocess_pancreas(src, str(tmp_path / "jax"), **kw)
+    tpre.preprocess_pancreas(src, str(tmp_path / "port"), **kw)
+    # all_images.json, and 2 annotated slices of 3 per volume, 3 files each
+    assert assert_same_tree(str(tmp_path / "port"), str(tmp_path / "jax")) == 1 + 3 * 2 * 3
+    rgb = np.load(tmp_path / "port" / "img_with_margin_0" / "val" / "pancreas_001_slice002.npy")
+    assert rgb.shape == size + (3,)
+
+
+# ---------------------------------------------------------------------------
+# gen-image-list and img-to-numpy
+# ---------------------------------------------------------------------------
+
+def test_generate_image_list_equals_the_jax_function(cityscapes, tmp_path):
+    tpre.preprocess_cityscapes(cityscapes, str(tmp_path / "port"), margin=2, n_jobs=1)
+    shutil.copytree(tmp_path / "port", tmp_path / "jax")
+    for sub in ("port", "jax"):
+        os.remove(tmp_path / sub / "all_images.json")
+    os.remove(tmp_path / "port" / "img_with_margin_2" / "val" / "frankfurt_000000_000019.npy")
+    os.remove(tmp_path / "jax" / "img_with_margin_2" / "val" / "frankfurt_000000_000019.npy")
+    want = jpre.generate_image_list(str(tmp_path / "jax"))
+    got = tpre.generate_image_list(str(tmp_path / "port"))
+    assert got == want and sorted(got) == ["test", "train", "val"] and len(got["val"]) == 3
+    assert_same_tree(str(tmp_path / "port"), str(tmp_path / "jax"))
+    with pytest.raises(FileNotFoundError, match="img_with_margin"):
+        tpre.generate_image_list(str(tmp_path / "port" / "annotations"))
+
+
+def write_png_layout(root, margin: int, seed: int = 0):
+    """``img_with_margin_<margin>/{train,val}`` PNGs of every type the
+    reader reads (PIL and the encoder), with a sentinel ``.npy`` that
+    must stay as it is."""
+    rng = np.random.RandomState(seed)
+    for split in ("train", "val"):
+        os.makedirs(os.path.join(root, f"img_with_margin_{margin}", split))
+    d = os.path.join(root, f"img_with_margin_{margin}")
+    for mode, ch in (("L", 1), ("LA", 2), ("RGB", 3), ("RGBA", 4)):
+        px = _smooth(rng, 15, 18, ch)
+        Image.fromarray(px[:, :, 0] if ch == 1 else px, mode).save(
+            os.path.join(d, "train", f"{mode}.png"))
+    encode_png(os.path.join(d, "val", "enc_rgb.png"), _smooth(rng, 16, 13, 3))
+    encode_grey16(os.path.join(d, "val", "enc_i16.png"),
+                  rng.randint(0, 600, (12, 14)).astype(np.uint16))
+    table = rng.randint(0, 256, (30, 3)).astype(np.uint8)
+    encode_png(os.path.join(d, "val", "enc_p.png"),
+               rng.randint(0, 32, (11, 9, 1)).astype(np.uint8), color=3, plte=table)
+    np.save(os.path.join(d, "train", "RGB.npy"), np.zeros((1,), np.uint8))
+    return root
+
+
+def test_convert_images_to_numpy_equals_the_jax_function(tmp_path):
+    write_png_layout(str(tmp_path / "port"), 4)
+    shutil.copytree(tmp_path / "port", tmp_path / "jax")
+    assert tpre.convert_images_to_numpy(str(tmp_path / "port"), margin=4) == \
+        jpre.convert_images_to_numpy(str(tmp_path / "jax"), margin=4) == 6
+    assert_same_tree(str(tmp_path / "port"), str(tmp_path / "jax"))
+    assert np.load(tmp_path / "port" / "img_with_margin_4" / "train" / "RGB.npy").shape == (1,)
+    assert tpre.convert_images_to_numpy(str(tmp_path / "port"), margin=4) == 0
+    assert tpre.convert_images_to_numpy(str(tmp_path / "port"), margin=0) == 0
+
+
+# ---------------------------------------------------------------------------
+# the commands
+# ---------------------------------------------------------------------------
+
+def test_commands_write_what_the_jax_cli_writes(cityscapes, tmp_path, capsys):
+    src = write_pancreas(str(tmp_path / "pancreas"), 2, depth=1)
+    for sub in ("jax", "port"):
+        (tmp_path / sub).mkdir()
+    runs = [["preprocess-cityscapes", cityscapes, "{d}/city"],
+            ["preprocess-pancreas", src, "{d}/pancreas"]]
+    for argv in runs:
+        jax_cli.main([a.format(d=tmp_path / "jax") for a in argv])
+        cli.main([a.format(d=tmp_path / "port") for a in argv] + ["--device", "cpu"])
+    assert_same_tree(str(tmp_path / "port"), str(tmp_path / "jax"))
+    img = np.load(tmp_path / "port" / "pancreas" / "img_with_margin_0" / "train" /
+                  "pancreas_000_slice000.npy")
+    assert img.shape == (1024, 2048, 3)
+    for sub in ("jax", "port"):
+        d = tmp_path / sub / "city"
+        os.remove(d / "all_images.json")
+        for f in (d / "img_with_margin_0" / "val").glob("*.npy"):
+            os.remove(f)
+    capsys.readouterr()
+    jax_cli.main(["gen-image-list", str(tmp_path / "jax" / "city")])
+    jax_cli.main(["img-to-numpy", str(tmp_path / "jax" / "city"), "--margin", "0"])
+    want = capsys.readouterr().out
+    # the JAX command returns its dict from main, so ``sys.exit`` prints
+    # it and exits 1; the port's returns None (exit 0)
+    assert cli.main(["gen-image-list", str(tmp_path / "port" / "city"), "--device", "cpu"]) is None
+    cli.main(["img-to-numpy", str(tmp_path / "port" / "city"), "--margin", "0",
+              "--device", "cpu"])
+    assert capsys.readouterr().out == want == "converted 4 images\n"
+    assert_same_tree(str(tmp_path / "port"), str(tmp_path / "jax"))
+
+
+def test_preprocess_pascal_is_refused_naming_item_11(tmp_path):
+    with pytest.raises(SystemExit) as e:
+        cli.main(["preprocess-pascal", str(tmp_path / "voc"), str(tmp_path / "out"),
+                  "--device", "cpu"])
+    assert "not ported yet" in str(e.value) and "Queue 1 item 11" in str(e.value)
+    assert not (tmp_path / "out").exists()
