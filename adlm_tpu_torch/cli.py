@@ -23,9 +23,18 @@
 Environment: DATA_PATH (dataset root) and RESULTS_DIR (run outputs), as
 the reference's env.sh / settings.py.  Every command runs on the CUDA
 card unless ``--device cpu`` is given; without a card it raises before
-it writes anything.  A run directory written by either package's
-``train`` (or ``unoise-train-*``) has the same layout and config files;
-the checkpoint files are each package's own.
+it writes anything.
+
+Several cards (``core/mesh.py``, ``parallel/sharding.py``): ``--mesh-data N
+[--mesh-model M]`` on ``train``, ``eval-valid``, ``eval-test``,
+``cls-train`` and ``unoise-train-*`` starts N·M local ranks itself, one
+card each (gloo ranks on the CPU under ``--device cpu``), joined through
+a file store in the run directory; ``train ... --distributed`` takes the
+world from ``torchrun``'s environment instead.
+
+A run directory written by either package's ``train`` (or
+``unoise-train-*``) has the same layout and config files; the
+checkpoint files are each package's own.
 """
 
 from __future__ import annotations
@@ -96,7 +105,88 @@ def apply_train_overrides(cfg, bf16: bool, fused: bool, s2b: bool,
     return cfg
 
 
-def cmd_train(args):
+def _rank_main(dev, mesh_args, argv):
+    """One spawned rank of ``_mesh_for``: the same command on ``dev``,
+    inside the world ``mesh_args`` joins."""
+    from adlm_tpu_torch.core.mesh import destroy, make_mesh
+
+    args = _parser().parse_args(argv)
+    args._argv = argv
+    mesh = make_mesh(_mesh_spec(args), dev, **mesh_args)
+    try:
+        code = args.fn(args, mesh=mesh)
+    finally:
+        destroy(mesh)
+    if code:
+        raise SystemExit(code)
+
+
+def _mesh_spec(args):
+    from adlm_tpu_torch.core.mesh import MeshSpec
+
+    return MeshSpec(data=getattr(args, "mesh_data", 0) or -1,
+                    model=getattr(args, "mesh_model", 1))
+
+
+def _mesh_for(args, store_dir: str, batch_size=None):
+    """This command's mesh: (mesh or None, exit code of a spawned world
+    or None).
+
+    ``--distributed`` joins ``torchrun``'s world.  ``--mesh-data N
+    [--mesh-model M]`` alone runs N·M ranks: one is this process when
+    N·M = 1 (a mesh without a process group), else this process spawns
+    them, one card each (gloo CPU ranks under ``--device cpu``), joined
+    through a file store in ``store_dir``, and returns their exit code.
+    ``batch_size``, where given, must divide by N."""
+    from adlm_tpu_torch.core.device import resolve_device
+    from adlm_tpu_torch.core.mesh import init_distributed, make_mesh, spawn_local
+
+    data = getattr(args, "mesh_data", 0)
+    model = getattr(args, "mesh_model", 1)
+    if data and batch_size is not None and batch_size % data:
+        raise SystemExit("--batch-size must be divisible by --mesh-data")
+    dev = resolve_device(args.device)
+    if getattr(args, "distributed", False):
+        mesh = init_distributed(_mesh_spec(args), device="cpu" if dev.type == "cpu" else None)
+        if mesh.device.type == "cuda":
+            # the first rank builds the kernel libraries; the others load them
+            from adlm_tpu_torch.ops import _build
+
+            if mesh.is_main:
+                _build.build_all()
+            mesh.barrier()
+        return mesh, None
+    if not data and model <= 1:
+        return None, None
+    n = (data or 1) * model
+    if n == 1:
+        return make_mesh(_mesh_spec(args), dev), None
+    if dev.type == "cuda":
+        import torch
+
+        have = torch.cuda.device_count()
+        if n > have:
+            raise SystemExit(
+                f"--mesh-data {data or 1} x --mesh-model {model} asks for {n} ranks, "
+                f"one card each, but this machine has {have} card(s); use "
+                f"torchrun with --distributed across machines, or --device cpu")
+        devices = [f"cuda:{r}" for r in range(n)]
+        # built once here, before the ranks start and load them
+        from adlm_tpu_torch.ops import _build
+
+        _build.build_all()
+    else:
+        devices = ["cpu"] * n
+    os.makedirs(store_dir, exist_ok=True)
+    store = os.path.join(os.path.abspath(store_dir), f".mesh_store_{os.getpid()}")
+    codes = spawn_local(_rank_main, n, store, devices, args=(list(args._argv),))
+    bad = [c for c in codes if c]
+    if bad:
+        raise SystemExit(bad[0])
+    return None, 0
+
+
+def cmd_train(args, mesh=None):
     from adlm_tpu_torch.core.device import resolve_device
 
     dev = resolve_device(args.device)
@@ -145,6 +235,10 @@ def cmd_train(args):
             dkw["dataloader_n_jobs"] = args.dataloader_jobs
         cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, **dkw))
     run_dir = _results_dir(args.run_name)
+    if mesh is None:
+        mesh, code = _mesh_for(args, run_dir)
+        if code is not None:
+            return code
     os.makedirs(run_dir, exist_ok=True)
     try:
         run_protoseg_training(
@@ -158,7 +252,7 @@ def cmd_train(args):
             pretrained_naming="deeplab" if cfg.load_coco else "torchvision",
             trace_dir=args.trace_dir, val_augment=args.val_augment,
             resume=args.resume, halt_after_windows=args.halt_after,
-            device=dev)
+            device=dev, mesh=mesh)
     except TrainingDiverged:
         # a distinct exit code: a resume with the same arguments replays
         # the divergence, so the watchdog must not restart it
@@ -186,7 +280,21 @@ def _window(spec: str):
     return wh, ww
 
 
-def cmd_eval_valid(args):
+def _eval_mesh(args, mesh):
+    """(mesh, exit code) of an eval command: the batch split over
+    ``--mesh-data`` ranks; ``--mesh-model`` > 1 (spatial eval) exits."""
+    if getattr(args, "mesh_model", 1) > 1:
+        raise SystemExit("--mesh-model > 1 (spatial eval: image H sharded over the "
+                         "model axis) is not ported yet (ROADMAP.md Queue 1 item 9b)")
+    if mesh is not None:
+        return mesh, None
+    if args.windowed and getattr(args, "mesh_data", 0):
+        raise SystemExit("--mesh-* shards whole-image eval; windowed mode is "
+                         "the single-device memory-bounded alternative")
+    return _mesh_for(args, args.run_dir, batch_size=args.batch_size)
+
+
+def cmd_eval_valid(args, mesh=None):
     from adlm_tpu_torch.core.device import resolve_device
     from adlm_tpu_torch.data.constants import get_class_table
     from adlm_tpu_torch.data.dataset import SegmentationDataset
@@ -198,7 +306,11 @@ def cmd_eval_valid(args):
         save_eval_plots,
     )
 
-    dev = resolve_device(args.device)
+    mesh, code = _eval_mesh(args, mesh)
+    if code is not None:
+        return code
+    dev = mesh.device if mesh is not None else resolve_device(args.device)
+    main = mesh is None or mesh.is_main
     cfg, payload, model = _load_stage(args.run_dir, args.stage, args.kind, dev)
     proto_class = payload["proto_class"]
     n_proto = cfg.model.num_prototypes
@@ -223,18 +335,23 @@ def cmd_eval_valid(args):
     else:
         ev = SegEvaluator(model, cfg.model.num_classes, with_stats=args.stats,
                           stats_upsampled=args.stats_upsampled, normalize=normalize,
-                          device=dev)
+                          device=dev, mesh=mesh)
     acc = (ProtoStatsAccumulator(n_proto, cfg.model.num_classes,
                                  proto_class.cpu().numpy())
            if args.stats else None)
-    if args.batch_size > 1:
+    if mesh is not None:
+        # each rank loads its slice of every batch
+        items = ds.eval_batches(args.batch_size, with_counts=True, raw=raw,
+                                shard=(mesh.data_index, mesh.data))
+    elif args.batch_size > 1:
         items = ds.eval_batches(args.batch_size, with_counts=True, raw=raw)
     else:
         items = ((img, lab, 1) for img, lab in ds.eval_items(raw=raw))
     n_images = 0
     # the next batch's upload rides under the current batch's compute
     for img, lab, n_real in device_prefetch(items, device=dev):
-        out = ev.update(proto_class, img, lab)
+        out = (ev.update(proto_class, img, lab) if mesh is None
+               else ev.update(proto_class, img, lab, n_valid=n_real))
         if acc is not None:
             # padded tail images are left out: the nearest-prototype
             # counts have no void mask to drop them
@@ -246,6 +363,8 @@ def cmd_eval_valid(args):
     res = ev.results()
     if args.stats:
         res["stats_mode"] = "upsampled" if args.stats_upsampled else "grid"
+    if not main:
+        return None
     out_dir = os.path.join(args.run_dir, "evaluation", args.stage)
     save_eval_plots(out_dir, res["iou_per_class"], res["mean_iou"],
                     res["pixel_accuracy"],
@@ -277,9 +396,11 @@ def cmd_eval_valid(args):
     print(json.dumps(res, indent=2, default=float))
 
 
-def cmd_eval_test(args):
+def cmd_eval_test(args, mesh=None):
     """Per-image greyscale prediction PNGs mapped back to the source
-    dataset's ids (reference segmentation/eval_test.py:53-115)."""
+    dataset's ids (reference segmentation/eval_test.py:53-115).  Over a
+    mesh each rank predicts its slice of every batch and the first rank
+    writes every PNG."""
     from adlm_tpu_torch.core.device import resolve_device
     from adlm_tpu_torch.data.constants import get_class_table
     from adlm_tpu_torch.data.dataset import SegmentationDataset
@@ -287,7 +408,10 @@ def cmd_eval_test(args):
     from adlm_tpu_torch.interpret.evaluate import make_inference_fn
     from adlm_tpu_torch.interpret.visualize import write_png
 
-    dev = resolve_device(args.device)
+    mesh, code = _eval_mesh(args, mesh)
+    if code is not None:
+        return code
+    dev = mesh.device if mesh is not None else resolve_device(args.device)
     cfg, payload, model = _load_stage(args.run_dir, args.stage, args.kind, dev)
     proto_class = payload["proto_class"]
     table = get_class_table(cfg.data.class_table)
@@ -308,12 +432,43 @@ def cmd_eval_test(args):
                                device=dev)
     out_dir = os.path.join(args.run_dir, "evaluation", args.stage, "test_predictions")
     os.makedirs(out_dir, exist_ok=True)
+    if mesh is not None:
+        _sharded_eval_test(args, mesh, ds, fn, proto_class, lut, raw, out_dir)
+        return None
     for i, (img, lab) in enumerate(device_prefetch(ds.eval_items(raw=raw), device=dev)):
         pred = fn(proto_class, img, lab)["pred"][0].cpu().numpy().astype(np.uint8)
         write_png(os.path.join(out_dir, ds.img_ids[i] + ".png"), lut[pred])
         if args.max_images and i + 1 >= args.max_images:
             break
     print(f"wrote predictions to {out_dir}")
+
+
+def _sharded_eval_test(args, mesh, ds, fn, proto_class, lut, raw, out_dir):
+    """eval-test over a mesh: each rank's slice of every batch, the
+    predictions gathered (a zero-filled buffer each rank fills) and
+    written by the first rank."""
+    import torch
+
+    from adlm_tpu_torch.data.pipeline import device_prefetch
+    from adlm_tpu_torch.interpret.visualize import write_png
+
+    items = ds.eval_batches(args.batch_size, with_counts=True, raw=raw,
+                            shard=(mesh.data_index, mesh.data))
+    start = 0
+    for img, lab, n_real in device_prefetch(items, device=mesh.device):
+        pred = mesh.gather_rows(fn(proto_class, img, lab)["pred"].to(torch.int32))
+        if mesh.is_main:
+            pred = pred.cpu().numpy().astype(np.uint8)
+            for j in range(n_real):
+                if args.max_images and start + j >= args.max_images:
+                    break
+                write_png(os.path.join(out_dir, ds.img_ids[start + j] + ".png"),
+                          lut[pred[j]])
+        start += n_real
+        if args.max_images and start >= args.max_images:
+            break
+    if mesh.is_main:
+        print(f"wrote predictions to {out_dir}")
 
 
 def cmd_prune(args):
@@ -360,16 +515,26 @@ def _unoise_model(run_dir: str, kind: str, dev, bf16: bool,
     return cast_params(model, "bfloat16") if bf16 else model
 
 
-def cmd_unoise_train_util(args):
-    from adlm_tpu_torch.train.unoise_pipeline import train_utility
+def cmd_unoise_train_util(args, mesh=None):
+    from adlm_tpu_torch.train.unoise_pipeline import results_dir, train_utility
 
-    train_utility(args)
+    if mesh is None:
+        mesh, code = _mesh_for(args, os.path.join(results_dir(), args.run_name),
+                               batch_size=args.batch_size)
+        if code is not None:
+            return code
+    train_utility(args, mesh=mesh)
 
 
-def cmd_unoise_train_noise(args):
-    from adlm_tpu_torch.train.unoise_pipeline import train_noise
+def cmd_unoise_train_noise(args, mesh=None):
+    from adlm_tpu_torch.train.unoise_pipeline import results_dir, train_noise
 
-    train_noise(args)
+    if mesh is None:
+        mesh, code = _mesh_for(args, os.path.join(results_dir(), args.run_name),
+                               batch_size=args.batch_size)
+        if code is not None:
+            return code
+    train_noise(args, mesh=mesh)
 
 
 def cmd_unoise_visualize(args):
@@ -526,7 +691,7 @@ def cmd_img_to_numpy(args):
     print(f"converted {n} images")
 
 
-def cmd_cls_train(args):
+def cmd_cls_train(args, mesh=None):
     """ProtoPNet image-classification training (reference main.py:107-189
     over ImageFolder datasets, settings.py:14-17 environment)."""
     from adlm_tpu_torch.core.config import PPNetConfig
@@ -535,9 +700,13 @@ def cmd_cls_train(args):
     from adlm_tpu_torch.train.classification import ClassificationConfig
     from adlm_tpu_torch.train.classification_pipeline import run_classification_training
 
-    if args.mesh_data:
-        raise SystemExit("--mesh-data is not ported yet (ROADMAP.md Queue 1 item 9)")
-    dev = resolve_device(args.device)
+    if mesh is None:
+        mesh, code = _mesh_for(args, _results_dir(args.run_name),
+                               batch_size=args.batch_size)
+        if code is not None:
+            return code
+    dev = mesh.device if mesh is not None else resolve_device(args.device)
+    shard = None if mesh is None else (mesh.data_index, mesh.data)
     train_dir = args.train_dir or os.environ.get("TRAIN_DIR")
     test_dir = args.test_dir or os.environ.get("TEST_DIR")
     push_dir = args.push_dir or os.environ.get("TRAIN_PUSH_DIR") or train_dir
@@ -558,13 +727,15 @@ def cmd_cls_train(args):
         compute_dtype="bfloat16" if args.bf16 else "float32")
     run_classification_training(
         cfg, _results_dir(args.run_name),
-        train_batches=lambda: train_ds.batches(args.batch_size, shuffle=True, seed=0),
+        train_batches=lambda: train_ds.batches(args.batch_size, shuffle=True, seed=0,
+                                               shard=shard),
         test_batches=lambda: test_ds.batches(args.test_batch_size, with_count=True),
         push_batches=lambda: push_ds.batches(args.push_batch_size, with_count=True),
         steps_per_epoch=-(-len(train_ds) // args.batch_size),
         target_accuracy=args.target_accuracy,
         last_layer_iterations=args.last_layer_iterations,
-        push_every=args.push_every, pretrained_path=args.pretrained, device=dev)
+        push_every=args.push_every, pretrained_path=args.pretrained, device=dev,
+        mesh=mesh)
 
 
 def cmd_cls_prune(args):
@@ -979,7 +1150,23 @@ def _add_device(p) -> None:
                         "the kernels' plain PyTorch versions)")
 
 
-def main(argv=None):
+def _add_mesh(p, model: bool = True, distributed: bool = False,
+              data_help: str = "data-parallel mesh axis size (0 = single device)") -> None:
+    p.add_argument("--mesh-data", type=int, default=0, help=data_help)
+    if model:
+        p.add_argument("--mesh-model", type=int, default=1,
+                       help="model mesh axis size: ranks that share a data "
+                            "coordinate take the same batch slice (on eval, "
+                            "> 1 is spatial sharding, not ported yet: "
+                            "ROADMAP.md Queue 1 item 9b)")
+    if distributed:
+        p.add_argument("--distributed", action="store_true",
+                       help="join the world torchrun describes (RANK, "
+                            "WORLD_SIZE, LOCAL_RANK, MASTER_ADDR/PORT) "
+                            "instead of starting local ranks")
+
+
+def _parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="adlm_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
 
@@ -1062,6 +1249,7 @@ def main(argv=None):
     tp.add_argument("--val-augment", action="store_true",
                     help="apply the training augment to validation too, "
                          "as the reference does (dataset.py:119-173)")
+    _add_mesh(tp, distributed=True)
     _add_device(tp)
     tp.set_defaults(fn=cmd_train)
 
@@ -1086,6 +1274,8 @@ def main(argv=None):
                                  "(eval_valid.py:172-214)")
             ep.add_argument("--examples", type=int, default=5,
                             help="qualitative overlay examples (0 = off)")
+        _add_mesh(ep, data_help="shard the eval batch over a data-parallel mesh "
+                                "axis (0 = single device; batch must divide evenly)")
         ep.add_argument("--windowed", default=None, metavar="WH,WW",
                         help="sliding-window inference with the given "
                              "window size instead of whole-image "
@@ -1131,6 +1321,8 @@ def main(argv=None):
             up.add_argument("--min-scale", type=float, default=1.0)
             up.add_argument("--max-scale", type=float, default=5.0)
             up.add_argument("--noise-coeff", type=float, default=0.001)
+        _add_mesh(up, model=False, data_help="data-parallel mesh axis size (0 = single "
+                                             "device); batch must be divisible by it")
         _add_device(up)
         up.set_defaults(fn=fn)
 
@@ -1192,8 +1384,8 @@ def main(argv=None):
     cp.add_argument("--pretrained", default=None,
                     help="torchvision .pth state_dict (or .npz) with ImageNet stem weights")
     _add_bf16(cp, "train forward and backward (push and eval stay f32)")
-    cp.add_argument("--mesh-data", type=int, default=0,
-                    help="not ported yet (ROADMAP.md Queue 1 item 9)")
+    _add_mesh(cp, model=False, data_help="data-parallel mesh axis size for the "
+                                          "train steps (0 = single device)")
     _add_device(cp)
     cp.set_defaults(fn=cmd_cls_train)
 
@@ -1368,8 +1560,12 @@ def main(argv=None):
     _add_device(gp)
     gp.set_defaults(fn=cmd_gen_image_list)
 
+    return p
+
+
+def main(argv=None):
     raw = list(sys.argv[1:] if argv is None else argv)
-    args = p.parse_args(raw)
+    args = _parser().parse_args(raw)
     args._argv = raw  # the --auto-restart supervisor re-runs these
     return args.fn(args)
 

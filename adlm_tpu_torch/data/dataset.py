@@ -260,7 +260,8 @@ class SegmentationDataset:
             yield img[None], lab[None]
 
     def eval_batches(self, batch_size: int, pad_final: bool = True,
-                     with_counts: bool = False, raw: bool = False
+                     with_counts: bool = False, raw: bool = False,
+                     shard: Optional[Tuple[int, int]] = None
                      ) -> Iterator[Tuple[np.ndarray, ...]]:
         """Full-res eval batches; flushes early when image shapes differ
         (Cityscapes is uniform; PASCAL varies per image).
@@ -271,7 +272,16 @@ class SegmentationDataset:
         labels, n_real) triples: the padded tail images MUST be excluded
         from statistics that don't go through the void-label mask (e.g.
         nearest-prototype counts).
+
+        ``shard=(k, n)``: data rank k of n loads and yields only its
+        slice (``batch_size/n`` images) of every padded batch, with the
+        global batch's ``n_real``.  Batches are then cut by position, not
+        by shape: the dataset must have one image shape (Cityscapes
+        does), and a slice of mixed shapes raises.
         """
+        if shard is not None:
+            yield from self._sharded_eval_batches(batch_size, with_counts, raw, shard)
+            return
         imgs: list = []
         labs: list = []
 
@@ -299,3 +309,26 @@ class SegmentationDataset:
                 yield flush()
         if imgs:
             yield flush()
+
+    def _sharded_eval_batches(self, batch_size: int, with_counts: bool,
+                              raw: bool, shard: Tuple[int, int]
+                              ) -> Iterator[Tuple[np.ndarray, ...]]:
+        k, n = shard
+        if batch_size % n:
+            raise ValueError(f"batch {batch_size} does not divide over {n} data ranks")
+        lb = batch_size // n
+        get = self.get_eval_item_raw if raw else self.get_eval_item
+        for start in range(0, len(self), batch_size):
+            n_real = min(batch_size, len(self) - start)
+            idxs = range(start + k * lb, start + (k + 1) * lb)
+            items = [get(i) for i in idxs if i < len(self)]
+            if not items:
+                # an all-padding slice takes its shape from the batch's first image
+                items = [get(start)]
+                items = [(np.zeros_like(items[0][0]), np.zeros_like(items[0][1]))]
+            if len({im.shape for im, _ in items}) > 1:
+                raise ValueError("sharded eval batches need one image shape")
+            while len(items) < lb:
+                items.append((np.zeros_like(items[0][0]), np.zeros_like(items[0][1])))
+            out = (np.stack([im for im, _ in items]), np.stack([lb_ for _, lb_ in items]))
+            yield out + (n_real,) if with_counts else out

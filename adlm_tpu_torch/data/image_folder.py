@@ -33,7 +33,7 @@ import os
 import struct
 import zlib
 from concurrent.futures import ThreadPoolExecutor
-from typing import Iterator, List, Tuple
+from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
 
@@ -252,14 +252,24 @@ class ImageFolderDataset:
         return x, label
 
     def batches(self, batch_size: int, shuffle: bool = False,
-                seed: int = 0, with_count: bool = False) -> Iterator:
+                seed: int = 0, with_count: bool = False,
+                shard: Optional[Tuple[int, int]] = None) -> Iterator:
         """(B, S, S, 3) float32 / (B,) int32 batches.  The final partial
         batch wraps around to the start, so every batch has one shape.
 
         ``with_count=True`` yields ``(images, labels, n_valid)`` triples,
         ``n_valid < batch_size`` marking the wrapped tail batch: eval,
         k-nearest and push use it so that no wrapped image counts
-        twice."""
+        twice.
+
+        ``shard=(k, n)``: data rank k of n loads only its ``batch_size/n``
+        rows of each batch (the wrapped tail included), with the global
+        batch's ``n_valid``."""
+        if shard is not None and batch_size % shard[1]:
+            raise ValueError(f"batch {batch_size} does not divide over {shard[1]} data ranks")
+        rows = (range(batch_size) if shard is None else
+                range(shard[0] * (batch_size // shard[1]),
+                      (shard[0] + 1) * (batch_size // shard[1])))
         order = np.arange(len(self))
         if shuffle:
             np.random.RandomState(seed).shuffle(order)
@@ -269,7 +279,7 @@ class ImageFolderDataset:
         with ThreadPoolExecutor(min(8, os.cpu_count() or 1)) as pool:
             for b in range(n_batches):
                 idxs = [int(order[(b * batch_size + j) % len(self)])
-                        for j in range(batch_size)]
+                        for j in rows]
                 items = list(pool.map(self.load, idxs))
                 out = (np.stack([im for im, _ in items]),
                        np.asarray([lb for _, lb in items], np.int32))

@@ -246,10 +246,25 @@ def sample_seed(seed: int, counter: int) -> int:
     return (seed + 1) * (1 << 40) + counter
 
 
+def shard_positions(iter_size: int, batch_size: int,
+                    shard: Optional[Tuple[int, int]]) -> list:
+    """The positions in a window's (iter_size·batch_size) sample order
+    that data rank ``k`` of ``n`` (``shard=(k, n)``) loads: the k-th of n
+    equal slices of every microbatch (all positions without a shard)."""
+    if shard is None:
+        return list(range(iter_size * batch_size))
+    k, n = shard
+    if batch_size % n:
+        raise ValueError(f"batch {batch_size} does not divide over {n} data ranks")
+    lb = batch_size // n
+    return [i * batch_size + k * lb + j for i in range(iter_size) for j in range(lb)]
+
+
 def superbatch_iterator(dataset: SegmentationDataset, iter_size: int,
                         batch_size: int, steps: int,
                         seed: int = 0, n_jobs: int = 1,
-                        start_window: int = 0, mode: str = "thread"
+                        start_window: int = 0, mode: str = "thread",
+                        shard: Optional[Tuple[int, int]] = None
                         ) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
     """Yields windows ``start_window .. steps-1`` of
     (iter_size, batch_size, H, W, 3) f32 / (iter_size, batch_size, H, W)
@@ -268,11 +283,19 @@ def superbatch_iterator(dataset: SegmentationDataset, iter_size: int,
     from ``random.Random(sample_seed(seed, counter))``.  So every mode
     yields the same windows, bit for bit, and ``start_window > 0``
     reproduces EXACTLY the windows a fresh run would have produced, by
-    fast-forwarding the index stream without touching the data."""
+    fast-forwarding the index stream without touching the data.
+
+    ``shard=(k, n)``: data rank k of n loads only its slice of every
+    microbatch, (iter_size, batch_size/n, ...) windows, drawn with the
+    global stream's indices and seeds, so that the ranks' slices,
+    concatenated in rank order along the batch axis, are the
+    single-process windows bit for bit."""
     rng = np.random.RandomState(seed)
     order = rng.permutation(len(dataset))
     pos = 0
     per_window = iter_size * batch_size
+    mine = shard_positions(iter_size, batch_size, shard)
+    local_bs = len(mine) // iter_size
     counter = 0
 
     def next_index() -> int:
@@ -297,7 +320,7 @@ def superbatch_iterator(dataset: SegmentationDataset, iter_size: int,
         # shared-memory return path: one slot per window sample; the
         # worker ships a slot INDEX instead of a ~3.2 MB pickle
         wh, ww = dataset.cfg.window_size
-        ring = _ShmRing(per_window, (wh, ww, 3), (wh, ww))
+        ring = _ShmRing(len(mine), (wh, ww, 3), (wh, ww))
         pool = ProcessPoolExecutor(
             max_workers=n_jobs,
             mp_context=multiprocessing.get_context("spawn"),
@@ -319,16 +342,16 @@ def superbatch_iterator(dataset: SegmentationDataset, iter_size: int,
         for _ in range(start_window, steps):
             base = counter
             idxs = [next_index() for _ in range(per_window)]
-            seeds = [sample_seed(seed, base + j)
-                     for j in range(per_window)]
+            idxs = [idxs[j] for j in mine]
+            seeds = [sample_seed(seed, base + j) for j in mine]
             items = get_items(idxs, seeds)
             if ring is not None:
                 # the map() is drained, so every slot is quiescent: one
                 # copy per sample out of its slot; slots are reused next
                 # window
                 wh, ww = ring.img_shape[:2]
-                img_arr = np.empty((per_window, wh, ww, 3), np.float32)
-                lab_arr = np.empty((per_window, wh, ww), np.int32)
+                img_arr = np.empty((len(mine), wh, ww, 3), np.float32)
+                lab_arr = np.empty((len(mine), wh, ww), np.int32)
                 for j, it in enumerate(items):
                     if isinstance(it, tuple):  # pragma: no cover
                         img_arr[j], lab_arr[j] = it[0], it[1]
@@ -336,15 +359,14 @@ def superbatch_iterator(dataset: SegmentationDataset, iter_size: int,
                         iv, lv = ring.views(it)
                         img_arr[j] = iv
                         lab_arr[j] = lv
-                yield (img_arr.reshape(iter_size, batch_size, wh, ww, 3),
-                       lab_arr.reshape(iter_size, batch_size, wh, ww))
+                yield (img_arr.reshape(iter_size, local_bs, wh, ww, 3),
+                       lab_arr.reshape(iter_size, local_bs, wh, ww))
                 continue
             images = [im for im, _ in items]
             labels = [lb for _, lb in items]
             h, w = images[0].shape[:2]
-            img_arr = np.stack(images).reshape(iter_size, batch_size,
-                                               h, w, 3)
-            lab_arr = np.stack(labels).reshape(iter_size, batch_size, h, w)
+            img_arr = np.stack(images).reshape(iter_size, local_bs, h, w, 3)
+            lab_arr = np.stack(labels).reshape(iter_size, local_bs, h, w)
             yield img_arr, lab_arr
     finally:
         if pool is not None:

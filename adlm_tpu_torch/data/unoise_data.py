@@ -97,15 +97,24 @@ def split_datasets(images: np.ndarray, masks: np.ndarray,
 
 
 def batches(ds: UNoiseDataset, batch_size: int, shuffle: bool = False,
-            seed: int = 0, drop_last: bool = False, n_jobs: int = 1
+            seed: int = 0, drop_last: bool = False, n_jobs: int = 1,
+            shard: Optional[Tuple[int, int]] = None
             ) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
     """``n_jobs`` > 1 loads samples through a thread pool — the native
     warp/remap calls release the GIL, so the geometric augmentations
     parallelize across cores (the reference relies on torch DataLoader
-    workers, src/train_util.py:30-36)."""
+    workers, src/train_util.py:30-36).
+
+    ``shard=(k, n)``: data rank k of n loads only its ``batch_size/n``
+    rows of each batch, with the per-item seeds of the ``n_jobs`` > 1
+    stream (whatever ``n_jobs``), so that the ranks' slices concatenated
+    in rank order are that stream's batches bit for bit.  A sharded
+    stream needs equal slices: use it with ``drop_last``."""
     order = np.arange(len(ds))
     if shuffle:
         np.random.RandomState(seed).shuffle(order)
+    if shard is not None and batch_size % shard[1]:
+        raise ValueError(f"batch {batch_size} does not divide over {shard[1]} data ranks")
     pool = ThreadPoolExecutor(max_workers=n_jobs) if n_jobs > 1 else None
     seeder = np.random.RandomState(seed ^ 0x5EED)
     try:
@@ -113,13 +122,16 @@ def batches(ds: UNoiseDataset, batch_size: int, shuffle: bool = False,
             idx = order[i:i + batch_size]
             if drop_last and len(idx) < batch_size:
                 return
-            if pool is not None:
+            if pool is not None or shard is not None:
                 # per-item RNGs: RandomState is not thread-safe
                 seeds = seeder.randint(0, 2 ** 31, size=len(idx))
-                items = list(pool.map(
-                    lambda t: ds.load(int(t[0]),
-                                      np.random.RandomState(int(t[1]))),
-                    zip(idx, seeds)))
+                if shard is not None:
+                    lb = batch_size // shard[1]
+                    rows = slice(shard[0] * lb, (shard[0] + 1) * lb)
+                    idx, seeds = idx[rows], seeds[rows]
+                load = (lambda t: ds.load(int(t[0]), np.random.RandomState(int(t[1]))))
+                items = list(pool.map(load, zip(idx, seeds)) if pool is not None
+                             else map(load, zip(idx, seeds)))
             else:
                 items = [ds[int(j)] for j in idx]
             yield (np.stack([x for x, _ in items]),

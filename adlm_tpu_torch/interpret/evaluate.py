@@ -268,17 +268,35 @@ class SegEvaluator:
     ``ProtoStatsAccumulator.update_counts``).  The random sample pixels
     are drawn on the host per image from a seeded ``RandomState``, in
     the JAX package's order, so both packages sample the same pixels.
+
+    With a ``mesh`` (``core/mesh.py``) the batch is split over the data
+    ranks: ``update`` takes this rank's slice of a global batch (as
+    ``SegmentationDataset.eval_batches(shard=...)`` yields it), draws the
+    sample pixels at the global batch's shape and takes its rows, sums
+    the counters over the ranks (int64, exact) and returns the global
+    batch's ``agree_counts``/``topk_purity`` rows on every rank (each
+    rank fills its own rows of a zero buffer); ``pred`` stays the
+    rank's own.  ``n_valid`` (the global batch's real images) lets a
+    rank whose slice is all padding skip its forward, and zeroes the
+    statistic rows of padding.  Spatial sharding (``mesh.model`` > 1)
+    is ROADMAP item 9b and raises.
     """
 
     def __init__(self, model: nn.Module, num_classes: int,
                  with_stats: bool = False, stats_upsampled: bool = False,
                  n_random_pixels: int = 100, seed: int = 0,
                  normalize: MeanStd = None, stats_exact: bool = False,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, mesh=None):
+        if mesh is not None and mesh.model > 1:
+            raise NotImplementedError(
+                "spatial eval (--mesh-model > 1, image H sharded over the model "
+                "axis) is not ported yet (ROADMAP.md Queue 1 item 9b)")
         self.num_classes = num_classes
+        self.mesh = mesh
         self.fn = make_inference_fn(model, num_classes, with_stats,
                                     stats_upsampled, normalize=normalize,
-                                    stats_exact=stats_exact, device=device)
+                                    stats_exact=stats_exact,
+                                    device=mesh.device if mesh is not None else device)
         self.with_stats = with_stats
         self.n_random = n_random_pixels
         self.rng = np.random.RandomState(seed)
@@ -290,17 +308,54 @@ class SegEvaluator:
         self.correct = 0
         self.total = 0
 
-    def update(self, proto_class, images, labels) -> Dict[str, Any]:
+    def update(self, proto_class, images, labels,
+               n_valid: Optional[int] = None) -> Dict[str, Any]:
+        mesh = self.mesh
+        b = images.shape[0]
+        B = b if mesh is None else b * mesh.data
         args = ()
         if self.with_stats:
-            B = images.shape[0]
             args = (self.rng.random_sample((B, self.n_random)).astype(np.float32),
                     self.rng.random_sample((B, self.n_random)).astype(np.float32))
-        out = self.fn(proto_class, images, labels, *args)
+            if mesh is not None:
+                args = tuple(a[mesh.batch_slice(B)] for a in args)
+        if mesh is None:
+            out = self.fn(proto_class, images, labels, *args)
+        else:
+            out = self._sharded_update(proto_class, images, labels, args,
+                                       b if n_valid is None else mesh.share(n_valid, b))
         self.intersection += out["intersection"].cpu().numpy()
         self.union += out["union"].cpu().numpy()
         self.correct += int(out["correct"])
         self.total += int(out["total"])
+        return out
+
+    def _sharded_update(self, proto_class, images, labels, args, share: int):
+        mesh, K = self.mesh, self.num_classes
+        dev = mesh.device
+        if share > 0:
+            out = self.fn(proto_class, images, labels, *args)
+        else:
+            # all padding: nothing to count, no forward
+            out = {"intersection": torch.zeros(K, dtype=torch.long, device=dev),
+                   "union": torch.zeros(K, dtype=torch.long, device=dev),
+                   "correct": torch.zeros((), dtype=torch.long, device=dev),
+                   "total": torch.zeros((), dtype=torch.long, device=dev)}
+        counts = torch.cat([out["intersection"].long(), out["union"].long(),
+                            out["correct"].long().reshape(1),
+                            out["total"].long().reshape(1)])
+        mesh.all_reduce_(counts)
+        out.update(intersection=counts[:K], union=counts[K:2 * K],
+                   correct=counts[2 * K], total=counts[2 * K + 1])
+        if self.with_stats:
+            P = int(torch.as_tensor(proto_class).shape[0])
+            b = images.shape[0]
+            for key, dt in (("agree_counts", torch.int32), ("topk_purity", _F32)):
+                local = out.get(key)
+                rows = torch.zeros((b, P), dtype=dt, device=dev)
+                if local is not None:
+                    rows[:share] = local[:share]
+                out[key] = mesh.gather_rows(rows)
         return out
 
     def results(self) -> Dict[str, Any]:

@@ -160,9 +160,25 @@ def make_push_batch_fn(model: nn.Module, num_classes: int,
     return fn
 
 
+def _reduce_winners(mesh, outs, hw: Tuple[int, int], b: int):
+    """The batch winners of a batch split over ``mesh``'s data ranks from
+    each rank's own: the lexicographic (distance, global flat index)
+    minimum over the ranks, the global index being B-major over the
+    global batch, so a tie goes to the earliest image as in one
+    device's argmin; the winner's features are summed in with zeros on
+    the other ranks.  Every rank ends with the same winners."""
+    mind, bi, pi, pj, fmap = outs
+    h, w = hw
+    gidx = ((mesh.data_index * b + bi) * (h * w) + pi * w + pj).long()
+    mind, win = mesh.lexmin(mind, gidx)
+    fmap = torch.where((gidx == win)[:, None], fmap, torch.zeros_like(fmap))
+    mesh.all_reduce_(fmap)
+    return mind, win // (h * w), (win % (h * w)) // w, win % w, fmap
+
+
 def make_push_batched_fn(model: nn.Module, num_classes: int,
                          normalize: Optional[Tuple] = None,
-                         device: DeviceLike = None) -> Callable:
+                         device: DeviceLike = None, mesh=None) -> Callable:
     """Batched push step, on ``device`` (default the card):
     ``fn(proto_class, images (B,H,W,3), labels (B,H,W))`` → per-prototype
     batch winner (min_dist (P,), img_in_batch (P,), patch_i, patch_j,
@@ -173,11 +189,20 @@ def make_push_batched_fn(model: nn.Module, num_classes: int,
     ``normalize=(mean, std)`` takes raw uint8 images and normalizes them
     on the device (the reference's push normalizes every image as eval
     does, segmentation/push.py:187).
+
+    With a ``mesh`` the images are this rank's slice of a global batch
+    split over the data ranks, and every rank returns the global batch's
+    winners (``img_in_batch`` its global index).
     """
-    step = _push_step(model, num_classes, _prepare(model, device), normalize)
+    step = _push_step(model, num_classes,
+                      _prepare(model, mesh.device if mesh is not None else device),
+                      normalize)
 
     def fn(proto_class, images, labels):
-        return step(proto_class, images, labels)[0]
+        outs, hw, _ = step(proto_class, images, labels)
+        if mesh is None:
+            return outs
+        return _reduce_winners(mesh, outs, hw, images.shape[0])
 
     return fn
 
@@ -206,6 +231,7 @@ def push_prototypes(
     raw_uint8: bool = False,
     raw_normalize: Optional[Tuple] = None,
     device: DeviceLike = None,
+    mesh=None,
 ) -> Tuple[StateDict, torch.Tensor, Dict[str, Any]]:
     """Project each prototype of ``model`` (a PPNet) onto its nearest
     training patch, on ``device`` (default the card; the model moves
@@ -225,6 +251,14 @@ def push_prototypes(
       raw_uint8: ``dataset`` yields RAW uint8 images, normalized on the
         device with ``raw_normalize=(mean, std)`` (required).  Batched
         path only, without visualizations.
+      mesh: the batched push split over ``mesh``'s data ranks
+        (``core/mesh.py``): ``dataset`` then yields this rank's slices
+        (images, labels, n_real) of the padded global batches of
+        ``batch_size`` (``SegmentationDataset.eval_batches(shard=...)``),
+        the winners are reduced across the ranks (earliest global index
+        on a tie) and every rank returns the same prototypes.  The
+        first rank alone renders the visualizations and writes the
+        files.
 
     Returns:
       (state_dict, proto_class, info).  The state dict holds P′ ≤ P
@@ -267,6 +301,14 @@ def push_prototypes(
             activation=model.cfg.prototype_activation,
             epsilon=model.cfg.epsilon)
 
+    if mesh is not None:
+        if batch_size <= 1 or batch_size % mesh.data:
+            raise ValueError(f"a sharded push needs a batch divisible by the "
+                             f"{mesh.data} data ranks; got {batch_size}")
+        if not mesh.is_main:
+            save_visualizations, run_dir = False, None
+            log = lambda msg: None  # noqa: E731
+
     if batch_size > 1:
         if save_visualizations and (get_item is None or run_dir is None):
             raise ValueError("batched push visualizations need "
@@ -290,11 +332,22 @@ def push_prototypes(
                                *_rf_box(pi[j], pj[j], patch_h, patch_w), pc_host[j]]
                 bound_boxes[j] = rf_boxes[j]
 
-        # a partial batch is padded with all-void (ineligible) images, so
-        # every call has the (batch_size, H, W) shape
-        pipelined_batches(batch, dataset, batch_size,
-                          lambda im, lab: (np.zeros_like(im), np.zeros_like(lab)),
-                          merge)
+        if mesh is None:
+            # a partial batch is padded with all-void (ineligible) images,
+            # so every call has the (batch_size, H, W) shape
+            pipelined_batches(batch, dataset, batch_size,
+                              lambda im, lab: (np.zeros_like(im), np.zeros_like(lab)),
+                              merge)
+        else:
+            off = 0
+            for images, labels, n_real in dataset:
+                outs, hw, _ = step(proto_class, images, labels)
+                outs = _reduce_winners(mesh, outs, hw, images.shape[0])
+                arrays = [o.float().cpu().numpy() if o.is_floating_point()
+                          else o.cpu().numpy() for o in outs]
+                merge(arrays, (labels.shape[1] / hw[0], labels.shape[2] / hw[1]),
+                      off, n_real)
+                off += n_real
 
         if save_visualizations:
             # second pass: re-forward only the winner images (≤P) to

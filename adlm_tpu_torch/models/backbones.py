@@ -51,13 +51,19 @@ class FlaxBatchNorm(nn.Module):
       to the input's dtype.
 
     The gradient flows through the batch statistics, as under
-    ``jax.grad``.  Eval mode normalizes with the running statistics."""
+    ``jax.grad``.  Eval mode normalizes with the running statistics.
+
+    ``stats_reduce`` (``parallel/sharding.py::set_batch_norm_reduce``), a
+    differentiable SUM over the data-parallel ranks, makes the batch
+    statistics those of the global batch: Σx, Σx² and the count are
+    summed over the ranks and the same formulas follow."""
 
     def __init__(self, num_features: int, momentum: float = 0.9,
                  eps: float = 1e-5):
         super().__init__()
         self.momentum = momentum
         self.eps = eps
+        self.stats_reduce = None
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
@@ -67,8 +73,12 @@ class FlaxBatchNorm(nn.Module):
         dt = torch.promote_types(x.dtype, torch.float32)
         xf = x.to(dt)
         if self.training:
-            mean = xf.mean((0, 2, 3))
-            var = torch.clamp((xf * xf).mean((0, 2, 3)) - mean * mean, min=0.0)
+            if self.stats_reduce is None:
+                mean = xf.mean((0, 2, 3))
+                msq = (xf * xf).mean((0, 2, 3))
+            else:
+                mean, msq, _ = global_moments(xf, self.stats_reduce)
+            var = torch.clamp(msq - mean * mean, min=0.0)
             with torch.no_grad():
                 m = self.momentum
                 for ra, batch in ((self.running_mean, mean), (self.running_var, var)):
@@ -78,6 +88,17 @@ class FlaxBatchNorm(nn.Module):
         mul = torch.rsqrt(var + self.eps) * self.weight.to(dt)
         y = (xf - mean[:, None, None]) * mul[:, None, None] + self.bias.to(dt)[:, None, None]
         return y.to(x.dtype)
+
+
+def global_moments(xf: torch.Tensor, reduce) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(E[x], E[x²], n) per channel of an NCHW batch over the ranks that
+    ``reduce`` (a differentiable SUM of a tensor) spans: one reduction of
+    [Σx, Σx², n]."""
+    C = xf.shape[1]
+    n = xf.new_full((1,), float(xf.numel() // C))
+    tot = reduce(torch.cat([xf.sum((0, 2, 3)), (xf * xf).sum((0, 2, 3)), n]))
+    n = tot[2 * C]
+    return tot[:C] / n, tot[C:2 * C] / n, n.detach()
 
 
 def reset_stem(module: nn.Module, generator: Optional[torch.Generator]) -> None:

@@ -48,12 +48,21 @@ class UNetBatchNorm(nn.Module):
     The affine parameters enter as f32 (f64 for an f64 input) whatever
     their own dtype: a bf16 forward (parameters cast to bf16 by the
     caller) normalizes with the bf16-rounded scale and bias, in f32, as
-    the JAX package does."""
+    the JAX package does.
+
+    With ``stats_reduce`` (a differentiable SUM over the data-parallel
+    ranks, ``parallel/sharding.py::set_batch_norm_reduce``) the training
+    statistics are the global batch's: from Σx, Σx² and the count summed
+    over the ranks, the one-pass biased variance ``max(E[x²]−E[x]², 0)``
+    normalizes and ``·n/(n−1)`` of it, n the global count, enters the
+    running variance (the JAX package's formulas).  Without it the
+    module calls ``F.batch_norm``, as on one device."""
 
     def __init__(self, num_features: int, momentum: float = 0.1, eps: float = 1e-5):
         super().__init__()
         self.momentum = momentum
         self.eps = eps
+        self.stats_reduce = None
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
@@ -61,6 +70,20 @@ class UNetBatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = torch.promote_types(x.dtype, torch.float32)
+        if self.training and self.stats_reduce is not None:
+            from adlm_tpu_torch.models.backbones import global_moments
+
+            xf = x.to(dt)
+            mean, msq, n = global_moments(xf, self.stats_reduce)
+            var = torch.clamp(msq - mean * mean, min=0.0)
+            with torch.no_grad():
+                m = self.momentum
+                unbiased = var * (n / torch.clamp(n - 1, min=1))
+                self.running_mean.copy_((1.0 - m) * self.running_mean + m * mean)
+                self.running_var.copy_((1.0 - m) * self.running_var + m * unbiased)
+            y = ((xf - mean[:, None, None]) * torch.rsqrt(var + self.eps)[:, None, None]
+                 * self.weight.to(dt)[:, None, None] + self.bias.to(dt)[:, None, None])
+            return y.to(x.dtype)
         return F.batch_norm(x, self.running_mean, self.running_var,
                             self.weight.to(dt), self.bias.to(dt),
                             self.training, self.momentum, self.eps)

@@ -94,33 +94,45 @@ class ClassifierState:
 def classification_loss(logits: torch.Tensor, min_distances: torch.Tensor,
                         labels: torch.Tensor, proto_class: torch.Tensor,
                         last_layer_weight: torch.Tensor,
-                        cfg: ClassificationConfig, class_specific: bool = True
+                        cfg: ClassificationConfig, class_specific: bool = True,
+                        n_total: Optional[int] = None, l1_weight: Optional[float] = None
                         ) -> Tuple[torch.Tensor, Metrics]:
     """CE + cluster + separation + masked L1 over min-pooled distances
     (reference train_and_test.py:37-99).  ``last_layer_weight`` is
-    (P, K), the JAX package's layout.  f32, or f64 for f64 logits."""
+    (P, K), the JAX package's layout.  f32, or f64 for f64 logits.
+
+    ``n_total``: the batch means divide this rank's sums by the global
+    batch size instead (a data-parallel rank's share); ``l1_weight``
+    replaces ``cfg.coef_l1`` in the loss (0 on all data ranks but the
+    first, which adds the parameter term once)."""
     logits = logits.to(torch.promote_types(logits.dtype, torch.float32))
     labels = labels.long()
-    ce = F.cross_entropy(logits, labels)
+
+    def mean(v):
+        return v.mean() if n_total is None else v.sum() / n_total
+
+    ce = (F.cross_entropy(logits, labels) if n_total is None
+          else F.cross_entropy(logits, labels, reduction="sum") / n_total)
     max_dist = float(cfg.model.prototype_channels)  # P_ch * 1 * 1
 
     correct = (proto_class[None, :] == labels[:, None]).to(torch.float32)
     inv_correct = ((max_dist - min_distances) * correct).amax(dim=1)
-    cluster = (max_dist - inv_correct).mean()
+    cluster = mean(max_dist - inv_correct)
 
     wrong = 1.0 - correct
     inv_wrong = ((max_dist - min_distances) * wrong).amax(dim=1)
-    separation = (max_dist - inv_wrong).mean()
-    avg_separation = ((min_distances * wrong).sum(1)
-                      / wrong.sum(1).clamp_min(1.0)).mean()
+    separation = mean(max_dist - inv_wrong)
+    avg_separation = mean((min_distances * wrong).sum(1)
+                          / wrong.sum(1).clamp_min(1.0))
 
     l1 = masked_l1(last_layer_weight, proto_class)
+    coef_l1 = cfg.coef_l1 if l1_weight is None else l1_weight
     if class_specific:
         loss = (cfg.coef_crs_ent * ce + cfg.coef_clst * cluster
-                + cfg.coef_sep * separation + cfg.coef_l1 * l1)
+                + cfg.coef_sep * separation + coef_l1 * l1)
     else:
-        cluster = min_distances.amin(dim=1).mean()
-        loss = cfg.coef_crs_ent * ce + cfg.coef_clst * cluster + cfg.coef_l1 * l1
+        cluster = mean(min_distances.amin(dim=1))
+        loss = cfg.coef_crs_ent * ce + cfg.coef_clst * cluster + coef_l1 * l1
     n_correct = (logits.argmax(-1) == labels).sum().to(torch.float32)
     return loss, {"cross_entropy": ce, "cluster": cluster,
                   "separation": separation, "avg_separation": avg_separation,
@@ -245,14 +257,25 @@ def _nchw(images, dev: torch.device) -> torch.Tensor:
 
 
 def make_cls_train_step(model: PPNet, cfg: ClassificationConfig, phase: str,
-                        device: DeviceLike = None) -> Callable:
+                        device: DeviceLike = None, mesh=None) -> Callable:
     """``step(state, images, labels) -> (state, metrics)``: one update of
     ``phase`` on a (B, S, S, 3) batch, on ``device`` (default the card).
     Metrics are 0-d tensors on the device (``loss``, the loss terms and
     ``n_correct``); the step's gradients stay in ``.grad``.  ``state``
-    is updated in place and returned."""
-    dev = _prepare(model, device)
+    is updated in place and returned.
+
+    With a ``mesh`` (``parallel/sharding.py::make_sharded_cls_step``) the
+    batch is this rank's slice: the stem's BatchNorms take the global
+    batch's statistics, the means divide by the global batch size, the
+    masked L1 enters on the first data rank only, and one flattened SUM
+    reduces the gradients and the metrics before the update."""
+    dev = _prepare(model, mesh.device if mesh is not None else device)
     bf16 = cfg.compute_dtype == "bfloat16"
+    if mesh is not None:
+        from adlm_tpu_torch.parallel.sharding import set_batch_norm_reduce
+
+        set_batch_norm_reduce(model, mesh)
+    l1_weight = (None if mesh is None or mesh.data_index == 0 else 0.0)
 
     def step(state: ClassifierState, images, labels) -> Tuple[ClassifierState, Metrics]:
         if state.model is not model or state.phase != phase:
@@ -269,16 +292,25 @@ def make_cls_train_step(model: PPNet, cfg: ClassificationConfig, phase: str,
                 logits, min_d = functional_call(model, fwd, (x.to(torch.bfloat16),))
             else:
                 logits, min_d = model(x)
+            n_total = None if mesh is None else y.shape[0] * mesh.data
             loss, metrics = classification_loss(
                 logits, min_d.to(torch.float32), y, state.proto_class,
-                model.last_layer.weight.t(), cfg)
+                model.last_layer.weight.t(), cfg, n_total=n_total,
+                l1_weight=l1_weight)
             state.optimizer.zero_grad(set_to_none=True)
             loss.backward()
+            metrics["loss"] = loss
+            metrics = {k: v.detach() for k, v in metrics.items()}
+            if mesh is not None:
+                keys = [k for k in metrics if k != "l1"]
+                vals = [metrics[k].reshape(1).float() for k in keys]
+                grads = [p.grad for p in model.parameters() if p.grad is not None]
+                mesh.sum_flat_(grads + vals)
+                metrics.update({k: v[0] for k, v in zip(keys, vals)})
             set_lrs(state.optimizer, state.lr_scale, state.step)
             state.optimizer.step()
         state.step += 1
-        metrics["loss"] = loss
-        return state, {k: v.detach() for k, v in metrics.items()}
+        return state, metrics
 
     return step
 

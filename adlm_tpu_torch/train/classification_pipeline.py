@@ -11,6 +11,13 @@ package's keys), ``logs/classification.log`` with its lines and
 ``logs/classification_metrics.csv`` with its columns; the checkpoints
 are the port's ``state.pt`` payloads (``{"state_dict", "proto_class",
 "step"}``).
+
+With a ``mesh`` (``--mesh-data``) the train steps are data-parallel
+(``parallel/sharding.py::make_sharded_cls_step``): ``train_batches``
+then yields this rank's rows of each batch (``ImageFolderDataset.batches(
+shard=...)``), test and push batches run whole on every rank, the first
+rank's accuracy decides each save and its pushed prototypes go to every
+rank, and the first rank writes the checkpoints and logs.
 """
 
 from __future__ import annotations
@@ -42,17 +49,19 @@ from adlm_tpu_torch.utils.logging import RunLogger
 BatchIter = Callable[[], Iterable[Tuple[np.ndarray, np.ndarray]]]
 
 
-def run_epoch(step_fn, state: ClassifierState, batches) -> Tuple[ClassifierState, float]:
+def run_epoch(step_fn, state: ClassifierState, batches,
+              n_ranks: int = 1) -> Tuple[ClassifierState, float]:
     """One pass of ``step_fn`` over ``batches``: (state, train accuracy
     over every image stepped, wrapped ones included, as the JAX run
-    counts)."""
+    counts).  ``n_ranks``: each batch is one of that many data ranks'
+    equal slices (the step's ``n_correct`` is the global batch's)."""
     n_correct = torch.zeros((), device=state.proto_class.device)
     n_total = 0
     for batch in batches:
         images, labels = batch[0], batch[1]
         state, m = step_fn(state, images, labels)
         n_correct += m["n_correct"]
-        n_total += images.shape[0]
+        n_total += images.shape[0] * n_ranks
     return state, float(n_correct) / max(n_total, 1)
 
 
@@ -118,17 +127,31 @@ def run_classification_training(
     pretrained_path: Optional[str] = None,
     device: DeviceLike = None,
     seed: int = 0,
+    mesh=None,
 ) -> ClassifierState:
     """The classifier's training run on ``device`` (default the card;
     without one it raises before it writes anything).  The model starts
     from the port's initializers drawn from ``seed``.  ``steps_per_epoch``
     (the StepLR's epoch in updates) defaults to the count of
-    ``train_batches()``."""
-    dev = resolve_device(device)
-    logger = RunLogger(run_dir, "classification")
-    store = CheckpointStore(run_dir)
+    ``train_batches()``.  ``mesh``: data-parallel train steps (see the
+    module's docstring)."""
+    dev = resolve_device(mesh.device if mesh is not None else device)
+    if mesh is None:
+        logger = RunLogger(run_dir, "classification")
+        store = CheckpointStore(run_dir)
+    else:
+        from adlm_tpu_torch.parallel.sharding import (
+            RankStore,
+            make_sharded_cls_step,
+            rank_logger,
+            shard_state,
+        )
+
+        logger = rank_logger(mesh, lambda: RunLogger(run_dir, "classification"))
+        store = RankStore(CheckpointStore(run_dir), mesh)
     push_batches = push_batches or train_batches
-    save_cls_config(run_dir, cfg)
+    if mesh is None or mesh.is_main:
+        save_cls_config(run_dir, cfg)
     if steps_per_epoch is None:
         steps_per_epoch = max(sum(1 for _ in train_batches()), 1)
 
@@ -136,9 +159,20 @@ def run_classification_training(
     if pretrained_path:
         load_pretrained_stem(model, pretrained_path, cfg.model.base_architecture, logger.log)
     state = init_classifier_state(model, cfg, "warm", steps_per_epoch, device=dev)
-    steps = {phase: make_cls_train_step(model, cfg, phase, device=dev)
-             for phase in ("warm", "joint", "last")}
+    if mesh is None:
+        steps = {phase: make_cls_train_step(model, cfg, phase, device=dev)
+                 for phase in ("warm", "joint", "last")}
+        n_ranks = 1
+    else:
+        state = shard_state(state, mesh)
+        steps = {phase: make_sharded_cls_step(model, cfg, phase, mesh)
+                 for phase in ("warm", "joint", "last")}
+        n_ranks = mesh.data
     eval_fn = make_cls_eval_step(model, cfg, device=dev)
+
+    def test_accuracy(st) -> float:
+        acc = evaluate(eval_fn, st, test_batches())
+        return acc if mesh is None else float(mesh.broadcast_object(acc))
 
     best = 0.0
     epochs = num_epochs if num_epochs is not None else cfg.num_train_epochs
@@ -151,16 +185,18 @@ def run_classification_training(
                 # a fresh joint optimizer (and StepLR count) at the switch
                 state = init_classifier_state(model, cfg, "joint", steps_per_epoch,
                                               device=dev)
-        state, train_acc = run_epoch(steps[stage], state, train_batches())
-        acc = evaluate(eval_fn, state, test_batches())
+        state, train_acc = run_epoch(steps[stage], state, train_batches(), n_ranks)
+        acc = test_accuracy(state)
         logger.metrics(epoch, stage, "test", {"accuracy": acc, "train_accuracy": train_acc})
         best = save_if_better(store, "nopush", state, acc, best, target_accuracy, logger.log)
 
         if epoch >= cfg.push_start and epoch % push_every == 0:
             logger.log(f"epoch {epoch}: prototype push")
             protos, _ = push_classification_prototypes(state, push_batches(), device=dev)
+            if mesh is not None:
+                mesh.broadcast_([protos])
             set_prototypes(model, protos)
-            acc = evaluate(eval_fn, state, test_batches())
+            acc = test_accuracy(state)
             best = save_if_better(store, "push", state, acc, best, target_accuracy,
                                   logger.log)
             # last-layer convex optimization after each push; the
@@ -168,8 +204,8 @@ def run_classification_training(
             # iteration (main.py:180-189)
             state_l = init_classifier_state(model, cfg, "last", steps_per_epoch, device=dev)
             for it in range(last_layer_iterations):
-                state_l, _ = run_epoch(steps["last"], state_l, train_batches())
-                acc = evaluate(eval_fn, state_l, test_batches())
+                state_l, _ = run_epoch(steps["last"], state_l, train_batches(), n_ranks)
+                acc = test_accuracy(state_l)
                 logger.metrics(epoch, f"push_last_{it}", "test", {"accuracy": acc})
                 best = save_if_better(store, "push", state_l, acc, best, target_accuracy,
                                       logger.log)

@@ -21,6 +21,16 @@ card: ``torch.backends.cudnn.deterministic = True``).
 
 Entry points run on the card unless the caller passes ``device="cpu"``;
 a missing card raises before anything is written.
+
+``mesh=`` (``core/mesh.py``) trains data-parallel, one process per rank:
+each rank loads only its slice of every window and validation batch,
+the steps are ``parallel/sharding.py``'s (global loss denominators, one
+gradient SUM per window), the state is broadcast from the first rank at
+every phase's start, and the first rank alone writes checkpoints,
+``resume.json``, logs, TensorBoard and push artifacts, the others
+waiting at a barrier after each save.  Every decision that ends or
+changes a phase (validation accuracy, early stopping, the non-finite
+guard, ``--halt-after``) reads values that are the same on every rank.
 """
 
 from __future__ import annotations
@@ -131,8 +141,11 @@ def _resume_path(run_dir: str) -> str:
 
 
 def _write_resume(run_dir: str, stage: str, windows_done: int,
-                  n_windows: int, best_acc: float, stale: int) -> None:
-    """Atomic resume marker (written beside every ``last`` save)."""
+                  n_windows: int, best_acc: float, stale: int, mesh=None) -> None:
+    """Atomic resume marker (written beside every ``last`` save; by the
+    first rank of a ``mesh`` only)."""
+    if mesh is not None and not mesh.is_main:
+        return
     meta = {"stage": stage, "windows_done": int(windows_done),
             "n_windows": int(n_windows),
             "completed": windows_done >= n_windows,
@@ -159,16 +172,32 @@ def _run_phase(model, cfg: ExperimentConfig, phase: int, state,
                trace_dir: Optional[str] = None, start_window: int = 0,
                best_acc: float = -1.0, stale: int = 0,
                halt: Optional[Dict[str, int]] = None,
-               device: DeviceLike = None):
+               device: DeviceLike = None, mesh=None):
     from adlm_tpu_torch.data.pipeline import BatchLoader, superbatch_iterator
     from adlm_tpu_torch.train.protoseg import make_eval_step, make_train_step
 
     t = cfg.train
     stage = stage_key or STAGE_BY_PHASE[phase]
-    step_fn = make_train_step(model, cfg, phase, max_steps, device=device)
-    eval_fn = make_eval_step(model, cfg, device=device)
+    shard = None
+    if mesh is not None:
+        from adlm_tpu_torch.parallel.sharding import (
+            make_sharded_train_step,
+            shard_state,
+        )
+
+        if batch_size % mesh.data:
+            raise ValueError(f"{stage}: batch {batch_size} does not divide over "
+                             f"{mesh.data} data ranks")
+        step_fn = make_sharded_train_step(model, cfg, phase, mesh, max_steps)
+        state = shard_state(state, mesh)
+        shard = (mesh.data_index, mesh.data)
+        device = mesh.device
+    else:
+        step_fn = make_train_step(model, cfg, phase, max_steps, device=device)
+    eval_fn = make_eval_step(model, cfg, device=device, mesh=mesh)
     n_windows = max(max_steps // t.iter_size, 1)
-    _write_resume(store.run_dir, stage, start_window, n_windows, best_acc, stale)
+    _write_resume(store.run_dir, stage, start_window, n_windows, best_acc, stale,
+                  mesh)
     if start_window >= n_windows:
         return state
 
@@ -178,7 +207,7 @@ def _run_phase(model, cfg: ExperimentConfig, phase: int, state,
     loader = BatchLoader(superbatch_iterator(
         train_ds, t.iter_size, batch_size, n_windows, seed=t.random_seed,
         n_jobs=cfg.data.dataloader_n_jobs, start_window=start_window,
-        mode=cfg.data.dataloader_mode))
+        mode=cfg.data.dataloader_mode, shard=shard))
     dtypes = ship_dtypes(cfg)
 
     def ship(images, labels):
@@ -192,13 +221,14 @@ def _run_phase(model, cfg: ExperimentConfig, phase: int, state,
             loader, state, step_fn, eval_fn, val_ds, batch_size, val_batches,
             n_windows, val_every, early_stopping_patience, stage, store, logger,
             trace_dir=trace_dir, start_window=start_window, best_acc=best_acc,
-            stale=stale, halt=halt, ship=ship, dtypes=dtypes, device=device)
+            stale=stale, halt=halt, ship=ship, dtypes=dtypes, device=device,
+            mesh=mesh)
     finally:
         loader.close()
     store.save(stage, "last", _ckpt_payload(state))
     # the completed marker carries the phase's final best accuracy and
     # stale count (the JAX package writes the values the phase began with)
-    _write_resume(store.run_dir, stage, n_windows, n_windows, best_acc, stale)
+    _write_resume(store.run_dir, stage, n_windows, n_windows, best_acc, stale, mesh)
     return state
 
 
@@ -207,7 +237,7 @@ def _phase_loop(loader, state, step_fn, eval_fn, val_ds, batch_size,
                 early_stopping_patience, stage, store, logger,
                 trace_dir=None, start_window=0, best_acc=-1.0,
                 stale=0, halt=None, ship: Optional[Callable] = None,
-                dtypes=None, device: DeviceLike = None):
+                dtypes=None, device: DeviceLike = None, mesh=None):
     """The windows of one phase: the loader's host windows through
     ``ship`` (host casts) and ``device_prefetch`` into ``step_fn``, the
     metric log, the non-finite guard, validation with best and last
@@ -228,7 +258,8 @@ def _phase_loop(loader, state, step_fn, eval_fn, val_ds, batch_size,
     for w, (images, labels) in enumerate(windows, start=start_window):
         if meter is None:
             meter = StepMeter(images_per_step=int(np.prod(images.shape[:2])))
-        if trace_dir is not None and w == start_window + 1:
+        if (trace_dir is not None and w == start_window + 1
+                and (mesh is None or mesh.is_main)):
             # profile one steady-state window (the first pays the
             # kernel builds and cuDNN's choices) under <trace_dir>/<stage>/
             with trace(f"{stage}_window", os.path.join(trace_dir, stage)):
@@ -261,7 +292,8 @@ def _phase_loop(loader, state, step_fn, eval_fn, val_ds, batch_size,
                 logger.log(f"{stage}: NON-FINITE loss at validation "
                            f"window {w} — aborting without saving")
                 raise TrainingDiverged(stage)
-            val_metrics = _validate(eval_fn, state, val_ds, batch_size, val_batches)
+            val_metrics = _validate(eval_fn, state, val_ds, batch_size, val_batches,
+                                    mesh)
             logger.metrics(w, stage, "val", val_metrics)
             if val_metrics["accuracy"] > best_acc:
                 best_acc = val_metrics["accuracy"]
@@ -271,7 +303,7 @@ def _phase_loop(loader, state, step_fn, eval_fn, val_ds, batch_size,
             else:
                 stale += 1
             store.save(stage, "last", _ckpt_payload(state))
-            _write_resume(store.run_dir, stage, w + 1, n_windows, best_acc, stale)
+            _write_resume(store.run_dir, stage, w + 1, n_windows, best_acc, stale, mesh)
             if (early_stopping_patience is not None
                     and stale >= early_stopping_patience):
                 logger.log(f"{stage}: early stopping after {stale} "
@@ -288,7 +320,8 @@ def _phase_loop(loader, state, step_fn, eval_fn, val_ds, batch_size,
                                f"window {w} — aborting without saving")
                     raise TrainingDiverged(stage)
                 store.save(stage, "last", _ckpt_payload(state))
-                _write_resume(store.run_dir, stage, w + 1, n_windows, best_acc, stale)
+                _write_resume(store.run_dir, stage, w + 1, n_windows, best_acc, stale,
+                              mesh)
                 logger.log(f"{stage}: halting after window {w + 1} "
                            f"(--halt-after); resume with train --resume")
                 raise TrainingHalted(stage)
@@ -296,7 +329,7 @@ def _phase_loop(loader, state, step_fn, eval_fn, val_ds, batch_size,
 
 
 def _validate(eval_fn, state, val_ds, batch_size: int,
-              val_batches: Optional[int] = None) -> Dict[str, float]:
+              val_batches: Optional[int] = None, mesh=None) -> Dict[str, float]:
     """Validation over the whole val split, in dataset order.
 
     The reference picks its best checkpoint by val accuracy over the
@@ -305,7 +338,12 @@ def _validate(eval_fn, state, val_ds, batch_size: int,
     batch has one shape, and the wrapped images are masked out through
     the eval step's ``n_valid``: each image counts exactly once.
 
-    ``val_batches`` caps the number of (ordered) batches; None = all."""
+    ``val_batches`` caps the number of (ordered) batches; None = all.
+
+    With a ``mesh`` the eval step takes this rank's rows of each batch
+    and returns the global batch's metrics.  Each rank still reads the
+    whole batch: the crops of frames larger than the window come from
+    the one ``val_ds.rng`` stream, in item order."""
     totals: Dict[str, float] = {}
     total_real = 0
     if val_ds.is_eval:
@@ -319,6 +357,9 @@ def _validate(eval_fn, state, val_ds, batch_size: int,
         items = [val_ds[(start + j) % len(val_ds)] for j in range(batch_size)]
         images = np.stack([im for im, _ in items])
         labels = np.stack([lb for _, lb in items])
+        if mesh is not None:
+            rows = mesh.batch_slice(batch_size)
+            images, labels = images[rows], labels[rows]
         m = eval_fn(state, images, labels, n_valid=n_real)
         for k, v in m.items():
             w = 1.0 if k in ("n_correct", "n_patches") else n_real
@@ -329,6 +370,18 @@ def _validate(eval_fn, state, val_ds, batch_size: int,
     out["accuracy"] = totals.get("n_correct", 0.0) / max(
         totals.get("n_patches", 1.0), 1.0)
     return out
+
+
+def _first_rank_push(mesh, new_sd, new_pc):
+    """The first rank's push result on every rank: the entries a push
+    changes (prototype vectors, ``ones``, last layer, classes)."""
+    changed = ("prototype_vectors", "ones", "last_layer.weight")
+    ours = ({k: new_sd[k].cpu() for k in changed}, new_pc.cpu())
+    theirs, pc = mesh.broadcast_object(ours)
+    out = dict(new_sd)
+    for k, v in theirs.items():
+        out[k] = v.to(new_sd[k].device)
+    return out, pc.to(new_pc.device)
 
 
 def _with_prototypes(cfg: ExperimentConfig, n: int) -> ExperimentConfig:
@@ -364,7 +417,7 @@ def run_protoseg_training(cfg: ExperimentConfig, run_dir: str,
                           val_augment: bool = False,
                           resume: bool = False,
                           halt_after_windows: Optional[int] = None,
-                          device: DeviceLike = None):
+                          device: DeviceLike = None, mesh=None):
     """The full training pipeline on ``device`` (default the card).
     ``steps_scale`` shrinks every phase budget (1.0 is the reference
     schedule).  ``trace_dir`` writes a ``torch.profiler`` trace of one
@@ -386,8 +439,11 @@ def run_protoseg_training(cfg: ExperimentConfig, run_dir: str,
     Returns the final ``ProtoSegState``.  The start is a PPNet of the
     port's initializers drawn from ``cfg.train.random_seed``, or
     ``start_checkpoint`` (``<run_dir>/checkpoints/<stage>_<kind>``), or a
-    pretrained backbone."""
-    dev = resolve_device(device)
+    pretrained backbone.
+
+    ``mesh`` trains data-parallel on ``mesh.device`` (see the module's
+    docstring); every rank calls this with the same arguments."""
+    dev = resolve_device(mesh.device if mesh is not None else device)
 
     from adlm_tpu_torch.data.constants import get_class_table
     from adlm_tpu_torch.data.dataset import SegmentationDataset
@@ -395,8 +451,14 @@ def run_protoseg_training(cfg: ExperimentConfig, run_dir: str,
     from adlm_tpu_torch.utils.logging import RunLogger
 
     t = cfg.train
-    logger = RunLogger(run_dir)
-    store = CheckpointStore(run_dir)
+    if mesh is not None:
+        from adlm_tpu_torch.parallel.sharding import RankStore, rank_logger
+
+        logger = rank_logger(mesh, lambda: RunLogger(run_dir))
+        store = RankStore(CheckpointStore(run_dir), mesh)
+    else:
+        logger = RunLogger(run_dir)
+        store = CheckpointStore(run_dir)
     store.save_config(cfg.to_json())
     logger.log_hyperparams(json.loads(cfg.to_json()))
     table = get_class_table(cfg.data.class_table)
@@ -493,7 +555,8 @@ def run_protoseg_training(cfg: ExperimentConfig, run_dir: str,
                                early_stopping_patience=t.early_stopping_patience_last_layer,
                                stage_key="pruned", trace_dir=trace_dir,
                                start_window=_sw("pruned"), best_acc=_ba("pruned"),
-                               stale=_stl("pruned"), halt=halt, device=dev)
+                               stale=_stl("pruned"), halt=halt, device=dev,
+                               mesh=mesh)
         except TrainingHalted:
             pass
         except TrainingDiverged as e:
@@ -599,7 +662,8 @@ def run_protoseg_training(cfg: ExperimentConfig, run_dir: str,
                                logger, warmup_steps, t.warmup_batch_size,
                                val_every, val_batches, trace_dir=trace_dir,
                                start_window=_sw("warmup"), best_acc=_ba("warmup"),
-                               stale=_stl("warmup"), halt=halt, device=dev)
+                               stale=_stl("warmup"), halt=halt, device=dev,
+                               mesh=mesh)
 
         if pos <= 1:
             logger.log(f"JOINT TRAINING START ({joint_steps} steps)")
@@ -610,7 +674,8 @@ def run_protoseg_training(cfg: ExperimentConfig, run_dir: str,
                                logger, joint_steps, t.joint_batch_size,
                                val_every, val_batches, trace_dir=trace_dir,
                                start_window=_sw("nopush"), best_acc=_ba("nopush"),
-                               stale=_stl("nopush"), halt=halt, device=dev)
+                               stale=_stl("nopush"), halt=halt, device=dev,
+                               mesh=mesh)
 
         if pos <= 1.5:
             logger.log("SAVING PROTOTYPES (push)")
@@ -625,16 +690,29 @@ def run_protoseg_training(cfg: ExperimentConfig, run_dir: str,
             # without visualizations only
             raw_push = (push_batch_size > 1 and not save_push_visualizations
                         and push_ds.supports_raw_eval())
+            # over a mesh the push splits its batches over the data ranks
+            # where they divide; else every rank scans the whole split and
+            # takes the first rank's prototypes
+            sharded_push = (mesh is not None and push_batch_size > 1
+                            and push_batch_size % mesh.data == 0)
+            items = (push_ds.eval_batches(push_batch_size, with_counts=True, raw=raw_push,
+                                          shard=(mesh.data_index, mesh.data))
+                     if sharded_push else push_ds.eval_items(raw=raw_push))
+            main = mesh is None or mesh.is_main
             new_sd, new_pc, _ = push_prototypes(
-                model, state.proto_class, push_ds.eval_items(raw=raw_push),
-                cfg.model.num_classes, run_dir=os.path.join(run_dir, "prototypes"),
-                save_visualizations=save_push_visualizations,
+                model, state.proto_class, items,
+                cfg.model.num_classes,
+                run_dir=os.path.join(run_dir, "prototypes") if main else None,
+                save_visualizations=save_push_visualizations and main,
                 batch_size=push_batch_size, raw_uint8=raw_push,
                 raw_normalize=(cfg.data.mean, cfg.data.std),
                 get_item=lambda i: (lambda im, lb: (im[None], lb[None]))(
                     *push_ds.get_eval_item(i)),
                 class_names=table.class_names, log=logger.log,
-                denorm=make_denorm(cfg.data), device=dev)
+                denorm=make_denorm(cfg.data), device=dev,
+                mesh=mesh if sharded_push else None)
+            if mesh is not None and not sharded_push:
+                new_sd, new_pc = _first_rank_push(mesh, new_sd, new_pc)
             pushed_cfg = _with_prototypes(cfg, new_sd["prototype_vectors"].shape[0])
             model = _build_model(pushed_cfg, new_sd, dev)
             state = init_protoseg_state(model, pushed_cfg, 2, finetune_steps,
@@ -651,7 +729,8 @@ def run_protoseg_training(cfg: ExperimentConfig, run_dir: str,
                            early_stopping_patience=t.early_stopping_patience_last_layer,
                            stage_key="push", trace_dir=trace_dir,
                            start_window=_sw("push"), best_acc=_ba("push"),
-                           stale=_stl("push"), halt=halt, device=dev)
+                           stale=_stl("push"), halt=halt, device=dev,
+                           mesh=mesh)
     except TrainingHalted:
         logger.log("training halted (--halt-after); continue with "
                    "train --resume")

@@ -12,7 +12,15 @@ update.  As in the JAX package:
   group-normalized losses, gradient-identical to the loop;
 * ``compute_dtype="bfloat16"`` casts the f32 parameters to bf16 inside
   the differentiated call, so gradients come back in f32;
-* ``remat`` recomputes the forward during the backward.
+* ``remat`` recomputes the forward during the backward;
+* ``mesh=`` makes the data-parallel step of ``parallel/sharding.py``:
+  each rank takes its slice of the window, the CE and KLD means divide
+  by the counts summed over the ranks, the masked L1 (a term of the
+  parameters alone) enters on the first data rank only, and one
+  flattened SUM per window reduces the gradient and the metrics before
+  the norm, the clip and the update.  So every rank makes the update of
+  the single-device step on the global window, up to the order of the
+  sums.
 
 Everything runs in IEEE f32 (``core.device.ieee_f32``), the backward
 included: cuDNN would otherwise compute f32 conv gradients in TF32.
@@ -35,7 +43,13 @@ from torch.utils.checkpoint import checkpoint
 from adlm_tpu_torch.core.config import ExperimentConfig
 from adlm_tpu_torch.core.device import DeviceLike, ieee_f32, resolve_device, to_device
 from adlm_tpu_torch.models.ppnet import default_proto_class
-from adlm_tpu_torch.ops.losses import cross_entropy_ignore, kld_prototype_loss, masked_l1
+from adlm_tpu_torch.ops.losses import (
+    ce_count,
+    cross_entropy_ignore,
+    kld_pair_count,
+    kld_prototype_loss,
+    masked_l1,
+)
 from adlm_tpu_torch.ops.normalize import normalize
 from adlm_tpu_torch.ops.resize import resize_label_nearest
 from adlm_tpu_torch.train.optimizer import (
@@ -48,6 +62,8 @@ from adlm_tpu_torch.train.optimizer import (
 
 Metrics = Dict[str, torch.Tensor]
 _COUNTS = ("n_correct", "n_patches")
+# metrics of the parameters alone, the same on every rank: not summed
+_REPLICATED = ("l1",)
 
 
 @dataclasses.dataclass
@@ -94,13 +110,16 @@ def init_protoseg_state(model: nn.Module, cfg: ExperimentConfig, phase: int,
 def _single_output_loss(logits: torch.Tensor, distances: torch.Tensor,
                         labels: torch.Tensor, proto_class: torch.Tensor,
                         cfg: ExperimentConfig, groups: Optional[int] = None,
-                        image_valid: Optional[torch.Tensor] = None
-                        ) -> Tuple[torch.Tensor, Metrics]:
+                        image_valid: Optional[torch.Tensor] = None,
+                        mesh=None) -> Tuple[torch.Tensor, Metrics]:
     """Loss terms of one MSC output (reference module.py:142-228).
 
     ``groups=G``: the batch is G microbatches and each term is the mean
     over groups of the per-group mean.  ``image_valid`` (B,) bool: False
-    images add no CE pixel, no accuracy count and no KLD pair."""
+    images add no CE pixel, no accuracy count and no KLD pair.  With a
+    ``mesh`` the batch is this rank's share, and the CE and KLD
+    denominators are the counts summed over the data ranks (one
+    collective of the labels' counts, before either loss)."""
     t = cfg.train
     B, h, w = logits.shape[0], logits.shape[1], logits.shape[2]
     # uint8 labels: widen before the void shift below can wrap
@@ -122,11 +141,22 @@ def _single_output_loss(logits: torch.Tensor, distances: torch.Tensor,
         valid = valid & image_valid.repeat_interleave(h * w)
         kld_labels = torch.where(image_valid[:, None], kld_labels, -1)
 
+    ce_n = kld_n = None
+    if mesh is not None:
+        counts = [ce_count(valid, groups).reshape(-1)]
+        if t.loss_weight_kld > 0.0:
+            counts.append(kld_pair_count(kld_labels, proto_class, groups).reshape(-1))
+        counts = mesh.all_reduce_(torch.cat(counts).long())
+        shape = () if groups is None else (groups,)
+        g = 1 if groups is None else groups
+        ce_n = counts[:g].reshape(shape)
+        if t.loss_weight_kld > 0.0:
+            kld_n = counts[g:].reshape(shape)
     ce, n_correct = cross_entropy_ignore(logits_flat, ce_labels, valid,
-                                         groups=groups)
+                                         groups=groups, count=ce_n)
     if t.loss_weight_kld > 0.0:
         kld = kld_prototype_loss(distances.reshape(B, h * w, -1), kld_labels,
-                                 proto_class, groups=groups)
+                                 proto_class, groups=groups, count=kld_n)
     else:
         kld = torch.zeros((), device=logits.device)
     metrics = {"cross_entropy": ce, "kld_loss": kld,
@@ -139,15 +169,20 @@ def loss_fn(model: nn.Module, proto_class: torch.Tensor,
             cfg: ExperimentConfig,
             batch: Tuple[torch.Tensor, torch.Tensor], train: bool,
             groups: Optional[int] = None,
-            image_valid: Optional[torch.Tensor] = None
-            ) -> Tuple[torch.Tensor, Metrics]:
+            image_valid: Optional[torch.Tensor] = None,
+            mesh=None) -> Tuple[torch.Tensor, Metrics]:
     """The training loss over all MSC outputs, averaged (reference
     module.py:141-228), and its metrics.
 
     ``batch`` is (images (B, H, W, 3) float or uint8, labels (B, H, W))
     on the model's device; uint8 images are normalized there with the
     config's mean and std.  Backpropagating the loss leaves the
-    gradients in the parameters' ``.grad``."""
+    gradients in the parameters' ``.grad``.
+
+    With a ``mesh`` the batch is this rank's share: the loss and the
+    metrics other than ``l1`` are this rank's parts of the global ones,
+    which their SUM over the data ranks gives; the L1 term enters the
+    loss of the first data rank only."""
     images, labels = batch
     t = cfg.train
     if images.dtype == torch.uint8:
@@ -174,15 +209,18 @@ def loss_fn(model: nn.Module, proto_class: torch.Tensor,
         outputs = [outputs]
 
     l1 = masked_l1(model.last_layer.weight.t(), proto_class)
+    l1_weight = (t.loss_weight_l1 if mesh is None or mesh.data_index == 0
+                 else 0.0)
     n_out = len(outputs)
     total = torch.zeros((), device=images.device)
     agg: Metrics = {}
     for logits, distances in outputs:
         ce, m = _single_output_loss(logits, distances, labels, proto_class,
-                                    cfg, groups=groups, image_valid=image_valid)
+                                    cfg, groups=groups, image_valid=image_valid,
+                                    mesh=mesh)
         out_loss = (t.loss_weight_crs_ent * ce
                     + t.loss_weight_kld * m["kld_loss"]
-                    + t.loss_weight_l1 * l1)
+                    + l1_weight * l1)
         total = total + out_loss / n_out
         for k, v in m.items():
             v = v if k in _COUNTS else v / n_out
@@ -192,9 +230,24 @@ def loss_fn(model: nn.Module, proto_class: torch.Tensor,
     return total, agg
 
 
+def _reduce_window(mesh, grads, metrics: Metrics) -> None:
+    """One flattened SUM over the data ranks of the gradients and of the
+    summed metrics (``l1`` is the same everywhere), in place."""
+    keys = [k for k in metrics if k not in _REPLICATED]
+    vals = [metrics[k].reshape(1).to(torch.float32) for k in keys]
+    bufs = list(grads) + vals
+    if len({b.dtype for b in bufs}) != 1:
+        mesh.sum_flat_(list(grads))
+        mesh.sum_flat_(vals)
+    else:
+        mesh.sum_flat_(bufs)
+    for k, v in zip(keys, vals):
+        metrics[k] = v[0]
+
+
 def make_train_step(model: nn.Module, cfg: ExperimentConfig, phase: int,
                     max_steps: Optional[int] = None,
-                    device: DeviceLike = None):
+                    device: DeviceLike = None, mesh=None):
     """``step(state, images, labels) -> (state, metrics)`` over one
     accumulation window, on ``device`` (default the card).
 
@@ -206,8 +259,13 @@ def make_train_step(model: nn.Module, cfg: ExperimentConfig, phase: int,
     and returned.  ``max_steps`` is the phase's step budget: the state's
     schedule was built from the one ``init_protoseg_state`` got, and a
     state built for another budget raises ``ValueError`` (the JAX step
-    builds its schedule from its own argument, so the two must agree)."""
-    dev = _prepare(model, device)
+    builds its schedule from its own argument, so the two must agree).
+
+    With a ``mesh`` (``core/mesh.py``) the step runs on ``mesh.device``
+    and takes this rank's (iter_size, bs/data, H, W, 3) slice of the
+    window; the metrics and the update are the global window's, the same
+    on every rank (``parallel/sharding.py``)."""
+    dev = _prepare(model, mesh.device if mesh is not None else device)
     t = cfg.train
     params = list(model.parameters())
 
@@ -228,14 +286,14 @@ def make_train_step(model: nn.Module, cfg: ExperimentConfig, phase: int,
                 batch = (images.reshape(-1, *images.shape[2:]),
                          labels.reshape(-1, *labels.shape[2:]))
                 total, m = loss_fn(model, state.proto_class, cfg, batch, True,
-                                   groups=n_micro)
+                                   groups=n_micro, mesh=mesh)
                 total.backward()
                 metrics = {k: v.detach() for k, v in m.items()}
             else:
                 sums: Metrics = {}
                 for i in range(n_micro):
                     total, m = loss_fn(model, state.proto_class, cfg,
-                                       (images[i], labels[i]), True)
+                                       (images[i], labels[i]), True, mesh=mesh)
                     total.backward()   # .grad accumulates the sum
                     for k, v in m.items():
                         sums[k] = sums[k] + v.detach() if k in sums else v.detach()
@@ -245,6 +303,8 @@ def make_train_step(model: nn.Module, cfg: ExperimentConfig, phase: int,
                 metrics = {k: v if k in _COUNTS else v / n_micro
                            for k, v in sums.items()}
             grads = [p.grad for p in params if p.grad is not None]
+            if mesh is not None:
+                _reduce_window(mesh, grads, metrics)
             metrics["grad_norm"] = global_norm(grads)
             if t.grad_clip_norm is not None:
                 clip_by_global_norm(grads, t.grad_clip_norm,
@@ -258,15 +318,19 @@ def make_train_step(model: nn.Module, cfg: ExperimentConfig, phase: int,
 
 
 def make_eval_step(model: nn.Module, cfg: ExperimentConfig,
-                   device: DeviceLike = None):
+                   device: DeviceLike = None, mesh=None):
     """``step(state, images, labels, n_valid=None) -> metrics`` over one
     (B, H, W, 3) batch, on ``device`` (default the card).
 
     ``n_valid`` masks out the trailing ``B - n_valid`` images: a
     fixed-shape val batch pads its last partial batch, and the padding
     must add nothing to the metrics (reference validates exact batches,
-    segmentation/module.py:280-297)."""
-    dev = _prepare(model, device)
+    segmentation/module.py:280-297).
+
+    With a ``mesh`` the images are this rank's slice of a global batch,
+    ``n_valid`` counts the global batch's real images, and the metrics
+    are the global batch's on every rank."""
+    dev = _prepare(model, mesh.device if mesh is not None else device)
 
     def step(state: ProtoSegState, images, labels,
              n_valid: Optional[int] = None) -> Metrics:
@@ -274,11 +338,15 @@ def make_eval_step(model: nn.Module, cfg: ExperimentConfig,
             images = to_device(images, dev)
             labels = to_device(labels, dev)
             B = images.shape[0]
-            image_valid = torch.arange(B, device=dev) < (B if n_valid is None
-                                                         else n_valid)
+            n_real = B if n_valid is None else n_valid
+            if mesh is not None and n_valid is not None:
+                n_real = mesh.share(n_valid, B)
+            image_valid = torch.arange(B, device=dev) < n_real
             _, metrics = loss_fn(state.model, state.proto_class, cfg,
                                  (images, labels), False,
-                                 image_valid=image_valid)
+                                 image_valid=image_valid, mesh=mesh)
+            if mesh is not None:
+                _reduce_window(mesh, [], metrics)
         return metrics
 
     return step

@@ -24,6 +24,14 @@ run in f32.  f32 runs in IEEE f32 (TF32 off).
 ε comes from ``torch.randn`` on the device with the caller's generator;
 a caller may pass ε itself (NHWC, (B, H, W, 1)), as the parity tests do
 to give both packages the same draw.
+
+``mesh=`` makes the data-parallel train steps of ``parallel/sharding.py``:
+each rank takes its slice of the batch, the trained U-Net's BatchNorms
+reduce their statistics over the data ranks, every mean divides by the
+global batch's count, ε is drawn at the GLOBAL batch's shape and each
+rank takes its rows (so every rank draws the numbers a single device
+draws), and one flattened SUM reduces the gradients and the metrics
+before the update.
 """
 
 from __future__ import annotations
@@ -114,19 +122,43 @@ def _nchw(t: torch.Tensor) -> torch.Tensor:
     return t.permute(0, 3, 1, 2)
 
 
-def make_utility_train_step(cfg: UNoiseConfig, raw: bool = False):
+def _sharded(mesh, model: UNet) -> None:
+    """Global batch statistics for ``model``'s BatchNorms over ``mesh``."""
+    if mesh is not None:
+        from adlm_tpu_torch.parallel.sharding import set_batch_norm_reduce
+
+        set_batch_norm_reduce(model, mesh)
+
+
+def _reduce_step(mesh, model: UNet, metrics: Metrics) -> Metrics:
+    """One flattened SUM over the data ranks of the gradients and the
+    metrics (each rank's part of the global value)."""
+    if mesh is None:
+        return metrics
+    grads = [p.grad for p in model.parameters() if p.grad is not None]
+    keys = list(metrics)
+    vals = [metrics[k].reshape(1).float() for k in keys]
+    mesh.sum_flat_(grads + vals)
+    return {k: v[0] for k, v in zip(keys, vals)}
+
+
+def make_utility_train_step(cfg: UNoiseConfig, raw: bool = False, mesh=None):
     """step(state, images, masks) → the loss (a device scalar).  The
-    step's gradients stay in the parameters' ``.grad``."""
+    step's gradients stay in the parameters' ``.grad``.  With a ``mesh``
+    the batch is this rank's slice and the loss the global batch's."""
     dtype = compute_dtype(cfg.compute_dtype)
 
     def step(state: UtilityState, images: torch.Tensor,
              masks: torch.Tensor) -> torch.Tensor:
         model = state.model.train()
+        _sharded(mesh, model)
         with ieee_f32():
             logits = forward_in(model, _prep_images(images, raw), dtype)
-            loss = bce_with_logits(logits, _nchw(masks))
+            count = None if mesh is None else masks.numel() * mesh.data
+            loss = bce_with_logits(logits, _nchw(masks), count)
             state.optimizer.zero_grad(set_to_none=True)
             loss.backward()
+            loss = _reduce_step(mesh, model, {"loss": loss.detach()})["loss"]
             state.optimizer.step()
         state.step += 1
         return loss.detach()
@@ -159,7 +191,7 @@ def draw_eps(shape, generator: Optional[torch.Generator], device: torch.device,
 def noise_forward(cfg: UNoiseConfig, model: UNet, images: torch.Tensor, train: bool,
                   eps: Optional[torch.Tensor] = None,
                   generator: Optional[torch.Generator] = None,
-                  dtype: torch.dtype = torch.float32
+                  dtype: torch.dtype = torch.float32, mesh=None
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(noise, B, log B): noise and B (B, 1, H, W) in ``dtype``, log B in
     f32 (reference src/train_noise.py:54-64).  ``images``: NCHW.
@@ -170,43 +202,63 @@ def noise_forward(cfg: UNoiseConfig, model: UNet, images: torch.Tensor, train: b
     value where B is representable, finite where B underflows to 0 (a
     noise model started from a confident utility model reaches logits
     below −88 in eval mode), where ``log(B)``, the JAX package's, is
-    −inf and its gradient NaN (ROADMAP.md, Queue 3)."""
+    −inf and its gradient NaN (ROADMAP.md, Queue 3).
+
+    With a ``mesh`` the images are this rank's slice of the global batch:
+    ε is drawn (or given) at the global shape and sliced to its rows."""
     model.train(train)
     logits = forward_in(model, images, dtype)
     B = torch.sigmoid(logits)
     if eps is None:
-        eps = draw_eps(B.shape, generator, B.device, B.dtype)
+        shape = B.shape if mesh is None else (B.shape[0] * mesh.data,) + B.shape[1:]
+        eps = draw_eps(shape, generator, B.device, B.dtype)
     else:
         eps = _nchw(eps).to(device=B.device, dtype=B.dtype)
+    if mesh is not None:
+        eps = eps[mesh.batch_slice(eps.shape[0])]
     noise = eps * (B * (cfg.max_scale - cfg.min_scale) + cfg.min_scale)
     return noise, B, F.logsigmoid(logits.float())
 
 
 def _noise_loss(cfg: UNoiseConfig, pred: torch.Tensor, masks: torch.Tensor,
-                log_b: torch.Tensor) -> torch.Tensor:
-    return bce_with_logits(pred, _nchw(masks)) - cfg.noise_coeff * log_b.mean()
+                log_b: torch.Tensor, n_ranks: Optional[int] = None) -> torch.Tensor:
+    """BCE − λ·mean(log B); ``n_ranks``: the means of a rank's share of a
+    global batch split over that many data ranks."""
+    if n_ranks is None:
+        return bce_with_logits(pred, _nchw(masks)) - cfg.noise_coeff * log_b.mean()
+    return (bce_with_logits(pred, _nchw(masks), masks.numel() * n_ranks)
+            - cfg.noise_coeff * (log_b.sum() / (log_b.numel() * n_ranks)))
 
 
-def make_noise_train_step(cfg: UNoiseConfig, raw: bool = False):
+def make_noise_train_step(cfg: UNoiseConfig, raw: bool = False, mesh=None):
     """step(state, images, masks, eps=None, generator=None) →
     {train_loss, mean_B} (device scalars).  The step's gradients stay in
-    the noise model's ``.grad``; the utility model is unchanged."""
+    the noise model's ``.grad``; the utility model is unchanged.  With a
+    ``mesh`` the batch is this rank's slice, ``eps`` (if given) the
+    global batch's, and the metrics the global batch's."""
     dtype = compute_dtype(cfg.compute_dtype)
+    n_ranks = None if mesh is None else mesh.data
 
     def step(state: NoiseState, images: torch.Tensor, masks: torch.Tensor,
              eps: Optional[torch.Tensor] = None,
              generator: Optional[torch.Generator] = None) -> Metrics:
         util = state.utility.eval()
+        _sharded(mesh, state.model)
         with ieee_f32():
             x = _prep_images(images, raw).to(dtype)
-            noise, B, log_b = noise_forward(cfg, state.model, x, True, eps, generator, dtype)
+            noise, B, log_b = noise_forward(cfg, state.model, x, True, eps, generator,
+                                            dtype, mesh=mesh)
             pred = forward_in(util, x + noise, dtype)
-            loss = _noise_loss(cfg, pred, masks, log_b)
+            loss = _noise_loss(cfg, pred, masks, log_b, n_ranks)
             state.optimizer.zero_grad(set_to_none=True)
             loss.backward()
+            b = B.detach().float()
+            mean_b = b.mean() if mesh is None else b.sum() / (b.numel() * mesh.data)
+            metrics = _reduce_step(mesh, state.model,
+                                   {"train_loss": loss.detach(), "mean_B": mean_b})
             state.optimizer.step()
         state.step += 1
-        return {"train_loss": loss.detach(), "mean_B": B.detach().float().mean()}
+        return metrics
 
     return step
 

@@ -13,8 +13,14 @@ checkpoints ``utility_{last,best}`` or ``noise_{last,best}``: payloads
 The device is resolved and the arrays read before anything is written.
 Batches come from ``unoise_data.batches`` (4 loader threads) through a
 ``BatchLoader`` and ``device_prefetch``; ε is drawn on the device from a
-generator seeded with 1.  The JAX package's ``--mesh-data`` is not
-ported yet.
+generator seeded with 1.
+
+With a ``mesh`` (``--mesh-data``) the training steps are data-parallel
+(``parallel/sharding.py``): each rank loads its rows of every batch, the
+batches drop their partial tail (the JAX package's ``drop_last`` under a
+mesh), and the first rank writes the checkpoints and logs.  Validation
+runs whole on every rank, and the first rank's value decides the best
+checkpoint.
 """
 
 from __future__ import annotations
@@ -77,25 +83,53 @@ def _cfg_from_args(args) -> UNoiseConfig:
         compute_dtype="bfloat16" if args.bf16 else "float32")
 
 
-def _epoch_batches(ds, cfg: UNoiseConfig, epoch: int):
+def _epoch_batches(ds, cfg: UNoiseConfig, epoch: int, mesh=None):
+    shard = None if mesh is None else (mesh.data_index, mesh.data)
     return BatchLoader(batches(ds, cfg.batch_size, shuffle=True, seed=epoch,
-                               n_jobs=LOADER_JOBS))
+                               n_jobs=LOADER_JOBS, drop_last=mesh is not None,
+                               shard=shard))
+
+
+def _mesh_io(mesh, run_dir: str, name: str):
+    """(logger, store) of a run: the first rank's, quiet elsewhere."""
+    if mesh is None:
+        return RunLogger(run_dir, name), CheckpointStore(run_dir)
+    from adlm_tpu_torch.parallel.sharding import RankStore, rank_logger
+
+    return (rank_logger(mesh, lambda: RunLogger(run_dir, name)),
+            RankStore(CheckpointStore(run_dir), mesh))
+
+
+def _first_rank(mesh, value: float) -> float:
+    """A decision value the same on every rank: the first rank's."""
+    return value if mesh is None else float(mesh.broadcast_object(value))
 
 
 def _payload(model: torch.nn.Module, step: int) -> dict:
     return {"state_dict": model.state_dict(), "step": step}
 
 
-def train_utility(args) -> UtilityState:
-    dev = resolve_device(args.device)
+def _check_batch(cfg: UNoiseConfig, mesh) -> None:
+    if mesh is not None and cfg.batch_size % mesh.data:
+        raise SystemExit("--batch-size must be divisible by --mesh-data")
+
+
+def train_utility(args, mesh=None) -> UtilityState:
+    dev = mesh.device if mesh is not None else resolve_device(args.device)
     cfg = dataclasses.replace(_cfg_from_args(args), util_depth=args.depth,
                               util_channel_factor=args.channel_factor)
+    _check_batch(cfg, mesh)
     train_ds, val_ds, _ = load_split(args)
     run_dir = os.path.join(results_dir(), args.run_name)
-    logger = RunLogger(run_dir, "unoise_util")
-    store = CheckpointStore(run_dir)
+    logger, store = _mesh_io(mesh, run_dir, "unoise_util")
     state = init_utility_state(cfg, seed=0, device=dev)
-    step = make_utility_train_step(cfg, raw=True)
+    if mesh is not None:
+        from adlm_tpu_torch.parallel.sharding import make_sharded_utility_step, shard_state
+
+        state = shard_state(state, mesh)
+        step = make_sharded_utility_step(cfg, mesh, raw=True)
+    else:
+        step = make_utility_train_step(cfg, raw=True)
     evaluate = make_utility_eval_step(cfg, raw=True)
     # the noise trainer rebuilds the frozen utility model from this
     store.save_metadata("utility_config", {"depth": cfg.util_depth,
@@ -103,7 +137,7 @@ def train_utility(args) -> UtilityState:
     best_dice = -1.0
     try:
         for epoch in range(cfg.epochs):
-            loader = _epoch_batches(train_ds, cfg, epoch)
+            loader = _epoch_batches(train_ds, cfg, epoch, mesh)
             try:
                 for imgs, masks in device_prefetch(loader, device=dev):
                     step(state, imgs, masks)
@@ -114,7 +148,7 @@ def train_utility(args) -> UtilityState:
                 m = evaluate(state, imgs, masks)
                 dices.append(float(m["val_dice"]))
                 losses.append(float(m["val_loss"]))
-            dice = float(np.mean(dices)) if dices else 0.0
+            dice = _first_rank(mesh, float(np.mean(dices)) if dices else 0.0)
             logger.metrics(epoch, "utility", "val",
                            {"val_dice": dice,
                             "val_loss": float(np.mean(losses)) if losses else 0})
@@ -151,12 +185,13 @@ def _noise_pretrained(args, cfg: UNoiseConfig, logger: RunLogger
     return None
 
 
-def train_noise(args) -> NoiseState:
-    dev = resolve_device(args.device)
+def train_noise(args, mesh=None) -> NoiseState:
+    dev = mesh.device if mesh is not None else resolve_device(args.device)
     cfg = _cfg_from_args(args)
+    _check_batch(cfg, mesh)
     train_ds, val_ds, _ = load_split(args)
     run_dir = os.path.join(results_dir(), args.run_name)
-    logger = RunLogger(run_dir, "unoise_noise")
+    logger, store = _mesh_io(mesh, run_dir, "unoise_noise")
     try:
         if args.utility_torch_ckpt:
             # the frozen utility straight from a reference lightning checkpoint
@@ -170,10 +205,15 @@ def train_noise(args) -> NoiseState:
                 uc = json.load(f)
             depth, cf = uc["depth"], uc["channel_factor"]
         cfg = dataclasses.replace(cfg, util_depth=depth, util_channel_factor=cf)
-        store = CheckpointStore(run_dir)
         state = init_noise_state(cfg, util_sd, seed=0,
                                  pretrained=_noise_pretrained(args, cfg, logger), device=dev)
-        step = make_noise_train_step(cfg, raw=True)
+        if mesh is not None:
+            from adlm_tpu_torch.parallel.sharding import make_sharded_noise_step, shard_state
+
+            state = shard_state(state, mesh)
+            step = make_sharded_noise_step(cfg, mesh, raw=True)
+        else:
+            step = make_noise_train_step(cfg, raw=True)
         evaluate = make_noise_eval_step(cfg, raw=True)
         # the visualization and figure commands rebuild each run's U-Net
         # from this, not from their flags
@@ -182,7 +222,7 @@ def train_noise(args) -> NoiseState:
         gen = torch.Generator(device=dev).manual_seed(1)
         best_loss = np.inf
         for epoch in range(cfg.epochs):
-            loader = _epoch_batches(train_ds, cfg, epoch)
+            loader = _epoch_batches(train_ds, cfg, epoch, mesh)
             try:
                 for imgs, masks in device_prefetch(loader, device=dev):
                     step(state, imgs, masks, generator=gen)
@@ -193,7 +233,7 @@ def train_noise(args) -> NoiseState:
                 m = evaluate(state, imgs, masks, generator=gen)
                 losses.append(float(m["val_loss"]))
                 dices.append(float(m["val_dice"]))
-            vl = float(np.mean(losses)) if losses else np.inf
+            vl = _first_rank(mesh, float(np.mean(losses)) if losses else np.inf)
             logger.metrics(epoch, "noise", "val",
                            {"val_loss": vl,
                             "val_dice": float(np.mean(dices)) if dices else 0})

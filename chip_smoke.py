@@ -5378,11 +5378,674 @@ def check_prepare(report, card: str) -> None:
 # ---------------------------------------------------------------------------
 
 
+# phase 16: data parallelism.  Two gloo ranks share the one card (NCCL
+# refuses two ranks on one device; gloo stages CUDA tensors through the
+# host, so their step times are not a speed figure).
+DP_WORLD = 2
+DP_COLLECTIVE_TIMEOUT = 120.0   # seconds a rank waits in a collective
+DP_TIMEOUT = 600.0              # seconds allowed the spawned ranks in all
+DP_PUSH_FRAMES = 4              # frame 0 repeated as frame 2, on the other rank
+DP_UN_BS = 8
+DP_UN_HW = 256
+DP_UN_GRAD_REL = 1e-3           # each U-Net gradient tensor, relative L2
+# the CLI runs: 4 train and 2 val frames; the flagship's schedule scaled
+# to 5 + 50 + 3 steps (iter_size 5: 1 + 10 + 1 windows)
+DP_TRAIN_FRAMES, DP_VAL_FRAMES = 4, 2
+DP_STEPS_SCALE = "0.0003334"
+DP_RUN_L2 = 1e-5                # all weights of the world-1 run, relative L2
+# two ranks against one process over the warmup and joint stages: the
+# sums run in another order and Adam's first steps of rounding-noise
+# gradients take either sign (read on four H100s: 8.4e-8 and 1.53e-5);
+# the push is left out, its winners move with any such change
+DP_RUN2_L2 = 1e-4
+DP_TIME_ITERS = 3
+
+
+def dp_window(cfg, seed: int):
+    """Phase 7's joint window with labels whose two rank halves hold
+    different void shares: rank 0's image of every microbatch has its
+    left half void, and rank 1's image of microbatch 2 is all void."""
+    images, labels = make_train_batch(cfg, seed)
+    labels = labels.clone()
+    labels[:, 0, :, :TRAIN_HW // 2] = 0
+    labels[2, 1] = 0
+    return images, labels
+
+
+def dp_inputs(path: str, cfg) -> None:
+    """The phase's inputs on the host, for the ranks and this process."""
+    import torch
+
+    images, labels = dp_window(cfg, SEED + 31)
+    (eval_img, eval_lab), = make_batches(1, 2, SEED + 32)
+    frames = make_push_frames(DP_PUSH_FRAMES - 1, SEED + 33)
+    frames = frames[:2] + [frames[0]] + frames[2:]
+    imgs, masks, _ = unoise_slices(DP_UN_BS, DP_UN_HW, SEED + 34)
+    eps = torch.randn(DP_UN_BS, DP_UN_HW, DP_UN_HW, 1,
+                      generator=torch.Generator().manual_seed(SEED + 35))
+    torch.save({"images": images.cpu(), "labels": labels.cpu(),
+                "eval_img": eval_img.cpu(), "eval_lab": eval_lab.cpu(),
+                "push_img": torch.cat([torch.from_numpy(f) for f, _ in frames]),
+                "push_lab": torch.cat([torch.from_numpy(l) for _, l in frames]),
+                "un_x": torch.from_numpy(imgs[..., None]),
+                "un_y": torch.from_numpy(masks[..., None]), "un_eps": eps}, path)
+
+
+def dp_unoise_cfg():
+    from adlm_tpu_torch.core.config import UNoiseConfig
+
+    return UNoiseConfig(batch_size=DP_UN_BS)
+
+
+def dp_steps(model, cfg, inp, dev, mesh, out_dir):
+    """The flagship's joint window (plain, fused) through the sharded
+    step, or the single-process step without a mesh: per variant the
+    metrics, the head launches, the seconds, a digest of the parameters
+    and, on the first rank, the gradients written to ``out_dir``."""
+    import dataclasses
+    import hashlib
+
+    import torch
+    from adlm_tpu_torch.ops import _build
+    from adlm_tpu_torch.train.protoseg import init_protoseg_state, make_train_step
+
+    out = {}
+    images, labels = inp["images"].to(dev), inp["labels"].to(dev)
+    if mesh is not None:
+        rows = mesh.batch_slice(images.shape[1])
+        images, labels = images[:, rows], labels[:, rows]
+    fused = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train,
+                                                               fused_accumulation=True))
+    for name, c in (("plain", cfg), ("fused", fused)):
+        m = copy.deepcopy(model)
+        state = init_protoseg_state(m, c, 1, c.train.joint_steps, device=dev)
+        step = make_train_step(m, c, 1, c.train.joint_steps, device=dev, mesh=mesh)
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        state, metrics = step(state, images, labels)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+        digest = hashlib.sha256()
+        for p in m.parameters():
+            digest.update(p.detach().cpu().numpy().tobytes())
+        out[name] = {"metrics": {k: float(v) for k, v in metrics.items()},
+                     "launches": launches, "secs": secs, "digest": digest.hexdigest()}
+        if out_dir is not None:
+            torch.save({n: p.grad.detach().cpu() for n, p in m.named_parameters()
+                        if p.grad is not None}, f"{out_dir}/grads_{name}.pt")
+        del m, state, step
+        torch.cuda.empty_cache()
+    return out
+
+
+def dp_naive(model, cfg, inp, dev, mesh) -> float:
+    """The naive control: this rank's own mean loss over the window."""
+    import torch
+    from adlm_tpu_torch.core.device import ieee_f32
+    from adlm_tpu_torch.models.ppnet import default_proto_class
+    from adlm_tpu_torch.train.protoseg import loss_fn
+
+    rows = mesh.batch_slice(inp["images"].shape[1])
+    pc = default_proto_class(190, 19, device=dev)
+    losses = []
+    with torch.no_grad(), ieee_f32():
+        for i in range(inp["images"].shape[0]):
+            batch = (inp["images"][i, rows].to(dev), inp["labels"][i, rows].to(dev))
+            losses.append(float(loss_fn(model, pc, cfg, batch, True)[0]))
+    return sum(losses) / len(losses)
+
+
+def dp_eval(model, cfg, inp, dev, mesh):
+    """``SegEvaluator`` with upsampled statistics on the batch of 2 (the
+    rank's image under a mesh): (results, [outputs as ``run_eval``'s]),
+    the statistic rows and sampled distances of the global batch."""
+    import torch
+    from adlm_tpu_torch.interpret.evaluate import SegEvaluator
+    from adlm_tpu_torch.models.ppnet import default_proto_class
+
+    pc = default_proto_class(190, 19, device=dev)
+    img, lab = inp["eval_img"].to(dev), inp["eval_lab"].to(dev)
+    n_valid = img.shape[0]
+    if mesh is not None:
+        rows = mesh.batch_slice(img.shape[0])
+        img, lab = img[rows], lab[rows]
+    ev = SegEvaluator(model, 19, with_stats=True, stats_upsampled=True,
+                      normalize=(cfg.data.mean, cfg.data.std), n_random_pixels=N_RANDOM,
+                      seed=SEED, device=dev, mesh=mesh)
+    with purity_inputs() as seen:
+        o = (ev.update(pc, img, lab) if mesh is None
+             else ev.update(pc, img, lab, n_valid=n_valid))
+    sample_d, sample_pred = (t.to(dev) for t in seen[0])
+    if mesh is not None:
+        sample_d = mesh.gather_rows(sample_d)
+        sample_pred = mesh.gather_rows(sample_pred.float()).long()
+    out = {k: v.cpu() for k, v in o.items()
+           if k in ("intersection", "union", "correct", "total", "agree_counts",
+                    "topk_purity")}
+    out["sample_d"], out["sample_pred"] = sample_d.cpu(), sample_pred.cpu()
+    return ev.results(), [out]
+
+
+def dp_push(model, cfg, inp, dev, mesh):
+    """The batched push step's winners over the 4 frames: through the
+    sharded step, or one process's scan of two batches of 2 merged in
+    order (strict <: the earlier frame wins a tie), as ``push_prototypes``
+    does."""
+    import torch
+    from adlm_tpu_torch.interpret.push import make_push_batched_fn
+    from adlm_tpu_torch.models.ppnet import default_proto_class
+
+    pc = default_proto_class(190, 19, device=dev)
+    fn = make_push_batched_fn(model, 19, normalize=(cfg.data.mean, cfg.data.std),
+                              device=dev, mesh=mesh)
+    img, lab = inp["push_img"], inp["push_lab"]
+    if mesh is not None:
+        rows = mesh.batch_slice(img.shape[0])
+        return [t.cpu() for t in fn(pc, img[rows].to(dev), lab[rows].to(dev))]
+    best = None
+    for h in range(0, img.shape[0], 2):
+        mind, bi, pi, pj, fmap = (t.cpu() for t in fn(pc, img[h:h + 2].to(dev),
+                                                       lab[h:h + 2].to(dev)))
+        cur = [mind, bi + h, pi, pj, fmap]
+        if best is None:
+            best = cur
+            continue
+        better = cur[0] < best[0]
+        best = [torch.where(better[:, None] if a.dim() == 2 else better, a, b)
+                for a, b in zip(cur, best)]
+    return best
+
+
+def dp_unoise(inp, dev, mesh, out_dir):
+    """One utility and one noise step at batch 8 x 256^2 (a rank's 4
+    under a mesh, eps given at the global shape): losses, running
+    statistics, seconds, and on the first rank the gradients."""
+    import torch
+    from adlm_tpu_torch.train import unoise as tu
+
+    cfg = dp_unoise_cfg()
+    x, y, eps = inp["un_x"].to(dev), inp["un_y"].to(dev), inp["un_eps"].to(dev)
+    if mesh is not None:
+        rows = mesh.batch_slice(x.shape[0])
+        x, y = x[rows], y[rows]
+    util = tu.init_utility_state(cfg, seed=0, device=dev)
+    util_sd = {k: v.clone() for k, v in util.model.state_dict().items()}
+    noise = tu.init_noise_state(cfg, util_sd, seed=1, device=dev)
+    out = {}
+    for name, state, make in (("utility", util, tu.make_utility_train_step),
+                              ("noise", noise, tu.make_noise_train_step)):
+        step = make(cfg, raw=True, mesh=mesh)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = step(state, x, y) if name == "utility" else step(state, x, y, eps=eps)
+        torch.cuda.synchronize()
+        m = {"loss": m} if name == "utility" else m
+        out[name] = {"metrics": {k: float(v) for k, v in m.items()},
+                     "secs": time.perf_counter() - t0,
+                     "stats": {k: v.cpu() for k, v in state.model.state_dict().items()
+                               if "running" in k}}
+        if out_dir is not None:
+            torch.save({n: p.grad.detach().cpu() for n, p in state.model.named_parameters()},
+                       f"{out_dir}/grads_{name}.pt")
+    return out
+
+
+def dp_unoise_f64(inp):
+    """Phase 11's f64 steps on the card from the U-Nets' initial weights
+    and the whole batch: {"utility", "noise": (loss, gradients)}."""
+    import torch
+    from adlm_tpu_torch.train import unoise as tu
+
+    cfg, dev = dp_unoise_cfg(), torch.device("cuda", 0)
+    util_sd = tu.init_utility_state(cfg, seed=0, device=dev).model.state_dict()
+    noise_sd = tu.build_unet(cfg.depth, cfg.channel_factor, dev, seed=1).state_dict()
+    return {"utility": _f64_utility_step(util_sd, inp["un_x"], inp["un_y"]),
+            "noise": _f64_noise_step(cfg, noise_sd, util_sd, inp["un_x"], inp["un_y"],
+                                     inp["un_eps"])}
+
+
+def dp_work(cfg, inp, dev, mesh, out_dir):
+    """Everything phase 16 holds, on ``dev``: through the sharded entry
+    points with a ``mesh``, else through the single-process ones; main
+    path launches are counted around the window, eval and push."""
+    import torch
+    from adlm_tpu_torch.ops import _build
+
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    model = random_model(cfg.model, SEED).to(dev)
+    res = {"steps": dp_steps(model, cfg, inp, dev, mesh, out_dir)}
+    model.eval()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    res["eval"] = dp_eval(model, cfg, inp, dev, mesh)
+    torch.cuda.synchronize()
+    res["eval_launches"], res["eval_secs"] = dict(_build.LAUNCHES), time.perf_counter() - t0
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    res["push"] = dp_push(model, cfg, inp, dev, mesh)
+    torch.cuda.synchronize()
+    res["push_launches"], res["push_secs"] = dict(_build.LAUNCHES), time.perf_counter() - t0
+    if mesh is not None:
+        res["naive"] = dp_naive(model, cfg, inp, dev, mesh)
+    del model
+    torch.cuda.empty_cache()
+    res["unoise"] = dp_unoise(inp, dev, mesh, out_dir)
+    return res
+
+
+def dp_rank(dev, mesh_args, in_path: str, out_dir: str) -> None:
+    """One spawned rank of phase 16 (``core/mesh.py::spawn_local``)."""
+    import torch
+    from adlm_tpu_torch.core.config import get_experiment
+    from adlm_tpu_torch.core.mesh import MeshSpec, destroy, make_mesh
+
+    mesh = make_mesh(MeshSpec(DP_WORLD, 1), dev, **mesh_args)
+    try:
+        inp = torch.load(in_path, weights_only=False)
+        res = dp_work(get_experiment("cityscapes_kld_imnet"), inp, dev, mesh,
+                      out_dir if mesh.is_main else None)
+        res["backend"] = mesh.backend
+    finally:
+        destroy(mesh)
+    torch.save(res, f"{out_dir}/rank{mesh.rank}.pt")
+
+
+def dp_compare(ranks, single, root: str, report, tag: str) -> None:
+    """The ranks' results against the single-process ones (module
+    docstring, phase 16)."""
+    import torch
+
+    pc = torch.arange(190) // 10
+    r0 = ranks[0]
+    for name in ("plain", "fused"):
+        want = single["steps"][name]["metrics"]
+        n_patches = int(want["n_patches"])
+        budget = math.ceil(TRAIN_TIE_SHARE * n_patches)
+        for r, res in enumerate(ranks):
+            got = res["steps"][name]["metrics"]
+            errs = {k: abs(got[k] - want[k]) / max(abs(want[k]), 1e-30)
+                    for k in ("loss", "cross_entropy", "kld_loss", "l1", "grad_norm")}
+            dn = abs(got["n_correct"] - want["n_correct"])
+            log(f"  [{tag}] {name} window, rank {r}: loss {got['loss']:.6f} (one process "
+                f"{want['loss']:.6f}); rel err " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+                + f" (tolerance {TRAIN_RTOL:g}); n_correct {got['n_correct']:.0f} vs "
+                f"{want['n_correct']:.0f} of {n_patches} (budget {budget}); n_patches "
+                f"{got['n_patches']:.0f}; head launches {res['steps'][name]['launches']}")
+            if (any(v > TRAIN_RTOL for v in errs.values()) or dn > budget
+                    or got["n_patches"] != want["n_patches"]):
+                raise AssertionError(f"[{tag}] {name} window: rank {r} disagrees")
+        want_l = 1 if name == "fused" else TRAIN_ITER
+        for r, res in enumerate(ranks):
+            if res["steps"][name]["launches"]["prototype_head"] != want_l:
+                raise AssertionError(f"[{tag}] {name}: rank {r} launched the head "
+                                     f"{res['steps'][name]['launches']}, expected {want_l}")
+        digests = {res["steps"][name]["digest"] for res in ranks}
+        log(f"  [{tag}] {name}: parameters after the window "
+            + ("bit-equal on both ranks" if len(digests) == 1 else "DIFFER between ranks"))
+        if len(digests) != 1:
+            raise AssertionError(f"[{tag}] {name}: the ranks' parameters differ")
+        g_rank = torch.load(f"{root}/{tag}/grads_{name}.pt")
+        g_one = torch.load(f"{root}/single/grads_{name}.pt")
+        rel = {n: ((g_rank[n] - g_one[n]).norm() / g_one[n].norm().clamp_min(1e-30)).item()
+               for n in g_one}
+        worst = max(rel, key=rel.get)
+        log(f"  [{tag}] {name}: the update's gradients, {len(rel)} tensors, largest "
+            f"relative L2 error {rel[worst]:.2e} ({worst}), tolerance {TRAIN_GRAD_REL:g}")
+        if rel[worst] > TRAIN_GRAD_REL or set(g_rank) != set(g_one):
+            raise AssertionError(f"[{tag}] {name}: gradients disagree")
+    want = single["steps"]["plain"]["metrics"]["loss"]
+    naive = sum(res["naive"] for res in ranks) / len(ranks)
+    err = abs(naive - want) / abs(want)
+    log(f"  [{tag}] naive control (mean of the ranks' own means): {naive:.6f} against "
+        f"{want:.6f}, rel err {err:.2e}, must exceed {TRAIN_RTOL:g}")
+    if err <= TRAIN_RTOL:
+        raise AssertionError("the naive control matches: the labels cannot see the fault")
+
+    n_pixels = 2 * H * W
+    for r, res in enumerate(ranks):
+        compare_eval(f"[{tag}] rank {r} vs one process", res["eval"], single["eval"],
+                     n_pixels, pc)
+        if (res["eval_launches"]["prototype_head"] != 1
+                or res["eval_launches"]["upsample_argmin"] != 1):
+            raise AssertionError(f"[{tag}] eval launches on rank {r}: {res['eval_launches']}")
+    log(f"  [{tag}] eval launches per rank: {[res['eval_launches'] for res in ranks]}")
+
+    want = single["push"]
+    for r, res in enumerate(ranks):
+        got = res["push"]
+        same = [bool(torch.equal(a, b)) for a, b in zip(got, want)]
+        log(f"  [{tag}] push winners, rank {r}: (min d, frame, row, col, features) equal "
+            f"to one process's {same}; winners per frame "
+            f"{torch.bincount(got[1][got[0] < 1e29], minlength=DP_PUSH_FRAMES).tolist()}; "
+            f"head launches {res['push_launches']}")
+        if not all(same) or res["push_launches"]["prototype_head"] != 1:
+            raise AssertionError(f"[{tag}] push: rank {r} disagrees")
+    seen = want[0] < 1e29
+    if (want[1][seen] == 2).any() or not (want[1][seen] == 0).any():
+        raise AssertionError("push: the repeated frame must lose every tie to frame 0")
+
+    for name, loss_key in (("utility", "loss"), ("noise", "train_loss")):
+        g_rank = torch.load(f"{root}/{tag}/grads_{name}.pt")
+        g_one = torch.load(f"{root}/single/grads_{name}.pt")
+        ref = single["unoise_f64"][name]
+        zero = _zero_bias_names_of(g_one)
+        w = single["unoise"][name]
+        for r, res in enumerate(ranks):
+            s = res["unoise"][name]
+            lerr = {k: abs(s["metrics"][k] - w["metrics"][k]) / abs(w["metrics"][k])
+                    for k in w["metrics"]}
+            serr = max(float(((s["stats"][k] - w["stats"][k]).abs()
+                              - UN_STATS_RTOL * w["stats"][k].abs()).max())
+                       for k in w["stats"])
+            log(f"  [{tag}] U-Noise {name} step, rank {r}: {s['metrics']} (one process "
+                f"{w['metrics']}), rel err {lerr}; running statistics' largest excess "
+                f"over rtol {UN_STATS_RTOL:g}: {serr:.2e} (atol {UN_STATS_ATOL:g})")
+            if any(v > UN_LOSS_RTOL for v in lerr.values()) or serr > UN_STATS_ATOL:
+                raise AssertionError(f"[{tag}] U-Noise {name}: rank {r} disagrees")
+        # phase 11's rule: each gradient tensor held to the f64 step within
+        # UN_F32_FACTOR times the one-process f32 step's own error
+        card = (ranks[0]["unoise"][name]["metrics"][loss_key], _host64(g_rank))
+        one = (w["metrics"][loss_key], g_one)
+        card_err, one_err = (_step_errors(g, ref[1], zero) for g in (card[1], _host64(g_one)))
+        worst = max(card_err[0], key=card_err[0].get)
+        log(f"  [{tag}] U-Noise {name}: loss {card[0]:.7f} sharded, {one[0]:.7f} one "
+            f"process, {ref[0]:.7f} f64; gradients' relative L2 to f64 up to "
+            f"{card_err[0][worst]:.2e} ({worst}; one process "
+            f"{max(one_err[0].values()):.2e}); zero-gradient biases {card_err[1]:.2e} "
+            f"({one_err[1]:.2e}) of all gradients")
+        faults = _step_faults(card, one, ref, card_err, one_err)
+        if faults:
+            raise AssertionError(f"[{tag}] U-Noise {name}: {faults[:6]}")
+
+    for res in ranks:
+        for part in ("eval_launches", "push_launches"):
+            for k, v in res[part].items():
+                report[k]["launches"] += v
+        for name in ("plain", "fused"):
+            for k, v in res["steps"][name]["launches"].items():
+                report[k]["launches"] += v
+
+
+def _zero_bias_names_of(grads):
+    """The U-Net's conv biases ahead of a train-mode BN, by name (every
+    conv bias but the head's): their analytic gradient is 0."""
+    return [n for n in grads if n.endswith(".bias") and not n.startswith("conv1x1")
+            and grads[n].dim() == 1 and n.replace(".bias", ".weight") in grads
+            and grads[n.replace(".bias", ".weight")].dim() == 4]
+
+
+def dp_spawn(root: str, in_path: str, tag: str, devices, backend: str):
+    """Phase 16's ranks on ``devices``: their results, rank by rank."""
+    import os
+
+    import torch
+    from adlm_tpu_torch.core.mesh import spawn_local
+
+    out = os.path.join(root, tag)
+    os.makedirs(out)
+    t0 = time.perf_counter()
+    codes = spawn_local(dp_rank, DP_WORLD, os.path.join(root, f"store_{tag}"), devices,
+                        args=(in_path, out), backend=backend,
+                        timeout_s=DP_COLLECTIVE_TIMEOUT, join_timeout=DP_TIMEOUT)
+    log(f"  [{tag}] {DP_WORLD} ranks ({backend}) on {list(devices)}: exit codes {codes} "
+        f"in {time.perf_counter() - t0:.1f} s (process start-up and the flagship's "
+        f"build included)")
+    if codes != [0] * DP_WORLD:
+        raise AssertionError(f"[{tag}] a rank failed: {codes}")
+    return [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
+            for r in range(DP_WORLD)]
+
+
+def dp_cli_run(root: str, card: str) -> None:
+    """The NCCL world of one through the CLI: ``torchrun --standalone
+    --nproc-per-node 1 -m adlm_tpu_torch.cli train ... --distributed
+    --mesh-data 1`` against the same command without ``--distributed``
+    in this process, then ``eval-test`` of both; the window's time with
+    and without the mesh and the gradient's all-reduce in a world of one
+    in this process."""
+    import os
+
+    from adlm_tpu_torch import cli
+
+    import torch
+
+    data, results = os.path.join(root, "data"), os.path.join(root, "runs")
+    write_dataset(data, DP_TRAIN_FRAMES, SEED + 36, n_val=DP_VAL_FRAMES)
+    train = ["train", "cityscapes_kld_imnet", "{run}", "--data-path", data,
+             "--steps-scale", DP_STEPS_SCALE, "--val-batches", "1", "--push-batch-size", "2"]
+    saved_env = os.environ.get("RESULTS_DIR")
+    saved_det = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    os.environ["RESULTS_DIR"] = results
+    try:
+        # both runs under cuDNN's deterministic algorithms, as phase 10's,
+        # so that bit-equality can be asked for
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            cli.main([a.format(run="one") for a in train])
+        log(f"  train (one process, no mesh): {time.perf_counter() - t0:.1f} s")
+        env = dict(os.environ, RESULTS_DIR=results)
+        argv = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                "--nproc-per-node", "1", "-m", "chip_smoke", "--deterministic-cli",
+                *[a.format(run="world1") for a in train], "--distributed", "--mesh-data", "1"]
+        t0 = time.perf_counter()
+        proc = subprocess.run(argv, env=env, capture_output=True, text=True, timeout=900)
+        log(f"  torchrun --nproc-per-node 1 -m chip_smoke --deterministic-cli train ... "
+            f"--distributed --mesh-data 1 (adlm_tpu_torch.cli's main): exit "
+            f"{proc.returncode} in {time.perf_counter() - t0:.1f} s")
+        if proc.returncode != 0:
+            log("\n".join((proc.stdout + proc.stderr).splitlines()[-40:]))
+            raise AssertionError("the NCCL world-1 run failed")
+        dp_same_run(results, "one", "world1")
+        pngs = {}
+        for run in ("one", "world1"):
+            with contextlib.redirect_stdout(io.StringIO()):
+                cli.main(["eval-test", os.path.join(results, run), "push", "--data-path",
+                          data, "--split", "val"])
+            d = os.path.join(results, run, "evaluation", "push", "test_predictions")
+            pngs[run] = {f: read_png(os.path.join(d, f)) for f in sorted(os.listdir(d))}
+        diff = sum(int((pngs["one"][f] != pngs["world1"][f]).sum()) for f in pngs["one"])
+        budget = math.ceil(TIE_SHARE * DP_VAL_FRAMES * H * W)
+        log(f"  eval-test of both runs: {len(pngs['one'])} PNGs, {diff} pixels differ "
+            f"(phase 4's budget {budget})")
+        if sorted(pngs["one"]) != sorted(pngs["world1"]) or diff > budget:
+            raise AssertionError("eval-test of the world-1 run differs")
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved_det
+        if saved_env is None:
+            os.environ.pop("RESULTS_DIR", None)
+        else:
+            os.environ["RESULTS_DIR"] = saved_env
+    dp_time_world1(root, card)
+
+
+def dp_same_run(results: str, a_run: str, b_run: str, stages=("warmup", "nopush", "push"),
+                limit: float = DP_RUN_L2) -> None:
+    """Two runs' stage checkpoints: bit-equal or not (printed), all
+    weights within ``limit`` relative L2 error, the same classes."""
+    import os
+
+    import torch
+    from adlm_tpu_torch.core.checkpoint import CheckpointStore
+
+    l2 = 0.0
+    for stage in stages:
+        a = CheckpointStore(os.path.join(results, a_run)).restore(stage, "last")
+        b = CheckpointStore(os.path.join(results, b_run)).restore(stage, "last")
+        bad = same_payload(a, b)
+        keys = [k for k in a["state_dict"] if a["state_dict"][k].is_floating_point()]
+        diff = {k: float((a["state_dict"][k].float() - b["state_dict"][k].float()).abs().max())
+                for k in keys}
+        worst = max(diff, key=diff.get)
+        va = torch.cat([a["state_dict"][k].float().flatten() for k in keys])
+        vb = torch.cat([b["state_dict"][k].float().flatten() for k in keys])
+        err = float((va - vb).norm() / va.norm())
+        l2 = max(l2, err)
+        log(f"  run {b_run} against run {a_run}, {stage}_last: "
+            + ("bit-equal" if not bad else f"{len(bad)} entries differ ({bad[:4]}...)")
+            + f"; weights' relative L2 error {err:.2e}, largest entry difference "
+            f"{diff[worst]:.2e} ({worst})")
+        if not torch.equal(a["proto_class"], b["proto_class"]):
+            raise AssertionError(f"{b_run}: {stage} proto_class differs from {a_run}'s")
+    if l2 > limit:
+        raise AssertionError(f"run {b_run} differs from run {a_run} beyond {limit:g}")
+
+
+def dp_time_world1(root: str, card: str) -> None:
+    """A flagship f32 window through the step with a world-1 NCCL mesh
+    and without one, and the all-reduce of its flattened gradient."""
+    import os
+
+    import torch
+    from adlm_tpu_torch.core.config import get_experiment
+    from adlm_tpu_torch.core.mesh import MeshSpec, destroy, make_mesh
+    from adlm_tpu_torch.train.protoseg import init_protoseg_state, make_train_step
+
+    cfg = get_experiment("cityscapes_kld_imnet")
+    dev = torch.device("cuda", 0)
+    mesh = make_mesh(MeshSpec(1, 1), dev, backend="nccl",
+                     init_method="file://" + os.path.join(root, "store_time"),
+                     rank=0, world_size=1)
+    try:
+        images, labels = make_train_batch(cfg, SEED + 37)
+        model = random_model(cfg.model, SEED).to(dev)
+        secs = {}
+        for name, m in (("plain step", None), ("world-1 NCCL step", mesh)):
+            state = init_protoseg_state(model, cfg, 1, cfg.train.joint_steps, device=dev)
+            step = make_train_step(model, cfg, 1, cfg.train.joint_steps, device=dev, mesh=m)
+            step(state, images, labels)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(DP_TIME_ITERS):
+                step(state, images, labels)
+            torch.cuda.synchronize()
+            secs[name] = (time.perf_counter() - t0) / DP_TIME_ITERS
+        n = sum(p.numel() for p in model.parameters() if p.requires_grad)
+        buf = torch.randn(n, device=dev)
+        ms = cuda_ms(lambda: mesh.all_reduce_(buf), 10)
+        log(f"  [{card}] f32 window 2 x 5 x 513^2: plain step {secs['plain step']:.4f} s, "
+            f"world-1 NCCL step {secs['world-1 NCCL step']:.4f} s "
+            f"({100 * (secs['world-1 NCCL step'] / secs['plain step'] - 1):+.2f}%); "
+            f"gradient {n} f32 = {4 * n / 1e6:.1f} MB per window, its all-reduce "
+            f"{ms:.3f} ms (world of one)")
+    finally:
+        destroy(mesh)
+
+
+def dp_multi_card(root: str, in_path: str, single, report, train2) -> None:
+    """Where the machine has two cards: the phase's ranks with NCCL, one
+    card each, against ``single``, and ``train2`` (``train ...
+    --mesh-data 2``) against the one-process run ``one`` of
+    ``dp_cli_run`` over the warmup and joint stages (DP_RUN2_L2)."""
+    import os
+
+    ranks = dp_spawn(root, in_path, "nccl", ["cuda:0", "cuda:1"], "nccl")
+    dp_compare(ranks, single, root, report, "nccl")
+    log("  seconds per NCCL rank, one card each: " + "; ".join(
+        f"rank {r}: window {res['steps']['plain']['secs']:.3f} (one process "
+        f"{single['steps']['plain']['secs']:.3f}), fused {res['steps']['fused']['secs']:.3f} "
+        f"({single['steps']['fused']['secs']:.3f})" for r, res in enumerate(ranks)))
+    env = dict(os.environ, RESULTS_DIR=os.path.join(root, "runs"))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "adlm_tpu_torch.cli", *train2],
+                          env=env, capture_output=True, text=True, timeout=900)
+    log(f"  train --mesh-data 2 (NCCL, cuda:0 and cuda:1): exit {proc.returncode} "
+        f"in {time.perf_counter() - t0:.1f} s")
+    if proc.returncode != 0:
+        log("\n".join((proc.stdout + proc.stderr).splitlines()[-40:]))
+        raise AssertionError("train --mesh-data 2 failed")
+    dp_same_run(os.path.join(root, "runs"), "one", "two", ("warmup", "nopush"), DP_RUN2_L2)
+
+
+def check_parallel(report, card: str) -> None:
+    """Phase 16: the sharded window, eval, push and U-Noise steps on two
+    gloo ranks sharing the card against this process's single-process
+    runs; the NCCL world of one through the CLI; the refusal of more
+    ranks than cards; two NCCL ranks where the machine has two cards."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+    from adlm_tpu_torch import cli
+    from adlm_tpu_torch.core.config import get_experiment
+
+    t_phase = time.perf_counter()
+    cfg = get_experiment("cityscapes_kld_imnet")
+    root = tempfile.mkdtemp(prefix="adlm_dp_")
+    saved_det = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    try:
+        in_path = os.path.join(root, "inputs.pt")
+        dp_inputs(in_path, cfg)
+        ranks = dp_spawn(root, in_path, "gloo", ["cuda:0"] * DP_WORLD, "gloo")
+        os.makedirs(os.path.join(root, "single"))
+        t0 = time.perf_counter()
+        inp = torch.load(in_path, weights_only=False)
+        single = dp_work(cfg, inp, torch.device("cuda", 0), None, os.path.join(root, "single"))
+        log(f"  single-process runs in {time.perf_counter() - t0:.1f} s")
+        single["unoise_f64"] = dp_unoise_f64(inp)
+        dp_compare(ranks, single, root, report, "gloo")
+        log("  seconds on each gloo rank sharing the card (host-staged collectives: "
+            "not a speed figure): " + "; ".join(
+                f"rank {r}: window {res['steps']['plain']['secs']:.2f} (one process "
+                f"{single['steps']['plain']['secs']:.2f}), fused "
+                f"{res['steps']['fused']['secs']:.2f} ({single['steps']['fused']['secs']:.2f}), "
+                f"eval {res['eval_secs']:.2f} ({single['eval_secs']:.2f}), push "
+                f"{res['push_secs']:.2f} ({single['push_secs']:.2f}), utility "
+                f"{res['unoise']['utility']['secs']:.2f}, noise "
+                f"{res['unoise']['noise']['secs']:.2f}" for r, res in enumerate(ranks)))
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved_det
+        torch.cuda.empty_cache()
+
+        dp_cli_run(root, card)
+
+        n_cards = torch.cuda.device_count()
+        train2 = ["train", "cityscapes_kld_imnet", "two", "--data-path",
+                  os.path.join(root, "data"), "--steps-scale", DP_STEPS_SCALE,
+                  "--val-batches", "1", "--push-batch-size", "2", "--mesh-data", "2"]
+        if n_cards < 2:
+            msg, saved_env = None, os.environ.get("RESULTS_DIR")
+            os.environ["RESULTS_DIR"] = os.path.join(root, "runs")
+            try:
+                with contextlib.redirect_stdout(io.StringIO()):
+                    cli.main(train2)
+            except SystemExit as e:
+                msg = str(e)
+            finally:
+                if saved_env is None:
+                    os.environ.pop("RESULTS_DIR", None)
+                else:
+                    os.environ["RESULTS_DIR"] = saved_env
+            log(f"  train --mesh-data 2 on {n_cards} card: exits with {msg!r}")
+            if not msg or "card" not in msg:
+                raise AssertionError("train --mesh-data 2 on one card did not refuse")
+            log("  two NCCL ranks, one card each, and train --mesh-data 2: skipped, this "
+                "machine has one card")
+        else:
+            dp_multi_card(root, in_path, single, report, train2)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved_det
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"  phase 16 {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels-only", action="store_true",
                     help="build and hold the kernels, then stop")
+    ap.add_argument("--deterministic-cli", nargs=argparse.REMAINDER, default=None,
+                    metavar="ARGS", help="run adlm_tpu_torch.cli with ARGS under cuDNN's "
+                    "deterministic algorithms (phase 16 starts this under torchrun)")
     args = ap.parse_args()
+    if args.deterministic_cli is not None:
+        import torch
+        from adlm_tpu_torch import cli
+
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+        return cli.main(args.deterministic_cli) or 0
 
     try:
         import torch
@@ -5492,6 +6155,11 @@ def main() -> int:
             "gen-image-list, img-to-numpy and preprocess-pancreas through the CLI on raw "
             "trees, object masks, then the flagship's eval-valid on the prepared frames")
         check_prepare(report, card)
+
+        log("[16] data parallelism: two gloo ranks sharing the card (joint window, eval, "
+            "push, U-Noise) against one process, the NCCL world of one through torchrun, "
+            "more ranks than cards refused")
+        check_parallel(report, card)
     except Exception:  # report any failure and exit non-zero
         traceback.print_exc()
         log(f"FAILED after {time.perf_counter() - t_start:.1f} s")

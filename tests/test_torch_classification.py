@@ -638,6 +638,8 @@ def test_cli_train_prune_and_import(tmp_path, monkeypatch):
     with pytest.raises(SystemExit, match="uninitialized"):
         cli.main(["import-protopnet", "imp3", str(tmp_path / "cut.pth"), "--arch", "resnet18",
                   "--img-size", str(HW), "--device", "cpu"])
-    with pytest.raises(SystemExit, match="Queue 1 item"):
-        cli.main(["cls-train", "x", "--mesh-data", "2"] + dirs)
+    # --mesh-data is ported (its 2-rank run: tests/test_torch_mesh.py); the
+    # batch must divide over it, as in the JAX CLI
+    with pytest.raises(SystemExit, match="divisible by --mesh-data"):
+        cli.main(["cls-train", "x", "--mesh-data", "3", "--batch-size", "4"] + dirs)
     assert dataclasses.asdict(cfg)["model"]["base_architecture"] == "resnet18"

@@ -7,7 +7,8 @@ the CPU on its own.
   importing the data modules loads no ``torch`` (the loader's spawned
   workers import them).
 * The entry points, built without a ``device`` on a host without CUDA,
-  raise instead of running on the CPU.
+  raise instead of running on the CPU; so do a mesh rank and the
+  multi-rank commands (``core/mesh.py``, ``--mesh-data``).
 * The kernel sources the build compiles are in the package, and each
   wrapper declares the ``ctypes`` signatures of its launchers as the C
   source defines them.
@@ -74,7 +75,7 @@ def test_port_imports_nothing_of_jax():
               "models.backbones", "data.image_folder", "train.classification",
               "train.classification_pipeline", "utils.receptive_field",
               "interpret.windowed", "deploy", "deploy.export", "deploy.server",
-              "deploy.precompile"):
+              "deploy.precompile", "core.mesh", "parallel", "parallel.sharding"):
         assert f"adlm_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
@@ -255,6 +256,24 @@ def test_entry_points_without_device_raise_on_a_host_without_cuda(
         metrics = out()
         assert all(bool(torch.isfinite(v).all()) for v in metrics.values())
     assert all(p.device.type == "cpu" for p in model.parameters())
+
+
+def test_mesh_ranks_without_a_card_raise_and_write_nothing(no_cuda, tmp_path, monkeypatch):
+    """A rank built for the card on a host without one raises, as does a
+    multi-rank command before it starts a rank or writes a file."""
+    from adlm_tpu_torch import cli
+    from adlm_tpu_torch.core.mesh import MeshSpec, make_mesh
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_mesh(MeshSpec(1, 1))
+    assert make_mesh(MeshSpec(1, 1), "cpu").device.type == "cpu"
+    monkeypatch.setenv("RESULTS_DIR", str(tmp_path))
+    for argv in (["train", "smoke", "run", "--mesh-data", "2"],
+                 ["unoise-train-util", "--mesh-data", "2", "--batch-size", "4"],
+                 ["cls-train", "run", "--mesh-data", "2", "--batch-size", "4"]):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cli.main(argv)
+    assert list(tmp_path.iterdir()) == []
 
 
 def test_kernel_build_needs_the_card(no_cuda):
