@@ -30,7 +30,14 @@ Several cards (``core/mesh.py``, ``parallel/sharding.py``): ``--mesh-data N
 ``cls-train`` and ``unoise-train-*`` starts N·M local ranks itself, one
 card each (gloo ranks on the CPU under ``--device cpu``), joined through
 a file store in the run directory; ``train ... --distributed`` takes the
-world from ``torchrun``'s environment instead.
+world from ``torchrun``'s environment instead.  On eval, ``--mesh-model
+M`` > 1 also splits image H over the M ranks of each data coordinate
+(spatial eval, ``parallel/spatial.py``).
+
+The training commands (``train``, ``unoise-train-*``, ``cls-train``) run
+cuDNN's deterministic algorithms (``core.device.deterministic_cudnn``),
+so that a run resumed with the same arguments replays an unbroken one
+on the same card.
 
 A run directory written by either package's ``train`` (or
 ``unoise-train-*``) has the same layout and config files; the
@@ -103,6 +110,20 @@ def apply_train_overrides(cfg, bf16: bool, fused: bool, s2b: bool,
         cfg = dataclasses.replace(cfg, model=dataclasses.replace(
             cfg.model, dilated_space_to_batch=True))
     return cfg
+
+
+def _deterministic(cmd):
+    """A training command, run under cuDNN's deterministic algorithms."""
+    import functools
+
+    @functools.wraps(cmd)
+    def run(args, mesh=None):
+        from adlm_tpu_torch.core.device import deterministic_cudnn
+
+        with deterministic_cudnn():
+            return cmd(args, mesh=mesh)
+
+    return run
 
 
 def _rank_main(dev, mesh_args, argv):
@@ -186,6 +207,7 @@ def _mesh_for(args, store_dir: str, batch_size=None):
     return None, 0
 
 
+@_deterministic
 def cmd_train(args, mesh=None):
     from adlm_tpu_torch.core.device import resolve_device
 
@@ -282,15 +304,22 @@ def _window(spec: str):
 
 def _eval_mesh(args, mesh):
     """(mesh, exit code) of an eval command: the batch split over
-    ``--mesh-data`` ranks; ``--mesh-model`` > 1 (spatial eval) exits."""
-    if getattr(args, "mesh_model", 1) > 1:
-        raise SystemExit("--mesh-model > 1 (spatial eval: image H sharded over the "
-                         "model axis) is not ported yet (ROADMAP.md Queue 1 item 9b)")
+    ``--mesh-data`` ranks and image H over ``--mesh-model`` ranks (spatial
+    eval; an MSC experiment there exits)."""
     if mesh is not None:
         return mesh, None
-    if args.windowed and getattr(args, "mesh_data", 0):
+    if args.windowed and (getattr(args, "mesh_data", 0) or args.mesh_model > 1):
         raise SystemExit("--mesh-* shards whole-image eval; windowed mode is "
                          "the single-device memory-bounded alternative")
+    if args.mesh_model > 1:
+        from adlm_tpu_torch.core.checkpoint import CheckpointStore
+        from adlm_tpu_torch.core.config import ExperimentConfig
+
+        cfg = ExperimentConfig.from_json(CheckpointStore(args.run_dir).load_config_json())
+        if cfg.model.msc_scales:
+            raise SystemExit(f"--mesh-model > 1 (spatial eval) of an MSC experiment "
+                             f"(msc_scales {tuple(cfg.model.msc_scales)}) is not ported "
+                             f"yet (ROADMAP.md Queue 1 item 9b)")
     return _mesh_for(args, args.run_dir, batch_size=args.batch_size)
 
 
@@ -427,6 +456,11 @@ def cmd_eval_test(args, mesh=None):
 
         fn = WindowedSegEvaluator(model, cfg.model.num_classes, _window(args.windowed),
                                   normalize=normalize, device=dev).update
+    elif mesh is not None and mesh.model > 1:
+        from adlm_tpu_torch.parallel.sharding import make_sharded_inference_fn
+
+        fn = make_sharded_inference_fn(model, cfg.model.num_classes, mesh,
+                                       normalize=normalize)
     else:
         fn = make_inference_fn(model, cfg.model.num_classes, normalize=normalize,
                                device=dev)
@@ -444,11 +478,12 @@ def cmd_eval_test(args, mesh=None):
 
 
 def _sharded_eval_test(args, mesh, ds, fn, proto_class, lut, raw, out_dir):
-    """eval-test over a mesh: each rank's slice of every batch, the
-    predictions gathered (a zero-filled buffer each rank fills) and
-    written by the first rank."""
+    """eval-test over a mesh: each rank's slice of every batch (and under
+    spatial eval its rows of each frame), the predictions gathered (a
+    zero-filled buffer each rank fills) and written by the first rank."""
     import torch
 
+    from adlm_tpu_torch.core.mesh import row_range
     from adlm_tpu_torch.data.pipeline import device_prefetch
     from adlm_tpu_torch.interpret.visualize import write_png
 
@@ -456,7 +491,17 @@ def _sharded_eval_test(args, mesh, ds, fn, proto_class, lut, raw, out_dir):
                             shard=(mesh.data_index, mesh.data))
     start = 0
     for img, lab, n_real in device_prefetch(items, device=mesh.device):
-        pred = mesh.gather_rows(fn(proto_class, img, lab)["pred"].to(torch.int32))
+        if mesh.model > 1:
+            b, H = lab.shape[0], lab.shape[1]
+            out = fn(proto_class, img, lab, n_valid=n_real)
+            full = torch.zeros((b * mesh.data,) + tuple(lab.shape[1:]), dtype=torch.int32,
+                               device=mesh.device)
+            if "pred" in out:
+                lo, hi = row_range(mesh.model_index, H, mesh.model)
+                full[mesh.data_index * b:(mesh.data_index + 1) * b, lo:hi] = out["pred"]
+            pred = mesh.all_reduce_world_(full)
+        else:
+            pred = mesh.gather_rows(fn(proto_class, img, lab)["pred"].to(torch.int32))
         if mesh.is_main:
             pred = pred.cpu().numpy().astype(np.uint8)
             for j in range(n_real):
@@ -515,6 +560,7 @@ def _unoise_model(run_dir: str, kind: str, dev, bf16: bool,
     return cast_params(model, "bfloat16") if bf16 else model
 
 
+@_deterministic
 def cmd_unoise_train_util(args, mesh=None):
     from adlm_tpu_torch.train.unoise_pipeline import results_dir, train_utility
 
@@ -526,6 +572,7 @@ def cmd_unoise_train_util(args, mesh=None):
     train_utility(args, mesh=mesh)
 
 
+@_deterministic
 def cmd_unoise_train_noise(args, mesh=None):
     from adlm_tpu_torch.train.unoise_pipeline import results_dir, train_noise
 
@@ -691,6 +738,7 @@ def cmd_img_to_numpy(args):
     print(f"converted {n} images")
 
 
+@_deterministic
 def cmd_cls_train(args, mesh=None):
     """ProtoPNet image-classification training (reference main.py:107-189
     over ImageFolder datasets, settings.py:14-17 environment)."""
@@ -1157,8 +1205,9 @@ def _add_mesh(p, model: bool = True, distributed: bool = False,
         p.add_argument("--mesh-model", type=int, default=1,
                        help="model mesh axis size: ranks that share a data "
                             "coordinate take the same batch slice (on eval, "
-                            "> 1 is spatial sharding, not ported yet: "
-                            "ROADMAP.md Queue 1 item 9b)")
+                            "> 1 splits image H over them: spatial eval, "
+                            "whose MSC experiments are ROADMAP.md Queue 1 "
+                            "item 9b)")
     if distributed:
         p.add_argument("--distributed", action="store_true",
                        help="join the world torchrun describes (RANK, "

@@ -78,6 +78,21 @@ def ieee_f32() -> Iterator[None]:
         cudnn.allow_tf32, matmul.allow_tf32 = saved
 
 
+@contextlib.contextmanager
+def deterministic_cudnn() -> Iterator[None]:
+    """Run cuDNN's deterministic algorithms, chosen without autotuning
+    (``cudnn.deterministic``, no ``cudnn.benchmark``), so that a run
+    repeats bit for bit on the same card; the caller's flags come back
+    afterwards.  The training commands run in this scope."""
+    cudnn = torch.backends.cudnn
+    saved = (cudnn.deterministic, cudnn.benchmark)
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
+
+
 def to_device(x, device: torch.device, dtype: Optional[torch.dtype] = None
               ) -> torch.Tensor:
     """numpy array or tensor → tensor on ``device``."""

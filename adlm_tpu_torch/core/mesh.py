@@ -8,11 +8,19 @@ One process per rank.  The JAX package lays its devices out as
 and the gradient and the batch statistics reduce over the ranks that
 share a ``model`` coordinate (the "data group").
 
+The ranks that share a ``data`` coordinate form the "model group"; under
+spatial eval (``parallel/spatial.py``) they split image H between them
+and trade the rows a convolution reads across their boundary
+(``exchange_rows``).
+
 Every collective is an ``all_reduce`` (SUM or MIN) or a ``broadcast``,
 which NCCL, gloo on the CPU and gloo on CUDA tensors all take: a gather
 is an all-reduce of a zero-filled buffer in which each rank fills its
 own rows, and an argmin across ranks is two MIN reductions (the value,
-then the global index among the ranks that hold it).
+then the global index among the ranks that hold it).  Gloo's
+``send``/``recv`` take CPU tensors only, and NCCL refuses two ranks on
+one card, so point-to-point copies serve neither case: the row
+exchange is such a zero-filled all-reduce too.
 
 A world of one built without a process group (``make_mesh()`` in a
 plain process) runs no collective at all; a world of one inside an
@@ -27,6 +35,7 @@ card.
 from __future__ import annotations
 
 import datetime
+import math
 import multiprocessing
 import os
 import time
@@ -37,7 +46,7 @@ import numpy as np
 import torch
 
 DEFAULT_TIMEOUT = datetime.timedelta(minutes=10)
-_SELF = "self"  # the data group of a rank that is alone on its data line
+_SELF = "self"  # the group of a rank that is alone on its line of the mesh
 
 
 @dataclass(frozen=True)
@@ -71,6 +80,13 @@ def default_backend(device: torch.device) -> str:
     return "nccl" if device.type == "cuda" else "gloo"
 
 
+def _reduce(t: torch.Tensor, op: str, group: Any) -> None:
+    import torch.distributed as dist
+
+    dist.all_reduce(t, op={"sum": dist.ReduceOp.SUM, "min": dist.ReduceOp.MIN}[op],
+                    group=group)
+
+
 class _SumAllReduce(torch.autograd.Function):
     """SUM over a group; the backward sums the incoming gradients over the
     same group (each rank's loss reads the sum)."""
@@ -93,12 +109,41 @@ class _SumAllReduce(torch.autograd.Function):
         return grad, None
 
 
+def row_range(index: int, n: int, parts: int) -> Tuple[int, int]:
+    """Rows [lo, hi) of ``n`` that part ``index`` of ``parts`` holds:
+    [⌊index·n/parts⌋, ⌊(index + 1)·n/parts⌋)."""
+    return index * n // parts, (index + 1) * n // parts
+
+
+def row_sources(owned: Sequence[Tuple[int, int]], need: Tuple[int, int]
+                ) -> List[Tuple[int, int, int]]:
+    """Where each row of the global range ``need`` = [lo, hi) comes from,
+    as consecutive (lo, hi, source) pieces that cover it exactly once:
+    source −1 for rows past the image edge (the fill), else the index of
+    the part whose ``owned`` range holds them.  ``owned`` partitions the
+    image's rows in order."""
+    lo, hi = need
+    height = owned[-1][1]
+    out: List[Tuple[int, int, int]] = []
+    if lo < min(hi, 0):
+        out.append((lo, min(hi, 0), -1))
+    for q, (a, b) in enumerate(owned):
+        s, e = max(a, lo), min(b, hi)
+        if s < e:
+            out.append((s, e, q))
+    if max(lo, height) < hi:
+        out.append((max(lo, height), hi, -1))
+    return out
+
+
 @dataclass
 class Mesh:
     """This process's place in a (data, model) mesh, its device, the
-    backend of its process group (None where none runs) and its data
+    backend of its process group (None where none runs), its data
     group: the ranks that share its ``model`` coordinate, over which the
-    gradients and the batch statistics reduce (None: the whole world)."""
+    gradients and the batch statistics reduce (None: the whole world),
+    and its model group: the ranks that share its ``data`` coordinate,
+    which split image H under spatial eval (None: the whole world)."""
 
     data: int
     model: int
@@ -106,6 +151,7 @@ class Mesh:
     device: torch.device
     backend: Optional[str] = None
     data_group: Any = None
+    model_group: Any = _SELF
 
     @property
     def world(self) -> int:
@@ -148,11 +194,13 @@ class Mesh:
     def all_reduce_(self, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
         """In place, SUM or MIN."""
         if not self._alone():
-            import torch.distributed as dist
+            _reduce(t, op, self.data_group)
+        return t
 
-            dist.all_reduce(t, op={"sum": dist.ReduceOp.SUM,
-                                   "min": dist.ReduceOp.MIN}[op],
-                            group=self.data_group)
+    def all_reduce_world_(self, t: torch.Tensor) -> torch.Tensor:
+        """SUM over every rank of the world, in place."""
+        if self.distributed and self.world > 1:
+            _reduce(t, "sum", None)
         return t
 
     def all_reduce_grad(self, t: torch.Tensor) -> torch.Tensor:
@@ -196,6 +244,63 @@ class Mesh:
         buf = local.new_zeros((b * self.data,) + tuple(local.shape[1:]))
         buf[self.data_index * b:(self.data_index + 1) * b] = local
         return self.all_reduce_(buf)
+
+    # -- the row exchange over the model group -------------------------------
+
+    def exchange_rows(self, local: torch.Tensor, dim: int,
+                      owned: Sequence[Tuple[int, int]],
+                      need: Sequence[Tuple[int, int]], fill: float = 0.0) -> torch.Tensor:
+        """Rows ``need[me]`` (global, half-open, may reach past the image)
+        of a tensor whose rows along ``dim`` the model group splits as
+        ``owned`` (one (lo, hi) per model index, in order);
+        ``local`` holds this rank's ``owned[me]``.  Rows past the image
+        edge are ``fill`` (0 for a convolution's padding, −inf for a max
+        pool's).
+
+        Every rank knows every rank's ``owned`` and ``need`` from the
+        geometry, so one collective moves all of it: a zero-filled buffer
+        with a slot for each row that some rank needs from another, in
+        which each rank writes the rows it holds, SUM-reduced over the
+        model group as int32 words (exact bits whatever the dtype: each
+        word has one writer, so the sum adds zeros to it).  Rows needed
+        from several ranks (a halo wider than a neighbour's rows) come
+        from each of them."""
+        me = self.model_index
+        olo, ohi = owned[me]
+        if local.shape[dim] != ohi - olo:
+            raise ValueError(f"rank holds {local.shape[dim]} rows, the plan "
+                             f"gives it [{olo}, {ohi})")
+        # the slot of every (requester, piece) another rank fills
+        slots, n_rows = [], 0
+        for q in range(self.model):
+            for lo, hi, src in row_sources(owned, need[q]):
+                if src not in (-1, q):
+                    slots.append((q, lo, hi, src, n_rows))
+                    n_rows += hi - lo
+        recv = None
+        if n_rows:
+            shape = list(local.shape)
+            shape[dim] = n_rows
+            nbytes = math.prod(shape) * local.element_size()
+            words = torch.zeros(-(-nbytes // 4), dtype=torch.int32, device=local.device)
+            recv = words.view(torch.uint8)[:nbytes].view(local.dtype).view(shape)
+            for q, lo, hi, src, off in slots:
+                if src == me:
+                    recv.narrow(dim, off, hi - lo).copy_(local.narrow(dim, lo - olo, hi - lo))
+            if self.distributed and self.model > 1:
+                _reduce(words, "sum", self.model_group)
+        pieces = []
+        mine = {(lo, hi): off for q, lo, hi, _, off in slots if q == me}
+        for lo, hi, src in row_sources(owned, need[me]):
+            if src == -1:
+                shape = list(local.shape)
+                shape[dim] = hi - lo
+                pieces.append(local.new_full(shape, fill))
+            elif src == me:
+                pieces.append(local.narrow(dim, lo - olo, hi - lo))
+            else:
+                pieces.append(recv.narrow(dim, mine[(lo, hi)], hi - lo))
+        return pieces[0] if len(pieces) == 1 else torch.cat(pieces, dim)
 
     def broadcast_(self, tensors: Iterable[torch.Tensor], src: int = 0) -> None:
         """Overwrite ``tensors`` with rank ``src``'s, over the world."""
@@ -269,15 +374,24 @@ def make_mesh(spec: MeshSpec = MeshSpec(), device: Any = None,
     world, rank = dist.get_world_size(), dist.get_rank()
     data, model = spec.resolve(world)
     group = None if model == 1 else _SELF if data == 1 else None
+    model_group = None if data == 1 else _SELF if model == 1 else None
     if model > 1 and data > 1:
         # new_group is collective: every rank creates every data line's
-        # group (the ranks of one model coordinate), in order
-        for line in mesh_coords(data, model).T:
+        # group (the ranks of one model coordinate), then every model
+        # group (the ranks of one data coordinate), in order
+        coords = mesh_coords(data, model)
+        for line in coords.T:
             ranks = [int(r) for r in line]
             g = dist.new_group(ranks)
             if rank in ranks:
                 group = g
-    return Mesh(data, model, rank, dev, backend=dist.get_backend(), data_group=group)
+        for line in coords:
+            ranks = [int(r) for r in line]
+            g = dist.new_group(ranks)
+            if rank in ranks:
+                model_group = g
+    return Mesh(data, model, rank, dev, backend=dist.get_backend(), data_group=group,
+                model_group=model_group)
 
 
 def init_distributed(spec: MeshSpec, device: Any = None,

@@ -10,6 +10,13 @@
 // first-occurrence ties (strict < in ascending p), without the
 // upsampled (B, H, W, P) tensor ever existing in memory.
 //
+// A launch may cover an output-row window [o0, o0 + rows) of the whole
+// (H, W) result alone, from a slab of the map: rows [y_first,
+// y_first + hs) of its h rows.  The coordinates stay the whole map's, so
+// a window's rows equal the same rows of the whole-frame launch (o0 = 0,
+// rows = H, y_first = 0, hs = h) bit for bit.  Spatial eval runs it so,
+// each rank on its own label rows.
+//
 // Arithmetic: exact float32 in the order of the plain version
 // (adlm_tpu_torch/ops/upsample_argmin.py::upsampled_argmin_reference):
 // source coordinate (o + 0.5) * float32(h / H) - 0.5 clipped to
@@ -28,7 +35,11 @@
 // once per W block, then a y pass per row block.
 //
 // * A CTA owns a kTH x kTW (64 x 32) output tile of one image: 8 warps,
-//   one per group of kR = 8 output rows, a lane per output column.  It
+//   one per group of kR = 8 output rows, a lane per output column.
+//   Where the source box of such a tile does not fit shared memory (a
+//   downsample past about 2x), the launcher shrinks the tile (th rows,
+//   tw columns) until it does; the lanes and warps past it repeat its
+//   last column and row and write nothing.  It
 //   walks the prototypes in chunks of pc (up to 64; 3 chunks at the
 //   flagship P = 190).  For each chunk it stages the source box its
 //   tile reads (rows x cols pixels x pc prototypes; 11 x 7 at the
@@ -170,16 +181,17 @@ __device__ __forceinline__ void y_pass_pair(const float* fx, int np, int p0, int
 }
 
 // y pass with each row's own fx rows: two loads per output and prototype.
-// Rows oy0 .. oy0 + kR - 1 (clipped to H - 1); their taps are computed
-// again here rather than held in registers by every thread.
+// Rows oy0 .. oy0 + kR - 1 (clipped to the tile's last row ly); their
+// taps are computed again here rather than held in registers by every
+// thread.
 __device__ __forceinline__ void y_pass_rows(const float* fx, int np, int p0, int oy0,
-                                            int H, float scale_y, int h, int ty0,
+                                            int ly, float scale_y, int h, int ty0,
                                             const float (&vy)[kR], const float (&wy)[kR],
                                             float (&best)[kR], int (&arg)[kR]) {
 #pragma unroll
   for (int i = 0; i < kR; ++i) {
     int ka, kb;
-    y_taps(min(oy0 + i, H - 1), scale_y, h, ty0, ka, kb);
+    y_taps(min(oy0 + i, ly), scale_y, h, ty0, ka, kb);
     const float* fa = fx + ka * np * kTW;
     const float* fb = fx + kb * np * kTW;
     for (int j = 0; j < np; ++j) {
@@ -195,7 +207,8 @@ __device__ __forceinline__ void y_pass_rows(const float* fx, int np, int p0, int
 template <typename T>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
 upsample_argmin_kernel(const T* __restrict__ dist, int32_t* __restrict__ out,
-                       int h, int w, int p, int H, int W, float scale_y,
+                       int h, int w, int p, int H, int W, int o0, int o_end,
+                       int y_first, int hs, int th, int tw, float scale_y,
                        float scale_x, int ext_h, int ext_w, int pc, int slot_w) {
   extern __shared__ __align__(16) unsigned char smem[];
   // [box: ext_h*ext_w*slot_w words][fx: ext_h * pc * kTW floats]
@@ -205,35 +218,37 @@ upsample_argmin_kernel(const T* __restrict__ dist, int32_t* __restrict__ out,
   int* pix_off = reinterpret_cast<int*>(fx + ext_h * pc * kTW);
 
   const int b = blockIdx.z;
-  const int by = blockIdx.y * kTH, bx = blockIdx.x * kTW;
+  const int by = o0 + blockIdx.y * th, bx = blockIdx.x * tw;
   const int tx = threadIdx.x, ty = threadIdx.y;
   const int tid = ty * kTW + tx;
+  // the tile's last output row and column
+  const int ly = min(by + th, o_end) - 1, lx = min(bx + tw, W) - 1;
 
   // the source rows / columns the tile reads: from the low tap of its
   // first output row / column to the high tap of its last
   const int ty0 = static_cast<int>(floorf(src_coord(by, scale_y, h)));
   const int tx0 = static_cast<int>(floorf(src_coord(bx, scale_x, w)));
-  const int ty1 = static_cast<int>(floorf(src_coord(min(by + kTH - 1, H - 1), scale_y, h)));
-  const int tx1 = static_cast<int>(floorf(src_coord(min(bx + kTW - 1, W - 1), scale_x, w)));
+  const int ty1 = static_cast<int>(floorf(src_coord(ly, scale_y, h)));
+  const int tx1 = static_cast<int>(floorf(src_coord(lx, scale_x, w)));
   const int rows = min(ty1 + 1, h - 1) - ty0 + 1;
   const int cols = min(tx1 + 1, w - 1) - tx0 + 1;
   const int npix = rows * cols;
 
-  const T* src = dist + static_cast<int64_t>(b) * h * w * p;
+  const T* src = dist + static_cast<int64_t>(b) * hs * w * p;
   for (int q = tid; q < npix; q += kThreads) {
     const int r = q / cols;  // once per box pixel and CTA
-    pix_off[q] = ((ty0 + r) * w + tx0 + (q - r * cols)) * p;
+    pix_off[q] = ((ty0 - y_first + r) * w + tx0 + (q - r * cols)) * p;
   }
 
-  // this thread's column (threads past the edge compute the last
+  // this thread's column (threads past the tile compute its last
   // column's and write nothing): its x taps, relative to the box
-  const float sx = src_coord(min(bx + tx, W - 1), scale_x, w);
+  const float sx = src_coord(min(bx + tx, lx), scale_x, w);
   const int x0 = static_cast<int>(floorf(sx));
   const float wx = __fsub_rn(sx, static_cast<float>(x0));
   const float vx = __fsub_rn(1.f, wx);
   const int cx0 = x0 - tx0, cx1 = min(x0 + 1, w - 1) - tx0;
 
-  // its kR rows (past the edge: the last row's): y taps relative to the
+  // its kR rows (past the tile: its last row's): y taps relative to the
   // box, and whether they read two adjacent tap pairs only
   const int oy0 = by + ty * kR;
   float vy[kR], wy[kR];
@@ -242,7 +257,7 @@ upsample_argmin_kernel(const T* __restrict__ dist, int32_t* __restrict__ out,
 #pragma unroll
   for (int i = 0; i < kR; ++i) {
     int ka, kb;
-    wy[i] = y_taps(min(oy0 + i, H - 1), scale_y, h, ty0, ka, kb);
+    wy[i] = y_taps(min(oy0 + i, ly), scale_y, h, ty0, ka, kb);
     vy[i] = __fsub_rn(1.f, wy[i]);
     if (i == 0) {
       k0 = ka;
@@ -303,16 +318,16 @@ upsample_argmin_kernel(const T* __restrict__ dist, int32_t* __restrict__ out,
         default: y_pass_pair<kR>(fx + tx, np, p0, k0, k1, k2, vy, wy, best, arg); break;
       }
     } else {
-      y_pass_rows(fx + tx, np, p0, oy0, H, scale_y, h, ty0, vy, wy, best, arg);
+      y_pass_rows(fx + tx, np, p0, oy0, ly, scale_y, h, ty0, vy, wy, best, arg);
     }
   }
 
   const int ox = bx + tx;
-  if (ox < W) {
+  if (ox <= lx) {
 #pragma unroll
     for (int i = 0; i < kR; ++i) {
       const int oy = oy0 + i;
-      if (oy < H) out[(static_cast<int64_t>(b) * H + oy) * W + ox] = arg[i];
+      if (oy <= ly) out[(static_cast<int64_t>(b) * (o_end - o0) + oy - o0) * W + ox] = arg[i];
     }
   }
 }
@@ -340,26 +355,40 @@ size_t smem_bytes(int pc, int elem, int ext_h, int ext_w, int* slot_w) {
 }
 
 template <typename T>
-int launch(const void* dist, int32_t* out, int b, int h, int w, int p, int H,
-                  int W, cudaStream_t stream) {
+int launch(const void* dist, int32_t* out, int b, int h, int w, int p, int H, int W,
+           int o0, int rows, int y_first, int hs, cudaStream_t stream) {
   // float32(h / H), as the plain version computes it
   const float scale_y = static_cast<float>(static_cast<double>(h) / H);
   const float scale_x = static_cast<float>(static_cast<double>(w) / W);
-  const int ext_h = stage_extent(kTH, h, H);
-  const int ext_w = stage_extent(kTW, w, W);
-  int pc = p < kMaxChunk ? p : kMaxChunk;
-  int slot_w = 0;
-  while (pc > 1 && smem_bytes(pc, sizeof(T), ext_h, ext_w, &slot_w) > kSmemTarget) --pc;
-  const size_t smem = smem_bytes(pc, sizeof(T), ext_h, ext_w, &slot_w);
-  if (smem > kSmemMax) return cudaErrorInvalidValue;  // one tile reads too much source
+  // the whole tile where its box fits (every upsample); else halve the
+  // tile's rows (down to one warp's kR) or columns, whichever spans more
+  // source, until it does
+  int th = kTH, tw = kTW, ext_h, ext_w, pc, slot_w = 0;
+  size_t smem;
+  for (;;) {
+    ext_h = stage_extent(th, h, H);
+    ext_w = stage_extent(tw, w, W);
+    pc = p < kMaxChunk ? p : kMaxChunk;
+    while (pc > 1 && smem_bytes(pc, sizeof(T), ext_h, ext_w, &slot_w) > kSmemTarget) --pc;
+    smem = smem_bytes(pc, sizeof(T), ext_h, ext_w, &slot_w);
+    if (smem <= kSmemMax) break;
+    if (th > kR && (ext_h >= ext_w || tw == 1)) {
+      th /= 2;
+    } else if (tw > 1) {
+      tw /= 2;
+    } else {
+      return cudaErrorInvalidValue;  // one row group of one column reads too much
+    }
+  }
   auto kernel = upsample_argmin_kernel<T>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid((W + kTW - 1) / kTW, (H + kTH - 1) / kTH, b);
+  const dim3 grid((W + tw - 1) / tw, (rows + th - 1) / th, b);
   const dim3 block(kTW, kGroups);
-  kernel<<<grid, block, smem, stream>>>(static_cast<const T*>(dist), out, h, w, p, H, W,
-                                        scale_y, scale_x, ext_h, ext_w, pc, slot_w);
+  kernel<<<grid, block, smem, stream>>>(static_cast<const T*>(dist), out, h, w, p, H, W, o0,
+                                        o0 + rows, y_first, hs, th, tw, scale_y, scale_x,
+                                        ext_h, ext_w, pc, slot_w);
   return cudaGetLastError();
 }
 
@@ -367,17 +396,24 @@ int launch(const void* dist, int32_t* out, int b, int h, int w, int p, int H,
 
 extern "C" {
 
-// dist: (b, h, w, p) f32 or bf16 (bf16 != 0), contiguous; out: (b, H, W)
-// int32.  Returns a cudaError_t (0 on a successful launch).
+// dist: (b, hs, w, p) f32 or bf16 (bf16 != 0), contiguous: rows
+// [y_first, y_first + hs) of a (b, h, w, p) map, which must hold every
+// row that output rows [o0, o0 + rows) read; out: (b, rows, W) int32,
+// rows [o0, o0 + rows) of the (b, H, W) result.  The whole frame is
+// (o0, rows, y_first, hs) = (0, H, 0, h).  Returns a cudaError_t (0 on a
+// successful launch).
 int adlm_upsample_argmin(const void* dist, int bf16, int32_t* out, int b, int h,
-                         int w, int p, int H, int W, void* stream) {
-  if (b <= 0 || H <= 0 || W <= 0) return cudaSuccess;
-  if (h <= 0 || w <= 0 || p <= 0) return cudaErrorInvalidValue;
+                         int w, int p, int H, int W, int o0, int rows, int y_first,
+                         int hs, void* stream) {
+  if (b <= 0 || rows <= 0 || W <= 0) return cudaSuccess;
+  if (h <= 0 || w <= 0 || p <= 0 || hs <= 0 || o0 < 0 || o0 + rows > H || y_first < 0 ||
+      y_first + hs > h)
+    return cudaErrorInvalidValue;
   // the kernel indexes one image's elements with int
-  if (static_cast<long long>(h) * w * p > 0x7fffffffLL) return cudaErrorInvalidValue;
+  if (static_cast<long long>(hs) * w * p > 0x7fffffffLL) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch<__nv_bfloat16>(dist, out, b, h, w, p, H, W, s)
-              : launch<float>(dist, out, b, h, w, p, H, W, s);
+  return bf16 ? launch<__nv_bfloat16>(dist, out, b, h, w, p, H, W, o0, rows, y_first, hs, s)
+              : launch<float>(dist, out, b, h, w, p, H, W, o0, rows, y_first, hs, s);
 }
 
 const char* adlm_error_string(int err) {

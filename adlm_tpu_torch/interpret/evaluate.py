@@ -76,12 +76,16 @@ def agreement_counts(nearest: torch.Tensor, stat_pred: torch.Tensor,
 
 
 def _bilinear_gather(x: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor,
-                     out_h: int, out_w: int) -> torch.Tensor:
+                     out_h: int, out_w: int, first_row: int = 0,
+                     in_h: Optional[int] = None) -> torch.Tensor:
     """Values of the bilinear upsample of ``x`` (B, h, w, P) to
     (out_h, out_w) at output pixels (rows, cols), (n,) shared or (B, n)
     per image, without the upsample: (B, n, P) float32.  Half-pixel
-    source coordinates, edges replicate."""
-    B, h, w = x.shape[0], x.shape[1], x.shape[2]
+    source coordinates, edges replicate.  ``x`` may hold rows
+    [first_row, first_row + h) of a map of ``in_h`` rows, which must
+    hold the taps of ``rows``."""
+    B, w = x.shape[0], x.shape[2]
+    h = x.shape[1] if in_h is None else in_h
     dev = x.device
     rows = torch.atleast_2d(rows).expand(B, rows.shape[-1])
     cols = torch.atleast_2d(cols).expand(B, cols.shape[-1])
@@ -96,6 +100,7 @@ def _bilinear_gather(x: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor,
     wy = (sy - y0.to(_F32))[..., None]
     wx = (sx - x0.to(_F32))[..., None]
     bidx = torch.arange(B, device=dev)[:, None]
+    y0, y1 = y0 - first_row, y1 - first_row
     v00, v01 = x[bidx, y0, x0], x[bidx, y0, x1]
     v10, v11 = x[bidx, y1, x0], x[bidx, y1, x1]
     return (v00 * (1 - wy) * (1 - wx) + v01 * (1 - wy) * wx +
@@ -278,25 +283,33 @@ class SegEvaluator:
     rank fills its own rows of a zero buffer); ``pred`` stays the
     rank's own.  ``n_valid`` (the global batch's real images) lets a
     rank whose slice is all padding skip its forward, and zeroes the
-    statistic rows of padding.  Spatial sharding (``mesh.model`` > 1)
-    is ROADMAP item 9b and raises.
+    statistic rows of padding.
+
+    With ``mesh.model`` > 1 (and ``spatial``, the default, as in the JAX
+    package) each rank of a model group also splits image H: the step is
+    ``parallel/spatial.py``'s, on the same host counters and sample
+    pixels as one process.  ``pred`` and the statistic maps are then the
+    rank's own rows; an MSC model raises (ROADMAP item 9b).
     """
 
     def __init__(self, model: nn.Module, num_classes: int,
                  with_stats: bool = False, stats_upsampled: bool = False,
                  n_random_pixels: int = 100, seed: int = 0,
                  normalize: MeanStd = None, stats_exact: bool = False,
-                 device: DeviceLike = None, mesh=None):
-        if mesh is not None and mesh.model > 1:
-            raise NotImplementedError(
-                "spatial eval (--mesh-model > 1, image H sharded over the model "
-                "axis) is not ported yet (ROADMAP.md Queue 1 item 9b)")
+                 device: DeviceLike = None, mesh=None, spatial: bool = True):
         self.num_classes = num_classes
         self.mesh = mesh
-        self.fn = make_inference_fn(model, num_classes, with_stats,
-                                    stats_upsampled, normalize=normalize,
-                                    stats_exact=stats_exact,
-                                    device=mesh.device if mesh is not None else device)
+        self.spatial = spatial and mesh is not None and mesh.model > 1
+        if self.spatial:
+            from adlm_tpu_torch.parallel.spatial import make_spatial_inference_fn
+
+            self.fn = make_spatial_inference_fn(model, num_classes, mesh, with_stats,
+                                                stats_upsampled, normalize, stats_exact)
+        else:
+            self.fn = make_inference_fn(model, num_classes, with_stats,
+                                        stats_upsampled, normalize=normalize,
+                                        stats_exact=stats_exact,
+                                        device=mesh.device if mesh is not None else device)
         self.with_stats = with_stats
         self.n_random = n_random_pixels
         self.rng = np.random.RandomState(seed)
@@ -321,6 +334,9 @@ class SegEvaluator:
                 args = tuple(a[mesh.batch_slice(B)] for a in args)
         if mesh is None:
             out = self.fn(proto_class, images, labels, *args)
+        elif self.spatial:
+            out = self.fn(proto_class, images, labels, *args,
+                          n_valid=B if n_valid is None else n_valid)
         else:
             out = self._sharded_update(proto_class, images, labels, args,
                                        b if n_valid is None else mesh.share(n_valid, b))

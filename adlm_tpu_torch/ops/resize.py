@@ -8,7 +8,8 @@ strides, which ``F.interpolate`` handles without a copy.
 
 from __future__ import annotations
 
-from typing import Tuple
+import math
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -52,6 +53,42 @@ def resize_bilinear(x: torch.Tensor, size: Tuple[int, int],
         return _bilinear_nchw(x, size=tuple(size))
     y = _bilinear_nchw(x.permute(0, 3, 1, 2), size=tuple(size))
     return y.permute(0, 2, 3, 1)
+
+
+def bilinear_source_rows(n_out: int, n_in: int, lo: int, hi: int) -> Tuple[int, int]:
+    """Input rows [first, last) that outputs [lo, hi) of a half-pixel
+    bilinear resize of ``n_in`` rows to ``n_out`` read: their taps,
+    widened by one row each way (within the image) so that any rounding
+    of the source coordinate stays inside."""
+    s = n_in / n_out
+    first = math.floor(max((lo + 0.5) * s - 0.5, 0.0)) - 1
+    last = math.floor(max((hi - 0.5) * s - 0.5, 0.0)) + 3
+    return max(first, 0), min(last, n_in)
+
+
+def resize_bilinear_rows(x: torch.Tensor, size: Tuple[int, int], lo: int, hi: int,
+                         first_row: int = 0, in_h: Optional[int] = None) -> torch.Tensor:
+    """Output rows [lo, hi) of ``resize_bilinear(x_full, size)`` from the
+    rows of ``x_full`` that they read.
+
+    ``x`` (B, h, W_in, C) holds rows [first_row, first_row + h) of the
+    whole map, of height ``in_h`` (default: ``x`` is the whole map); it
+    must hold ``bilinear_source_rows(size[0], in_h, lo, hi)``.  The rows
+    go into a zero-filled map of the whole height, which is resized
+    whole: ``F.interpolate`` computes each output from its own taps and
+    the global scale, so the window equals the same rows of the
+    whole-frame call bit for bit (the zero rows feed only outputs
+    outside it).  Returns (B, hi − lo, W, C)."""
+    in_h = x.shape[1] if in_h is None else in_h
+    need = bilinear_source_rows(size[0], in_h, lo, hi)
+    if need[0] < first_row or need[1] > first_row + x.shape[1]:
+        raise ValueError(f"output rows [{lo}, {hi}) read rows [{need[0]}, {need[1]}), "
+                         f"the map holds [{first_row}, {first_row + x.shape[1]})")
+    if first_row or x.shape[1] != in_h:
+        full = x.new_zeros((x.shape[0], in_h) + tuple(x.shape[2:]))
+        full[:, first_row:first_row + x.shape[1]] = x
+        x = full
+    return resize_bilinear(x, size)[:, lo:hi]
 
 
 def resize_bilinear_factor(x: torch.Tensor, factor: float,

@@ -23,8 +23,9 @@ up to the order of the sums, and the ranks' parameters stay bit-equal
 ``DistributedDataParallel`` is not used: it would average each rank's
 own mean, and reduce on every microbatch's backward.
 
-The spatial mode (``spatial=True``: image H over the ``model`` axis,
-with a halo exchange at every convolution) and the tensor-parallel head
+The spatial mode (``spatial=True`` with ``model`` > 1: image H over the
+``model`` axis, a row exchange at every convolution) is
+``parallel/spatial.py``.  Its MSC models and the tensor-parallel head
 (``prototype_parallel=True``) are ROADMAP item 9b and raise.
 """
 
@@ -36,8 +37,7 @@ import torch
 from torch import nn
 
 from adlm_tpu_torch.core.mesh import Mesh
-
-ITEM_9B = "is not ported yet (ROADMAP.md Queue 1 item 9b)"
+from adlm_tpu_torch.parallel.spatial import ITEM_9B
 
 
 def set_batch_norm_reduce(model: nn.Module, mesh: Optional[Mesh]) -> nn.Module:
@@ -116,20 +116,26 @@ def make_sharded_inference_fn(model, num_classes: int, mesh: Mesh,
                               stats_upsampled: bool = False,
                               normalize=None,
                               stats_exact: bool = False):
-    """The whole-image eval step over ``mesh``'s data ranks:
-    ``fn(proto_class, images, labels, *uv)`` on this rank's slice, with
-    the counters summed over the ranks and the statistic rows of the
-    global batch; ``uv`` are this rank's rows of the sample pixels.
-    ``spatial=True`` and ``prototype_parallel=True`` raise (item 9b)."""
-    if spatial:
-        raise NotImplementedError(f"spatial eval (image H over the model axis) {ITEM_9B}")
+    """The whole-image eval step over ``mesh``:
+    ``fn(proto_class, images, labels, *uv)`` on this rank's slice of the
+    batch, with the counters summed over the ranks and the statistic rows
+    of the global batch; ``uv`` are this rank's rows of the sample
+    pixels.  With ``spatial`` and ``mesh.model`` > 1 image H splits over
+    the model ranks too (``parallel/spatial.py``: ``pred`` and the maps
+    of the rank's rows; ``fn`` also takes ``n_valid``).  An MSC model
+    there and ``prototype_parallel=True`` raise (item 9b)."""
     if prototype_parallel:
         raise NotImplementedError(f"the tensor-parallel prototype head {ITEM_9B}")
+    if spatial and mesh.model > 1:
+        from adlm_tpu_torch.parallel.spatial import make_spatial_inference_fn
+
+        return make_spatial_inference_fn(model, num_classes, mesh, with_stats,
+                                         stats_upsampled, normalize, stats_exact)
     from adlm_tpu_torch.interpret.evaluate import SegEvaluator
 
     ev = SegEvaluator(model, num_classes, with_stats=with_stats,
                       stats_upsampled=stats_upsampled, normalize=normalize,
-                      stats_exact=stats_exact, mesh=mesh)
+                      stats_exact=stats_exact, mesh=mesh, spatial=False)
 
     def fn(proto_class, images, labels, *uv):
         return ev._sharded_update(proto_class, images, labels, uv, images.shape[0])

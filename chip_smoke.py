@@ -27,9 +27,12 @@ non-zero and prints no result:
 3. kernel 2 (upsample + argmin) vs the plain exact-f32 scan:
    (2,129,257,190) → (2,1024,2048) in f32 and bf16, the batch-8 bf16
    map the eval runs, an all-equal tie map, a map quantised to three
-   levels (ties across chunk and tile edges), ragged, downsampling,
-   small-factor and integer-scale shapes, each through
-   ``upsampled_nearest`` (which must launch the kernel); 0 mismatches;
+   levels (ties across chunk and tile edges), ragged, downsampling (4x
+   too, whose tile the launcher shrinks), small-factor and
+   integer-scale shapes, each through ``upsampled_nearest`` (which must
+   launch the kernel); then output-row windows of five of those maps,
+   as spatial eval's ranks cut them, on the slab of map rows each reads,
+   bit-equal to the whole-frame launch's rows; 0 mismatches;
 4. the slice: ``SegEvaluator(with_stats=True, stats_upsampled=True)``
    on uint8 batches normalized on the device, in f32 and bf16, plus one
    ``make_overlay_fn`` call, with the launch counts reset just before
@@ -46,8 +49,10 @@ non-zero and prints no result:
    same code in both), compared step by step and gradient by gradient;
    exactly 5 head launches per step and none of the upsample-argmin;
    then seconds per joint step in f32, bf16 and bf16 with fused
-   accumulation, the head's forward and plain backward at the training
-   rows, and a ``torch.profiler`` window over one f32 and one bf16 step;
+   accumulation under cuDNN's defaults, and in f32 and bf16 under its
+   deterministic algorithms (the training commands' own setting), the
+   head's forward and plain backward at the training rows, and a
+   ``torch.profiler`` window over one f32 and one bf16 step;
 8. the interpretation slice: ``push_prototypes`` (batch 2, raw uint8,
    dedup) over five 1024x2048 frames with block labels, then
    ``find_k_nearest_patches`` (k = 6) and ``prune_by_purity``, each with
@@ -76,7 +81,8 @@ non-zero and prints no result:
    ``torch.profiler`` window over one loader-fed bf16 window;
 10. a training run through ``adlm_tpu_torch.cli`` (train unbroken, and
    halted and resumed; eval-valid, prune, train --pruned, eval-test) on
-   the flagship with its schedule cut to 3 + 3 + 2 windows;
+   the flagship with its schedule cut to 3 + 3 + 2 windows, from cuDNN's
+   default flags: ``train`` sets its deterministic algorithms itself;
 11. U-Noise at the shipped width (U-Net depth 5, channel factor 6, for
    both models; batch 8 of 256x256 slices): 200 seeded Pancreas-like
    slices written to a temporary directory; the host remap and blur
@@ -172,7 +178,26 @@ non-zero and prints no result:
    ``SegEvaluator`` fed the source arrays, with one head and one
    upsample-argmin launch per batch; host seconds per frame, volume and
    slice, and one frame's split between PNG decoding, writing and
-   ``np.save``.
+   ``np.save`` (the prepared frames and run stay for phase 17);
+16. data parallelism: two gloo ranks sharing the card run the flagship's
+   joint window (plain and fused), eval, push and a U-Noise step
+   against this process; the NCCL world of one through ``torchrun``;
+   more ranks than cards refused (``check_parallel``);
+17. spatial eval: two gloo ranks sharing the card as a (data 1, model 2)
+   mesh, each holding half of image H, run the flagship's eval with
+   upsampled statistics at batch 2 of 1024x2048, against this process:
+   f32 within phase 4's tie budget; bf16 against this process's bf16
+   eval, no further than twice a control (the same batch one image at
+   a time on the same sample pixels: cuDNN's bf16 algorithms depend on
+   the shape) plus phase 4's budget; one head and one upsample-argmin
+   launch per rank; each rank's row-window kernel answer bit-equal to
+   the whole-frame kernel on the ranks' own distance map; then
+   ``eval-valid --mesh-model 2`` through the CLI's rank entry on phase
+   15's prepared frames, its mIoU and per-class IoU equal to the
+   one-process command's; each rank's seconds, a gloo figure.  On a
+   machine with two cards or more, the same checks on two NCCL ranks,
+   one card each, and ``python -m adlm_tpu_torch.cli eval-valid
+   --mesh-model 2`` (its own NCCL ranks, one card each).
 
 Precision: f32 runs with TF32 off for convolutions and matmuls (the
 entry points' ``ieee_f32`` scope; the comparisons here run in the same
@@ -513,6 +538,10 @@ def check_upsample(report) -> None:
         # images at odd element offsets
         ("x3 bf16 P=37", torch.rand(2, 23, 45, 37, device="cuda", generator=g
                                     ).to(torch.bfloat16), (70, 134)),
+        # 4x down: a whole 64x32 tile's source (255 x 127 pixels) does not
+        # fit shared memory, so the launcher shrinks the tile
+        ("downsample x4 P=19", torch.rand(1, 132, 196, 19, device="cuda", generator=g),
+         (33, 49)),
     ]
     for name, d, size in cases:
         with torch.inference_mode():
@@ -529,7 +558,60 @@ def check_upsample(report) -> None:
             raise AssertionError(f"upsample_argmin kernel disagrees ({name})")
         if name == "all-equal tie" and int(got.abs().sum()):
             raise AssertionError("tie case: every index must be 0")
+    check_upsample_windows([c for c in cases if c[0] in UPSAMPLE_WINDOW_CASES])
     report["upsample_argmin"]["max_abs_err"] = 0
+
+
+# the maps of phase 3 whose output-row windows are checked: each split of
+# the label rows over 2 and 3 ranks (spatial eval's windows), and a window
+# off the 64-row tile
+UPSAMPLE_WINDOW_CASES = ("flagship f32", "flagship bf16", "near-tie 3 levels",
+                         "ragged P=97", "downsample x4 P=19")
+
+
+def check_upsample_windows(cases) -> None:
+    """The kernel on output-row windows of a slab of the map (the rows
+    the window reads, as spatial eval passes them): each window bit-equal
+    to the same rows of the whole-frame launch and to the plain version's
+    window; one launch per call."""
+    import torch
+    from adlm_tpu_torch.core.mesh import row_range
+    from adlm_tpu_torch.ops import _build
+    from adlm_tpu_torch.ops.upsample_argmin import (
+        tap_rows,
+        upsampled_argmin_cuda,
+        upsampled_argmin_reference,
+    )
+
+    n = 0
+    for name, d, size in cases:
+        H = size[0]
+        h = d.shape[1]
+        windows = [row_range(r, H, m) for m in (2, 3) for r in range(m)]
+        windows.append((H // 3 + 5, min(H, H // 3 + 5 + 101)))
+        with torch.inference_mode():
+            whole = upsampled_argmin_cuda(d, size)
+            for lo, hi in windows:
+                first, last = tap_rows(H, h, lo, hi)
+                slab = d[:, first:last].contiguous()
+                before = _build.LAUNCHES["upsample_argmin"]
+                got = upsampled_argmin_cuda(slab, size, out_rows=(lo, hi - lo),
+                                            map_rows=(first, h))
+                if _build.LAUNCHES["upsample_argmin"] != before + 1:
+                    raise AssertionError(f"window {lo}:{hi} of {name}: not one launch")
+                want = upsampled_argmin_reference(slab, size, exact=True,
+                                                  out_rows=(lo, hi - lo), map_rows=(first, h))
+                torch.cuda.synchronize()
+                if not (torch.equal(got, whole[:, lo:hi]) and torch.equal(got, want)):
+                    raise AssertionError(f"upsample_argmin window {lo}:{hi} of {name}: "
+                                         f"{int((got != whole[:, lo:hi]).sum())} mismatches "
+                                         f"with the whole frame, {int((got != want).sum())} "
+                                         f"with the plain version")
+                n += 1
+        log(f"  upsample_argmin {name:17s} windows {windows} (map rows fetched as "
+            f"tap_rows gives them): bit-equal to the whole frame's rows and the plain "
+            f"version's")
+    log(f"  {n} row windows: 0 mismatches")
 
 
 # ---------------------------------------------------------------------------
@@ -1111,11 +1193,12 @@ def train_variants(cfg):
 
 def time_training(model, card: str, iters: int = 3) -> None:
     """Seconds per joint step (host clock + synchronize, after one warm
-    step) in f32, bf16 and bf16 with fused accumulation; then the head's
-    forward kernel and its plain backward at the training rows."""
+    step) in f32, bf16 and bf16 with fused accumulation, and in f32 and
+    bf16 under cuDNN's deterministic algorithms; then the head's forward
+    kernel and its plain backward at the training rows."""
     import torch
     from adlm_tpu_torch.core.config import get_experiment
-    from adlm_tpu_torch.core.device import ieee_f32
+    from adlm_tpu_torch.core.device import deterministic_cudnn, ieee_f32
     from adlm_tpu_torch.ops.prototype import (
         prototype_head_backward,
         prototype_head_cuda,
@@ -1125,19 +1208,25 @@ def time_training(model, card: str, iters: int = 3) -> None:
 
     cfg = get_experiment("cityscapes_kld_imnet")
     images, labels = make_train_batch(cfg, SEED + 7)
-    for name, vcfg in train_variants(cfg).items():
+    # cuDNN's defaults, then for f32 and bf16 its deterministic algorithms,
+    # which the training commands run (cli._deterministic)
+    variants = [(name, vcfg, False) for name, vcfg in train_variants(cfg).items()]
+    variants += [(name + " det", vcfg, True) for name, vcfg, _ in variants[:2]]
+    secs = {}
+    for name, vcfg, det in variants:
         m = copy.deepcopy(model)
         state = init_protoseg_state(m, vcfg, 1, vcfg.train.joint_steps)
         step = make_train_step(m, vcfg, 1, vcfg.train.joint_steps)
         torch.cuda.reset_peak_memory_stats()
-        step(state, images, labels)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            _, metrics = step(state, images, labels)
-        torch.cuda.synchronize()
-        s = (time.perf_counter() - t0) / iters
-        log(f"  joint step {name:15s} (2 x 5 x 513^2): {s:.4f} s/step, "
+        with deterministic_cudnn() if det else contextlib.nullcontext():
+            step(state, images, labels)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                _, metrics = step(state, images, labels)
+            torch.cuda.synchronize()
+        s = secs[name] = (time.perf_counter() - t0) / iters
+        log(f"  joint step {name:18s} (2 x 5 x 513^2): {s:.4f} s/step, "
             f"{TRAIN_ITER * TRAIN_BS / s:.2f} windows/s, peak memory "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
             f"loss {float(metrics['loss']):.4f}  [{card}]")
@@ -1146,6 +1235,9 @@ def time_training(model, card: str, iters: int = 3) -> None:
         del m, state, step
         torch.cuda.empty_cache()
     del images, labels
+    log("  cuDNN's deterministic algorithms (the training commands' setting) against its "
+        "defaults: " + ", ".join(f"{n} {secs[n + ' det'] / secs[n]:.3f}x"
+                                 for n in ("float32", "bfloat16")) + f"  [{card}]")
 
     # the head at the training rows: one microbatch, 2 x 65 x 65
     N, C, P, K = TRAIN_BS * 65 * 65, 64, 190, 19
@@ -2209,8 +2301,10 @@ def check_run_eval(run_dir: str, data_root: str, cli_eval) -> None:
 def check_run(report, card: str) -> None:
     """Phase 10: train (unbroken U; halted and resumed H), eval-valid with
     upsampled statistics, prune, train --pruned and eval-test through
-    ``adlm_tpu_torch.cli`` on the flagship at full width, in f32 IEEE
-    under cuDNN deterministic."""
+    ``adlm_tpu_torch.cli`` on the flagship at full width, in f32 IEEE.
+    The training commands set cuDNN's deterministic algorithms
+    themselves; eval-valid and eval-test run under them here, beside the
+    direct runs they are held to."""
     import csv
     import dataclasses
     import json
@@ -2222,6 +2316,7 @@ def check_run(report, card: str) -> None:
     import torch
     from adlm_tpu_torch.core import config as config_mod
     from adlm_tpu_torch.core.checkpoint import CheckpointStore
+    from adlm_tpu_torch.core.device import deterministic_cudnn
     from adlm_tpu_torch.data.constants import get_class_table
     from adlm_tpu_torch.data.dataset import SegmentationDataset
     from adlm_tpu_torch.interpret import stats as stats_mod
@@ -2242,7 +2337,9 @@ def check_run(report, card: str) -> None:
     orig_plots = stats_mod.save_eval_plots
     try:
         config_mod.register_experiment(cfg)
-        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+        # cuDNN's defaults around the commands: train must set its
+        # deterministic algorithms itself for U and H to agree
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = False, False
         data = os.path.join(root, "data")
         results = os.path.join(root, "runs")
         os.environ["RESULTS_DIR"] = results
@@ -2307,12 +2404,13 @@ def check_run(report, card: str) -> None:
             return orig_plots(out_dir, *args, **kwargs)
 
         stats_mod.save_eval_plots = record_plots
-        with run_probes() as rec, _RecordedEvaluators() as recorded:
-            run_command(["eval-valid", run_u, "push", "--data-path", data, "--stats",
-                         "--stats-upsampled", "--batch-size", str(RUN_EVAL_BS),
-                         "--examples", "0"], rec, launches_by_cmd)
-        stats_mod.save_eval_plots = orig_plots
-        check_run_eval(run_u, data, (recorded, plots))
+        with deterministic_cudnn():
+            with run_probes() as rec, _RecordedEvaluators() as recorded:
+                run_command(["eval-valid", run_u, "push", "--data-path", data, "--stats",
+                             "--stats-upsampled", "--batch-size", str(RUN_EVAL_BS),
+                             "--examples", "0"], rec, launches_by_cmd)
+            stats_mod.save_eval_plots = orig_plots
+            check_run_eval(run_u, data, (recorded, plots))
 
         # prune, the pruned finetune, eval-test
         with run_probes() as rec:
@@ -2330,8 +2428,9 @@ def check_run(report, card: str) -> None:
             run_command(train[:3] + ["--pruned", "--data-path", data, "--val-every", "2"],
                         rec, launches_by_cmd)
             stages_p = list(rec["stages"])
-            run_command(["eval-test", run_u, "pruned", "--data-path", data,
-                         "--max-images", str(RUN_TEST_IMAGES)], rec, launches_by_cmd)
+            with deterministic_cudnn():
+                run_command(["eval-test", run_u, "pruned", "--data-path", data,
+                             "--max-images", str(RUN_TEST_IMAGES)], rec, launches_by_cmd)
         done = store_u.restore("pruned", "last")
         if done["step"] != 2 or not all(bool(torch.isfinite(v).all())
                                         for v in done["state_dict"].values()):
@@ -2345,7 +2444,8 @@ def check_run(report, card: str) -> None:
         for i, (img, lab) in enumerate(ds.eval_items(raw=True)):
             if i == RUN_TEST_IMAGES:
                 break
-            want = lut[fn(ppay["proto_class"], img, lab)["pred"][0].cpu().numpy()]
+            with deterministic_cudnn():
+                want = lut[fn(ppay["proto_class"], img, lab)["pred"][0].cpu().numpy()]
             got = read_png(os.path.join(pred_dir, ds.img_ids[i] + ".png"))
             if got.shape != (H, W) or not np.array_equal(got, want):
                 raise AssertionError(f"prediction PNG {i} differs from submission_lut[pred]")
@@ -2893,6 +2993,7 @@ def check_unoise_cli(root: str, card: str) -> None:
     import numpy as np
     import torch
     from adlm_tpu_torch import cli
+    from adlm_tpu_torch.core.device import deterministic_cudnn
     from adlm_tpu_torch.data.unoise_data import split_datasets
     from adlm_tpu_torch.interpret.unoise_vis import unoise_importance
     from adlm_tpu_torch.interpret.visualize import jet_colormap
@@ -2906,21 +3007,22 @@ def check_unoise_cli(root: str, card: str) -> None:
     train = [*arch, "--epochs", str(UN_EPOCHS)]
     pickle_path = os.path.join(results, "results.pickle")
     saved_env = os.environ.get("RESULTS_DIR")
-    saved_det = torch.backends.cudnn.deterministic
     os.environ["RESULTS_DIR"] = results
-    torch.backends.cudnn.deterministic = True
     try:
         with unoise_probes() as rec:
+            # the training commands set cuDNN's deterministic algorithms
             run_unoise_command(["unoise-train-util", *train, "--run-name", "util"])
             # the noise model in bf16: the CLI's --bf16 path, and half the time
             run_unoise_command(["unoise-train-noise", *train, "--run-name", "noise",
                                 "--utility-run", "util", "--pretrained", "util", "--bf16"])
-            run_unoise_command(["unoise-visualize", *arrays, "--utility-run", "util",
-                                "--noise-run", "noise", "--occlusion-stride",
-                                str(UN_OCC_STRIDE)])
-            run_unoise_command(["unoise-figures", *arrays, "--utility-run", "util",
-                                "--noise-runs", "noise", "--n-images", "8",
-                                "--save-pickle", pickle_path])
+            # the importance map is held to a direct call below, in the same mode
+            with deterministic_cudnn():
+                run_unoise_command(["unoise-visualize", *arrays, "--utility-run", "util",
+                                    "--noise-run", "noise", "--occlusion-stride",
+                                    str(UN_OCC_STRIDE)])
+                run_unoise_command(["unoise-figures", *arrays, "--utility-run", "util",
+                                    "--noise-runs", "noise", "--n-images", "8",
+                                    "--save-pickle", pickle_path])
         # every file
         vis = os.path.join(results, "noise", "visualizations")
         need = [os.path.join(results, "util", "utility_config.json"),
@@ -2936,7 +3038,8 @@ def check_unoise_cli(root: str, card: str) -> None:
         if missing:
             raise AssertionError(f"missing files: {missing}")
         # the same seeds give the same runs: each command once more, for
-        # one epoch (cuDNN deterministic), and its validation row equal
+        # one epoch (the CLI's deterministic algorithms), and its
+        # validation row equal
         run_unoise_command(["unoise-train-util", *arch, "--epochs", "1", "--run-name",
                             "util_again"])
         run_unoise_command(["unoise-train-noise", *arch, "--epochs", "1", "--run-name",
@@ -2982,7 +3085,8 @@ def check_unoise_cli(root: str, card: str) -> None:
         image, _ = test_ds[0]
         model = cli._unoise_model(os.path.join(results, "noise"), "noise",
                                   torch.device("cuda"), False)
-        direct = unoise_importance(model, torch.as_tensor(image[None], device="cuda"))
+        with deterministic_cudnn():
+            direct = unoise_importance(model, torch.as_tensor(image[None], device="cuda"))
         if not np.array_equal(rec["importance"][0], direct):
             raise AssertionError("unoise-visualize's importance map differs from a direct "
                                  "unoise_importance call")
@@ -3000,7 +3104,6 @@ def check_unoise_cli(root: str, card: str) -> None:
             f"stride {UN_OCC_STRIDE}, {((UN_HW - 10) // UN_OCC_STRIDE + 1) ** 2} anchors): "
             + ", ".join(f"{k} {v:.4f}" for k, v in timing.items()) + f"  [{card}]")
     finally:
-        torch.backends.cudnn.deterministic = saved_det
         if saved_env is None:
             os.environ.pop("RESULTS_DIR", None)
         else:
@@ -3049,12 +3152,15 @@ def unet_counts(hw: int):
 
 def time_unoise(imgs, masks, card: str) -> None:
     """ms per utility and noise step at batch 8 x 256^2 in f32 and bf16,
-    one profiled utility step per dtype, the loader's slices/s and a
-    loader-fed bf16 epoch against a preloaded one."""
+    the utility step also under cuDNN's deterministic algorithms (the
+    training commands' setting), one profiled utility step per dtype,
+    the loader's slices/s and a loader-fed bf16 epoch against a
+    preloaded one."""
     import dataclasses
 
     import torch
     from adlm_tpu_torch.core.config import UNoiseConfig
+    from adlm_tpu_torch.core.device import deterministic_cudnn
     from adlm_tpu_torch.data.pipeline import BatchLoader, device_prefetch
     from adlm_tpu_torch.data.unoise_data import batches, split_datasets
     from adlm_tpu_torch.train import unoise as tu
@@ -3082,7 +3188,7 @@ def time_unoise(imgs, masks, card: str) -> None:
         f"per {UN_HW}^2 slice; a batch-{UN_BS} step about {step_flops / 1e12:.2f} TFLOP: "
         f"bound {step_flops / PEAK_F32_FLOPS * 1e3:.1f} ms f32, "
         f"{step_flops / PEAK_BF16_FLOPS * 1e3:.1f} ms bf16")
-    util_sd = None
+    util_sd, det = None, {}
     for dt in ("float32", "bfloat16"):
         cfg = dataclasses.replace(cfg32, compute_dtype=dt)
         st = tu.init_utility_state(cfg, seed=SEED, device="cuda")
@@ -3090,6 +3196,8 @@ def time_unoise(imgs, masks, card: str) -> None:
         torch.cuda.reset_peak_memory_stats()
         ms = host_ms(lambda: step(st, x, y))
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        with deterministic_cudnn():
+            det[dt] = (host_ms(lambda: step(st, x, y)), ms)
         util_sd = util_sd or st.model.state_dict()
         nst = tu.init_noise_state(cfg, util_sd, seed=SEED + 1, device="cuda")
         nstep = tu.make_noise_train_step(cfg, raw=True)
@@ -3113,6 +3221,10 @@ def time_unoise(imgs, masks, card: str) -> None:
             log_rows(rows, 8)
         del st, nst
         torch.cuda.empty_cache()
+    log("  utility step under cuDNN's deterministic algorithms (the training commands' "
+        "setting) against its defaults: " + ", ".join(
+            f"{dt} {a:.2f} against {b:.2f} ms ({a / b:.3f}x)" for dt, (a, b) in det.items())
+        + f"  [{card}]")
 
     # the loader: 4 threads over one augmented epoch, host only
     t0 = time.perf_counter()
@@ -3708,14 +3820,15 @@ def check_cls_cli(report, root: str) -> None:
 
 def time_cls(model, cfg, images, labels, test_ds, card: str) -> None:
     """Seconds per warm, joint and last step at batch 80 in f32 and
-    bf16, eval images/s, both routes of the head's general path at the
+    bf16 (the joint step also under cuDNN's deterministic algorithms,
+    the training commands' setting), eval images/s, both routes of the head's general path at the
     classifier's rows (beside the plain version, the bound and one
     cuBLAS product), its plain backward, and a profile of one f32 and
     one bf16 joint step."""
     import dataclasses
 
     import torch
-    from adlm_tpu_torch.core.device import ieee_f32
+    from adlm_tpu_torch.core.device import deterministic_cudnn, ieee_f32
     from adlm_tpu_torch.ops.prototype import (
         _lib,
         l2_distances,
@@ -3733,21 +3846,25 @@ def time_cls(model, cfg, images, labels, test_ds, card: str) -> None:
     cfgs = {"float32": cfg, "bfloat16": dataclasses.replace(cfg, compute_dtype="bfloat16")}
     joint_s = {}
     for dt, c in cfgs.items():
-        for phase in ("warm", "joint", "last"):
+        for phase in ("warm", "joint", "last", "joint det"):
             m = copy.deepcopy(model)
-            state = init_classifier_state(m, c, phase)
-            step = make_cls_train_step(m, c, phase)
-            step(state, images, labels)
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            t0 = time.perf_counter()
-            for _ in range(CLS_TIME_STEPS):
+            state = init_classifier_state(m, c, phase.split()[0])
+            step = make_cls_train_step(m, c, phase.split()[0])
+            with deterministic_cudnn() if phase == "joint det" else contextlib.nullcontext():
                 step(state, images, labels)
-            torch.cuda.synchronize()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                for _ in range(CLS_TIME_STEPS):
+                    step(state, images, labels)
+                torch.cuda.synchronize()
             s = (time.perf_counter() - t0) / CLS_TIME_STEPS
-            log(f"  {phase:5s} step {dt:8s} batch {CLS_BS}: {s:.4f} s/step, "
+            log(f"  {phase:9s} step {dt:8s} batch {CLS_BS}: {s:.4f} s/step, "
                 f"{CLS_BS / s:.1f} img/s, peak memory "
                 f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB  [{card}]")
+            if phase == "joint det":
+                log(f"    joint {dt} under cuDNN's deterministic algorithms against its "
+                    f"defaults: {s / joint_s[dt]:.3f}x  [{card}]")
             if phase == "joint":
                 joint_s[dt] = s
                 if dt == "float32":
@@ -5245,11 +5362,14 @@ def check_prepared_feed(report, cfg, data: str, results: str, frames, lut) -> di
     return evl
 
 
-def check_prepare(report, card: str) -> None:
+def check_prepare(report, card: str) -> dict:
     """Phase 15: a raw Cityscapes tree and Pancreas volumes prepared by
     the port's commands on the card's host, checked against the source
     arrays, then the flagship on the card evaluating the prepared frames
-    bit-equal to the same frames fed from memory."""
+    bit-equal to the same frames fed from memory.  Returns what phase 17
+    evaluates again (the temporary ``root``, which the caller removes;
+    the prepared ``data``, the ``run``, the eval's ``miou`` text,
+    and per-class ``ious``)."""
     import json
     import os
     import shutil
@@ -5261,6 +5381,7 @@ def check_prepare(report, card: str) -> None:
 
     t_phase = time.perf_counter()
     root = tempfile.mkdtemp(prefix="adlm_prep_")
+    kept = None
     saved_env = os.environ.get("RESULTS_DIR")
     saved_det = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
     try:
@@ -5365,14 +5486,23 @@ def check_prepare(report, card: str) -> None:
         log(f"  feed: import-protoseg and eval-valid {time.perf_counter() - t0:.1f} s, "
             f"launches head {launches['prototype_head']}, upsample-argmin "
             f"{launches['upsample_argmin']}")
+        run = os.path.join(results, "prepared")
+        ev_dir = os.path.join(run, "evaluation", "push")
+        with open(os.path.join(ev_dir, "mean_iou.txt")) as f:
+            miou = f.read()
+        with open(os.path.join(ev_dir, "iou_scores.json")) as f:
+            ious = json.load(f)
+        kept = {"root": root, "data": out, "run": run, "miou": miou, "ious": ious}
     finally:
         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved_det
         if saved_env is None:
             os.environ.pop("RESULTS_DIR", None)
         else:
             os.environ["RESULTS_DIR"] = saved_env
-        shutil.rmtree(root, ignore_errors=True)
+        if kept is None:
+            shutil.rmtree(root, ignore_errors=True)
     log(f"  prepare phase {time.perf_counter() - t_phase:.1f} s  [{card}]")
+    return kept
 
 
 # ---------------------------------------------------------------------------
@@ -5497,10 +5627,25 @@ def dp_naive(model, cfg, inp, dev, mesh) -> float:
     return sum(losses) / len(losses)
 
 
-def dp_eval(model, cfg, inp, dev, mesh):
+class _Draws:
+    """An evaluator's random state that hands out the given arrays, in
+    order, as its draws."""
+
+    def __init__(self, arrays):
+        self.arrays = list(arrays)
+
+    def random_sample(self, shape):
+        out = self.arrays.pop(0)
+        if out.shape != tuple(shape):
+            raise AssertionError(f"a draw of {tuple(shape)} was given {out.shape}")
+        return out
+
+
+def dp_eval(model, cfg, inp, dev, mesh, draws=None):
     """``SegEvaluator`` with upsampled statistics on the batch of 2 (the
     rank's image under a mesh): (results, [outputs as ``run_eval``'s]),
-    the statistic rows and sampled distances of the global batch."""
+    the statistic rows and sampled distances of the global batch.
+    ``draws``: the sample pixels' (u, v), in place of the evaluator's."""
     import torch
     from adlm_tpu_torch.interpret.evaluate import SegEvaluator
     from adlm_tpu_torch.models.ppnet import default_proto_class
@@ -5514,6 +5659,8 @@ def dp_eval(model, cfg, inp, dev, mesh):
     ev = SegEvaluator(model, 19, with_stats=True, stats_upsampled=True,
                       normalize=(cfg.data.mean, cfg.data.std), n_random_pixels=N_RANDOM,
                       seed=SEED, device=dev, mesh=mesh)
+    if draws is not None:
+        ev.rng = _Draws(draws)
     with purity_inputs() as seen:
         o = (ev.update(pc, img, lab) if mesh is None
              else ev.update(pc, img, lab, n_valid=n_valid))
@@ -5816,12 +5963,10 @@ def dp_cli_run(root: str, card: str) -> None:
     train = ["train", "cityscapes_kld_imnet", "{run}", "--data-path", data,
              "--steps-scale", DP_STEPS_SCALE, "--val-batches", "1", "--push-batch-size", "2"]
     saved_env = os.environ.get("RESULTS_DIR")
-    saved_det = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
     os.environ["RESULTS_DIR"] = results
     try:
-        # both runs under cuDNN's deterministic algorithms, as phase 10's,
-        # so that bit-equality can be asked for
-        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+        # both runs under cuDNN's deterministic algorithms, which train
+        # sets itself, so that bit-equality can be asked for
         out = io.StringIO()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(out):
@@ -5829,13 +5974,13 @@ def dp_cli_run(root: str, card: str) -> None:
         log(f"  train (one process, no mesh): {time.perf_counter() - t0:.1f} s")
         env = dict(os.environ, RESULTS_DIR=results)
         argv = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-                "--nproc-per-node", "1", "-m", "chip_smoke", "--deterministic-cli",
+                "--nproc-per-node", "1", "-m", "adlm_tpu_torch.cli",
                 *[a.format(run="world1") for a in train], "--distributed", "--mesh-data", "1"]
         t0 = time.perf_counter()
         proc = subprocess.run(argv, env=env, capture_output=True, text=True, timeout=900)
-        log(f"  torchrun --nproc-per-node 1 -m chip_smoke --deterministic-cli train ... "
-            f"--distributed --mesh-data 1 (adlm_tpu_torch.cli's main): exit "
-            f"{proc.returncode} in {time.perf_counter() - t0:.1f} s")
+        log(f"  torchrun --nproc-per-node 1 -m adlm_tpu_torch.cli train ... "
+            f"--distributed --mesh-data 1: exit {proc.returncode} in "
+            f"{time.perf_counter() - t0:.1f} s")
         if proc.returncode != 0:
             log("\n".join((proc.stdout + proc.stderr).splitlines()[-40:]))
             raise AssertionError("the NCCL world-1 run failed")
@@ -5854,7 +5999,6 @@ def dp_cli_run(root: str, card: str) -> None:
         if sorted(pngs["one"]) != sorted(pngs["world1"]) or diff > budget:
             raise AssertionError("eval-test of the world-1 run differs")
     finally:
-        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved_det
         if saved_env is None:
             os.environ.pop("RESULTS_DIR", None)
         else:
@@ -6032,20 +6176,364 @@ def check_parallel(report, card: str) -> None:
     log(f"  phase 16 {time.perf_counter() - t_phase:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 17: spatial eval.  Two gloo ranks share the one card as a (data 1,
+# model 2) mesh, each holding half of image H (NCCL refuses two ranks on
+# one device; gloo stages CUDA tensors through the host, so their seconds
+# are not a speed figure).
+# ---------------------------------------------------------------------------
+
+SP_WORLD = 2
+SP_COLLECTIVE_TIMEOUT = 120.0   # seconds a rank waits in a collective
+SP_TIMEOUT = 600.0              # seconds allowed the spawned ranks in all
+# bf16: cuDNN picks its bf16 algorithms by shape, and a rank's half-height
+# slabs round differently from the whole frame, as the same batch one
+# image at a time does (the control).  So bf16 is held to the one-process
+# bf16 eval no further than SP_BF16_FACTOR times the control is, plus
+# phase 4's budgets.  f32 keeps phase 4's budgets.
+SP_BF16_FACTOR = 2.0
+
+
+def sp_inputs(path: str) -> None:
+    """Phase 4's first batch (2 x 1024 x 2048, uint8, a void band), for
+    the ranks and this process alike."""
+    import torch
+
+    img, lab = make_batches(1, 2, SEED + 71)[0]
+    torch.save({"eval_img": img.cpu(), "eval_lab": lab.cpu()}, path)
+
+
+def sp_models(cfg, dev):
+    import torch
+    from adlm_tpu_torch.core.device import cast_params
+
+    m32 = random_model(cfg.model, SEED).to(dev)
+    return {"f32": m32, "bf16": cast_params(copy.deepcopy(m32), torch.bfloat16)}
+
+
+def sp_work(cfg, inp, dev, mesh):
+    """Eval with upsampled statistics (phase 16's ``dp_eval``) of the
+    batch in f32 and bf16, cuDNN deterministic, launches counted around
+    each; with a mesh, also what the rank handed the upsample-argmin
+    kernel (its map slab, window and answer); without, also bf16 one
+    image at a time on the batch's sample pixels (the control of
+    ``sp_hold_bf16``)."""
+    import numpy as np
+    import torch
+    import adlm_tpu_torch.ops.upsample_argmin as ua
+    from adlm_tpu_torch.ops import _build
+
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    res = {}
+    models = sp_models(cfg, dev)
+    # a batch in each dtype first, neither counted nor timed: a new
+    # process's first eval picks cuDNN's algorithms and opens the collectives
+    for model in models.values():
+        dp_eval(model.eval(), cfg, inp, dev, mesh)
+    for tag, model in models.items():
+        model.eval()
+        calls = []
+        orig = ua.upsampled_nearest
+
+        def record(d, size, *args, **kw):
+            out = orig(d, size, *args, **kw)
+            calls.append((d, kw.get("out_rows"), kw.get("map_rows"), out))
+            return out
+
+        ua.upsampled_nearest = record
+        try:
+            torch.cuda.synchronize()
+            _build.reset_launches()
+            t0 = time.perf_counter()
+            ev = dp_eval(model, cfg, inp, dev, mesh)
+            torch.cuda.synchronize()
+            res[tag] = {"eval": ev, "launches": dict(_build.LAUNCHES),
+                        "secs": time.perf_counter() - t0}
+        finally:
+            ua.upsampled_nearest = orig
+        if mesh is not None:
+            (d, out_rows, map_rows, out), = calls
+            res[tag]["window"] = (d.cpu(), out_rows, map_rows, out.cpu())
+        elif tag == "bf16":
+            # each image on the pixels the batch's evaluator draws for it
+            rng, n = np.random.RandomState(SEED), inp["eval_img"].shape[0]
+            u, v = (rng.random_sample((n, N_RANDOM)) for _ in range(2))
+            one = [dp_eval(model, cfg, {k: t[i:i + 1] for k, t in inp.items()}, dev, None,
+                           draws=(u[i:i + 1], v[i:i + 1])) for i in range(n)]
+            res["bf16 b1"] = ({}, [{k: (torch.cat if k in SP_STACKED else sum)(
+                [o[1][0][k] for o in one]) for k in SP_COUNTERS + SP_STACKED[1:]}])
+        models[tag] = None
+        del model
+        torch.cuda.empty_cache()
+    return res
+
+
+def sp_rank(dev, mesh_args, in_path: str, out_dir: str) -> None:
+    """One spawned rank of phase 17 (``core/mesh.py::spawn_local``)."""
+    import torch
+    from adlm_tpu_torch.core.config import get_experiment
+    from adlm_tpu_torch.core.mesh import MeshSpec, destroy, make_mesh
+
+    mesh = make_mesh(MeshSpec(1, SP_WORLD), dev, **mesh_args)
+    try:
+        inp = torch.load(in_path, weights_only=False)
+        res = sp_work(get_experiment("cityscapes_kld_imnet"), inp, dev, mesh)
+    finally:
+        destroy(mesh)
+    torch.save(res, f"{out_dir}/rank{mesh.rank}.pt")
+
+
+def sp_cli_rank(dev, mesh_args, argv, root: str) -> None:
+    """One rank of ``adlm_tpu_torch.cli``'s own (``_rank_main``), its
+    output in ``root/cli_rank<r>.log``, under phase 15's cuDNN setting."""
+    import os
+
+    import torch
+    from adlm_tpu_torch import cli
+
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    path = os.path.join(root, f"cli_rank{mesh_args['rank']}.log")
+    with open(path, "w") as f, contextlib.redirect_stdout(f), contextlib.redirect_stderr(f):
+        cli._rank_main(dev, mesh_args, argv)
+
+
+def sp_spawn(fn, root: str, tag: str, args, devices=("cuda:0",) * SP_WORLD,
+             backend: str = "gloo") -> None:
+    import os
+
+    from adlm_tpu_torch.core.mesh import spawn_local
+
+    t0 = time.perf_counter()
+    codes = spawn_local(fn, SP_WORLD, os.path.join(root, f"store_{tag}"),
+                        list(devices), args=args, backend=backend,
+                        timeout_s=SP_COLLECTIVE_TIMEOUT, join_timeout=SP_TIMEOUT)
+    log(f"  [{tag}] {SP_WORLD} {backend} ranks on {', '.join(devices)} as a (data 1, model "
+        f"{SP_WORLD}) mesh: exit codes {codes} in {time.perf_counter() - t0:.1f} s "
+        "(process start-up included)")
+    if codes != [0] * SP_WORLD:
+        raise AssertionError(f"[{tag}] a rank failed: {codes}")
+
+
+def sp_windows(ranks, tag: str) -> None:
+    """Each rank's row-window kernel answer against the whole-frame kernel
+    on the same map: the distance map the ranks computed, put together
+    from their slabs (rows two slabs share must agree bit for bit)."""
+    import torch
+    from adlm_tpu_torch.ops.upsample_argmin import upsampled_argmin_cuda
+
+    slabs = [res[tag]["window"] for res in ranks]
+    h = slabs[0][2][1]
+    d0 = slabs[0][0]
+    full = torch.full((d0.shape[0], h) + tuple(d0.shape[2:]), math.nan)
+    for d, _, (first, _), _ in slabs:
+        rows = full[:, first:first + d.shape[1]]
+        seen = ~rows.isnan().all(dim=(0, 2, 3))
+        if not torch.equal(rows[:, seen], d[:, seen]):
+            raise AssertionError(f"spatial {tag}: the ranks' slabs disagree on shared rows")
+        full[:, first:first + d.shape[1]] = d
+    if bool(full.isnan().any()):
+        raise AssertionError(f"spatial {tag}: the slabs leave map rows out")
+    with torch.inference_mode():
+        whole = upsampled_argmin_cuda(full.cuda(), (H, W)).cpu()
+    parts = []
+    for r, (d, (o0, n), (first, _), out) in enumerate(slabs):
+        bad = int((out != whole[:, o0:o0 + n]).sum())
+        parts.append(f"rank {r}: rows [{o0}, {o0 + n}) from map rows [{first}, "
+                     f"{first + d.shape[1]}), {bad} mismatches")
+        if bad:
+            raise AssertionError(f"spatial {tag}: rank {r}'s row window differs from the "
+                                 "whole-frame kernel")
+    log(f"  spatial {tag} row windows vs the whole-frame kernel on the ranks' map "
+        f"({h} rows): " + "; ".join(parts))
+
+
+SP_COUNTERS = ("intersection", "union", "correct", "total", "agree_counts")
+SP_STACKED = ("agree_counts", "sample_d", "topk_purity")   # one row per image
+
+
+def sp_distance(a, b, floats: bool = True) -> dict:
+    """How far eval ``a`` sits from ``b`` (each ``dp_eval``'s output):
+    summed |diff| of the counters and agree counts, and max |diff| of the
+    sampled distances and of the purity."""
+    (oa,), (ob,) = a[1], b[1]
+    out = {k: int((oa[k].long() - ob[k].long()).abs().sum()) for k in SP_COUNTERS}
+    for k in ("sample_d", "topk_purity") if floats else ():
+        out[k] = (oa[k] - ob[k]).abs().max().item()
+    return out
+
+
+def sp_hold_bf16(tag: str, got, want, control, n_pixels: int) -> None:
+    """bf16 spatial eval against the one-process bf16 eval ``want``: no
+    further than SP_BF16_FACTOR times ``control`` (the same batch one
+    image at a time, on the same sample pixels) is, plus phase 4's
+    budgets (``total`` exact)."""
+    budget = math.ceil(TIE_SHARE * n_pixels)
+    extra = {"intersection": budget, "correct": budget, "total": 0, "union": 2 * budget,
+             "agree_counts": 2 * budget, "topk_purity": 1e-3,
+             "sample_d": D_ATOL + D_RTOL * want[1][0]["sample_d"].abs().max().item()}
+    far, ctl = sp_distance(got, want), sp_distance(control, want)
+    limits = {k: SP_BF16_FACTOR * ctl[k] + extra[k] for k in far}
+    log(f"  {tag} vs the one-process bf16 eval: {far}; the control: {ctl}; limits {limits}")
+    bad = [k for k in far if far[k] > limits[k] or (k == "total" and far[k])]
+    if bad:
+        raise AssertionError(f"{tag}: further from the one-process bf16 eval than "
+                             f"{SP_BF16_FACTOR} x the control ({bad})")
+
+
+def sp_hold_cli(label: str, run: str, prepared) -> None:
+    """The eval's mIoU and per-class IoU files in ``run`` against phase
+    15's one-process command's, bit for bit."""
+    import json
+    import os
+
+    out = os.path.join(run, "evaluation", "push")
+    with open(os.path.join(out, "mean_iou.txt")) as f:
+        miou = f.read()
+    with open(os.path.join(out, "iou_scores.json")) as f:
+        ious = json.load(f)
+    same_ious = ious == prepared["ious"]
+    log(f"  {label} on the prepared val split: mIoU {miou}, the one-process command's "
+        f"{prepared['miou']}; per-class IoU " + ("equal" if same_ious else "differ: max |diff| "
+        f"{max(abs(v - prepared['ious'].get(k, math.inf)) for k, v in ious.items()):.3e}"))
+    if miou != prepared["miou"] or not same_ious:
+        raise AssertionError(f"{label}: mIoU or per-class IoU differ from the one-process "
+                             "command's")
+
+
+def sp_cli(root: str, prepared) -> None:
+    """``eval-valid --stats --stats-upsampled --mesh-model 2`` on phase 15's
+    prepared frames through the CLI's rank entry (two gloo ranks sharing
+    the card), against phase 15's one-process command; on a machine
+    with two cards, also ``python -m adlm_tpu_torch.cli`` with the same
+    arguments, which starts its own NCCL ranks, one card each."""
+    import os
+
+    import torch
+
+    run, data = prepared["run"], prepared["data"]
+    argv = ["eval-valid", run, "push", "--data-path", data, "--stats", "--stats-upsampled",
+            "--batch-size", str(PREP_EVAL_BS), "--examples", "0",
+            "--mesh-model", str(SP_WORLD)]
+    logs = [os.path.join(root, f"cli_rank{r}.log") for r in range(SP_WORLD)]
+    try:
+        sp_spawn(sp_cli_rank, root, "cli", (argv, root))
+    except AssertionError:
+        for p in logs:
+            if os.path.exists(p):
+                with open(p) as f:
+                    log("\n".join(f.read().splitlines()[-30:]))
+        raise
+    sp_hold_cli(f"eval-valid --mesh-model {SP_WORLD} (CLI rank entry, gloo)", run, prepared)
+    if torch.cuda.device_count() < 2:
+        return
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "adlm_tpu_torch.cli", *argv],
+                          capture_output=True, text=True, timeout=SP_TIMEOUT)
+    log(f"  python -m adlm_tpu_torch.cli eval-valid --mesh-model {SP_WORLD} (NCCL, cuda:0 "
+        f"and cuda:1): exit {proc.returncode} in {time.perf_counter() - t0:.1f} s")
+    if proc.returncode != 0:
+        log("\n".join((proc.stdout + proc.stderr).splitlines()[-40:]))
+        raise AssertionError(f"eval-valid --mesh-model {SP_WORLD} on {SP_WORLD} cards failed")
+    sp_hold_cli(f"eval-valid --mesh-model {SP_WORLD} (NCCL)", run, prepared)
+
+
+def sp_compare(ranks, single, report, label: str, n_pixels: int) -> None:
+    """Each rank of a spatial world against this process's one-process
+    evals: f32 within phase 4's budgets, bf16 by ``sp_hold_bf16``; one
+    head and one upsample-argmin launch per rank; the same totals on
+    every rank; the row windows against the whole-frame kernel."""
+    import torch
+    from adlm_tpu_torch.ops import _build
+
+    for tag in ("f32", "bf16"):
+        want = single[tag]["eval"]
+        for r, res in enumerate(ranks):
+            name = f"spatial {label} {tag} rank {r}"
+            if tag == "f32":
+                compare_eval(name, res[tag]["eval"], want, n_pixels)
+                log(f"  {name} vs one process: {sp_distance(res[tag]['eval'], want)}")
+            else:
+                sp_hold_bf16(name, res[tag]["eval"], want, single["bf16 b1"], n_pixels)
+            got = res[tag]["launches"]
+            log(f"  {name}: launches {got}, the one-process eval's {single[tag]['launches']}")
+            if got["prototype_head"] != 1 or got["upsample_argmin"] != 1:
+                raise AssertionError(f"{name} launched {got}, expected one head and one "
+                                     "upsample-argmin launch")
+            for k in _build.KERNELS:
+                report[k]["launches"] += got[k]
+        keys = ("intersection", "union", "correct", "total", "agree_counts", "topk_purity")
+        first = ranks[0][tag]["eval"][1][0]
+        if not all(torch.equal(first[k], res[tag]["eval"][1][0][k])
+                   for res in ranks[1:] for k in keys):
+            raise AssertionError(f"spatial {label} {tag}: the ranks' totals differ")
+        log(f"  spatial {label} {tag}: both ranks hold the same counters, agree_counts and "
+            f"purity; mIoU {ranks[0][tag]['eval'][0]['mean_iou']!r}, one process "
+            f"{want[0]['mean_iou']!r}")
+        sp_windows(ranks, tag)
+
+
+def check_spatial(report, card: str, prepared) -> None:
+    """Phase 17: spatial eval of the flagship at full width on two gloo
+    ranks sharing the card, against this process's one-process eval;
+    the row windows against the whole-frame kernel; then eval-valid
+    --mesh-model 2 through the CLI.  On two cards or more, the same on
+    two NCCL ranks, one card each."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+    from adlm_tpu_torch.core.config import get_experiment
+
+    t_phase = time.perf_counter()
+    cfg = get_experiment("cityscapes_kld_imnet")
+    root = tempfile.mkdtemp(prefix="adlm_sp_")
+    saved_det = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    n_cards = torch.cuda.device_count()
+    worlds = [("gloo", ("cuda:0",) * SP_WORLD)]
+    if n_cards >= SP_WORLD:
+        worlds.append(("nccl", tuple(f"cuda:{r}" for r in range(SP_WORLD))))
+    try:
+        in_path = os.path.join(root, "inputs.pt")
+        sp_inputs(in_path)
+        ranks = {}
+        for backend, devices in worlds:
+            out = os.path.join(root, backend)
+            os.makedirs(out)
+            sp_spawn(sp_rank, root, backend, (in_path, out), devices, backend)
+            ranks[backend] = [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
+                              for r in range(SP_WORLD)]
+        inp = torch.load(in_path, weights_only=False)
+        single = sp_work(cfg, inp, torch.device("cuda", 0), None)
+        n_pixels = 2 * H * W
+        log("  control: the one-process bf16 eval one image at a time vs the batch of 2, "
+            f"on the same sample pixels: {sp_distance(single['bf16 b1'], single['bf16']['eval'])} "
+            f"(phase 4's budget {math.ceil(TIE_SHARE * n_pixels)} px)")
+        for backend, devices in worlds:
+            sp_compare(ranks[backend], single, report, backend, n_pixels)
+            log(f"  seconds per batch of 2 on each {backend} rank ("
+                + ("host-staged collectives on one shared card: not a speed figure"
+                   if backend == "gloo" else "one card each") + "): " + "; ".join(
+                    f"{tag} rank {r} {res[tag]['secs']:.2f} (one process "
+                    f"{single[tag]['secs']:.2f})" for tag in ("f32", "bf16")
+                    for r, res in enumerate(ranks[backend])) + f"  [{card}]")
+        if len(worlds) == 1:
+            log(f"  two NCCL ranks, one card each, and python -m adlm_tpu_torch.cli "
+                f"eval-valid --mesh-model {SP_WORLD}: skipped, this machine has one card")
+        del single, ranks
+        torch.cuda.empty_cache()
+        sp_cli(root, prepared)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved_det
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"  phase 17 {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels-only", action="store_true",
                     help="build and hold the kernels, then stop")
-    ap.add_argument("--deterministic-cli", nargs=argparse.REMAINDER, default=None,
-                    metavar="ARGS", help="run adlm_tpu_torch.cli with ARGS under cuDNN's "
-                    "deterministic algorithms (phase 16 starts this under torchrun)")
     args = ap.parse_args()
-    if args.deterministic_cli is not None:
-        import torch
-        from adlm_tpu_torch import cli
-
-        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
-        return cli.main(args.deterministic_cli) or 0
 
     try:
         import torch
@@ -6070,6 +6558,7 @@ def main() -> int:
                   "max_abs_err": None, "ms": None, "plain_ms": None,
                   "bound_ms": None, "bound_by": None, "library_ms": None}
               for k in _build.KERNELS}
+    prepared = None
     try:
         log(f"[1] card and build (torch {torch.__version__}, CUDA {torch.version.cuda})")
         card = card_line()
@@ -6154,16 +6643,26 @@ def main() -> int:
         log("[15] dataset preparation on the card's machine: preprocess-cityscapes, "
             "gen-image-list, img-to-numpy and preprocess-pancreas through the CLI on raw "
             "trees, object masks, then the flagship's eval-valid on the prepared frames")
-        check_prepare(report, card)
+        prepared = check_prepare(report, card)
 
         log("[16] data parallelism: two gloo ranks sharing the card (joint window, eval, "
             "push, U-Noise) against one process, the NCCL world of one through torchrun, "
             "more ranks than cards refused")
         check_parallel(report, card)
+
+        log("[17] spatial eval: the flagship at 1024x2048 on two gloo ranks sharing the "
+            "card, image H split (f32, bf16) against one process; the row windows against "
+            "the whole-frame kernel; eval-valid --mesh-model 2 through the CLI")
+        check_spatial(report, card, prepared)
     except Exception:  # report any failure and exit non-zero
         traceback.print_exc()
         log(f"FAILED after {time.perf_counter() - t_start:.1f} s")
         return 1
+    finally:
+        if prepared is not None:
+            import shutil
+
+            shutil.rmtree(prepared["root"], ignore_errors=True)
 
     log(f"all phases ok in {time.perf_counter() - t_start:.1f} s")
     log(card)

@@ -26,12 +26,18 @@ against ``adlm_tpu.core.mesh``, the rank slices of every loader, and the
   their one-process runs (``--mesh-data 1``: under a mesh U-Noise drops
   the partial batch, as the JAX package does) within the limits the
   port's tests set for such runs against JAX (``LONG_RUN_L2``,
-  ``CLI_LOSS_ATOL``, ``CLI_DICE_ATOL``).  ``--mesh-model 2`` on eval
-  exits naming ROADMAP item 9b, and a rank count above the machine's
-  cards exits saying so.
+  ``CLI_LOSS_ATOL``, ``CLI_DICE_ATOL``).  ``eval-valid --stats
+  --stats-upsampled`` and ``eval-test`` under ``--mesh-model 2`` (spatial
+  eval: two ranks split image H) end within the eval tie budget of the
+  one-process commands: mIoU and per-class IoU within what
+  ``SPATIAL_TIE_PIXELS`` moved pixels can change, the PNGs in at most
+  that many pixels.  ``--mesh-model 2`` on an MSC experiment exits
+  naming ROADMAP item 9b, and a rank count above the machine's cards
+  exits saying so.
 """
 
 import csv
+import json
 import os
 import shutil
 import signal
@@ -64,6 +70,9 @@ TRAIN_DRIFT = 2 * 2.5e-4 * 3
 CLS_DRIFT = 2 * 3e-3 * 6
 UNOISE_DRIFT = 2 * 3e-3 * 8
 CMD_TIMEOUT_S = 180
+# tests/test_torch_evaluate.py's TIE_BUDGET: pixels whose prediction may
+# move between two summation orders of the same forward
+SPATIAL_TIE_PIXELS = 4
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -340,10 +349,52 @@ def test_eval_valid_on_two_ranks_matches_one_process(trained, seg_data, in_proce
     assert outs["one"] == outs["two"]
 
 
-def test_eval_with_spatial_mesh_exits_naming_item_9b(trained, seg_data):
+def test_eval_on_a_spatial_mesh_matches_one_process(trained, seg_data, in_process):
+    from adlm_tpu_torch.data.image_folder import read_png
+
+    run = str(trained / "one")
+    ev_dir = os.path.join(run, "evaluation", "push")
+    valid = ["eval-valid", run, "push", "--data-path", seg_data, "--stats",
+             "--stats-upsampled", "--examples", "0", "--batch-size", "2", "--device", "cpu"]
+    test = ["eval-test", run, "push", "--data-path", seg_data, "--split", "val",
+            "--batch-size", "2", "--device", "cpu"]
+    outs = {}
+    for tag, extra in (("one", []), ("spatial", ["--mesh-model", "2"])):
+        cli.main(valid + extra)
+        with open(os.path.join(ev_dir, "mean_iou.txt")) as f:
+            miou = float(f.read())
+        with open(os.path.join(ev_dir, "iou_scores.json")) as f:
+            ious = json.load(f)
+        cli.main(test + extra)
+        pngs = os.path.join(ev_dir, "test_predictions")
+        outs[tag] = (miou, ious, {p: read_png(os.path.join(pngs, p))
+                                  for p in sorted(os.listdir(pngs))})
+    (m1, i1, p1), (m2, i2, p2) = outs["one"], outs["spatial"]
+    assert sorted(p1) == sorted(p2) and len(p1) == 5
+    assert sum(int((p1[k] != p2[k]).sum()) for k in p1) <= SPATIAL_TIE_PIXELS
+    # a moved pixel changes a class's IoU by at most 100 / (its union - 1)
+    # percentage points; every union here exceeds 1,000 pixels
+    assert set(i1) == set(i2)
+    for k in i1:
+        assert abs(i1[k] - i2[k]) <= SPATIAL_TIE_PIXELS * 100 / 1000, k
+    assert abs(m1 - m2) <= SPATIAL_TIE_PIXELS * 100 / 1000
+
+
+def test_eval_with_spatial_mesh_exits_naming_item_9b(trained, seg_data, tmp_path):
+    """Spatial eval of an MSC experiment is ROADMAP item 9b: eval under
+    ``--mesh-model 2`` refuses one before it starts a rank."""
+    import dataclasses
+
+    from adlm_tpu_torch.core.config import ExperimentConfig
+
+    cfg = ExperimentConfig.from_json(CheckpointStore(str(trained / "one")).load_config_json())
+    msc = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, msc_scales=(0.5, 0.75)))
+    run = tmp_path / "msc"
+    run.mkdir()
+    CheckpointStore(str(run)).save_config(msc.to_json())
     for cmd in ("eval-valid", "eval-test"):
         with pytest.raises(SystemExit, match="9b"):
-            cli.main([cmd, str(trained / "one"), "push", "--data-path", seg_data,
+            cli.main([cmd, str(run), "push", "--data-path", seg_data,
                       "--mesh-model", "2", "--batch-size", "2", "--device", "cpu"])
 
 

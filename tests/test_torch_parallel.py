@@ -33,7 +33,14 @@ tests):
   rank holding the same totals;
 * the batched push over 4 frames, frame 0 repeated as frame 2 on the
   other rank: the winners equal to JAX's ``make_push_batched_fn`` on
-  the sharded batch, ties to frame 0.
+  the sharded batch, ties to frame 0;
+* spatial eval: the same world as a (data 1, model 2) mesh (a second
+  ``Mesh`` over the same group), ``SegEvaluator`` with grid and upsampled
+  statistics over 3 frames of 64x64 at batch 2 (a padded tail), whose 9
+  grid rows split 4 + 5: against the JAX package's
+  ``make_sharded_inference_fn(spatial=True)`` on a (1, 2) device mesh
+  and against the port's one-process eval, with the eval budgets above,
+  and every rank holding the same totals.
 """
 
 import os
@@ -215,16 +222,42 @@ def _rank_eval(mesh, inp):
     return out
 
 
+def _spatial_eval(mesh, inp, device=None):
+    """SegEvaluator over the spatial frames (``mesh`` None: one process),
+    grid and upsampled statistics: {upsampled: totals and statistic rows}."""
+    from adlm_tpu_torch.interpret.evaluate import SegEvaluator
+    from adlm_tpu_torch.models.ppnet import default_proto_class
+
+    K, P = EVAL_MODEL["num_classes"], EVAL_MODEL["num_prototypes"]
+    pc = default_proto_class(P, K)
+    out = {}
+    for upsampled in (False, True):
+        ev = SegEvaluator(_eval_model(inp["ev_sd"]), K, with_stats=True,
+                          stats_upsampled=upsampled, mesh=mesh, device=device)
+        rows = []
+        for im, lb, n in eval_batches(inp["sp_images"], inp["sp_labels"], 2):
+            o = ev.update(pc, im, lb, n_valid=n) if mesh is not None else ev.update(pc, im, lb)
+            rows.append((o["agree_counts"][:n].clone(), o["topk_purity"][:n].clone()))
+        out[upsampled] = {"intersection": ev.intersection, "union": ev.union,
+                          "correct": ev.correct, "total": ev.total,
+                          "agree": torch.cat([r[0] for r in rows]),
+                          "purity": torch.cat([r[1] for r in rows])}
+    return out
+
+
 def _rank_main(dev, mesh_args, in_path, out_dir):
     import sys
 
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     torch.set_num_threads(1)
     mesh = make_mesh(MeshSpec(WORLD, 1), dev, **mesh_args)
+    # the same ranks as one data line whose model ranks split image H
+    spatial = make_mesh(MeshSpec(1, WORLD), dev)
     inp = torch.load(in_path, weights_only=False)
     try:
         out = {"protoseg": _rank_protoseg(mesh, inp), "unoise": _rank_unoise(mesh, inp),
-               "cls": _rank_cls(mesh, inp), "eval": _rank_eval(mesh, inp)}
+               "cls": _rank_cls(mesh, inp), "eval": _rank_eval(mesh, inp),
+               "spatial": _spatial_eval(spatial, inp)}
     finally:
         destroy(mesh)
     torch.save(out, os.path.join(out_dir, f"rank{mesh.rank}.pt"))
@@ -300,9 +333,12 @@ def _eval_inputs():
     frames[2] = frames[0]
     flabels = np.stack(list(block_labels(rng, 4, 65, 97, K)))[:, 0]
     flabels[2] = flabels[0]
+    sp_images = rng.rand(3, 64, 64, 3).astype(np.float32)
+    sp_labels = rng.randint(0, K + 1, (3, 64, 64)).astype(np.int32)
+    sp_labels[1, 30:34] = 0                 # void across the ranks' row boundary
     return dict(ev_images=ev_images, ev_labels=ev_labels, ev_sd=tm.state_dict(),
                 push_images=frames, push_labels=flabels.astype(np.int32),
-                ev_jax=(jm, params, constants))
+                sp_images=sp_images, sp_labels=sp_labels, ev_jax=(jm, params, constants))
 
 
 @pytest.fixture(scope="module")
@@ -533,6 +569,55 @@ def test_sharded_eval_matches_jax(world, upsampled):
     for key in ("intersection", "union", "agree", "purity"):
         a, b = (np.asarray(res["eval"][upsampled][key]) for res in ranks)
         np.testing.assert_array_equal(a, b)
+
+
+def _assert_eval_close(ranks, key, upsampled, want):
+    """Each rank's eval ``key`` against ``want`` (totals, agree and purity
+    rows) within the eval budgets; every rank the same totals."""
+    for r, res in enumerate(ranks):
+        got = res[key][upsampled]
+        assert got["total"] == want["total"], r              # the void mask is exact
+        assert abs(got["correct"] - want["correct"]) <= EVAL_TIE_BUDGET, r
+        for k in ("intersection", "union"):
+            assert np.abs(got[k] - want[k]).sum() <= 2 * EVAL_TIE_BUDGET, (r, k)
+        assert np.abs(got["agree"].numpy() - np.asarray(want["agree"])).sum() \
+            <= 2 * EVAL_TIE_BUDGET
+        np.testing.assert_allclose(got["purity"].numpy(), np.asarray(want["purity"]),
+                                   atol=PURITY_ATOL)
+    for k in ("intersection", "union", "agree", "purity"):
+        a, b = (np.asarray(res[key][upsampled][k]) for res in ranks)
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("upsampled", [False, True], ids=["grid", "upsampled"])
+def test_spatial_eval_matches_jax(world, upsampled):
+    import jax
+
+    from adlm_tpu.core.mesh import MeshSpec as JaxMeshSpec, make_mesh as jax_make_mesh
+    from adlm_tpu.interpret.evaluate import SegEvaluator as JaxSegEvaluator
+    from adlm_tpu.models.ppnet import default_proto_class as jax_pc
+
+    inp, get_ranks = world
+    jm, params, constants = inp["ev_jax"]
+    K, P = EVAL_MODEL["num_classes"], EVAL_MODEL["num_prototypes"]
+    mesh = jax_make_mesh(JaxMeshSpec(data=1, model=WORLD), devices=jax.devices()[:WORLD])
+    ev = JaxSegEvaluator(jm, K, with_stats=True, stats_upsampled=upsampled, mesh=mesh)
+    agree, purity = [], []
+    for im, lb, n in eval_batches(inp["sp_images"], inp["sp_labels"], 2):
+        o = ev.update(params, constants, jax_pc(P, K), im, lb)
+        agree.append(np.asarray(o["agree_counts"])[:n])
+        purity.append(np.asarray(o["topk_purity"])[:n])
+    want = {"intersection": ev.intersection, "union": ev.union, "correct": ev.correct,
+            "total": ev.total, "agree": np.concatenate(agree),
+            "purity": np.concatenate(purity)}
+    _assert_eval_close(get_ranks(), "spatial", upsampled, want)
+
+
+@pytest.mark.parametrize("upsampled", [False, True], ids=["grid", "upsampled"])
+def test_spatial_eval_matches_one_process(world, upsampled):
+    inp, get_ranks = world
+    want = _spatial_eval(None, inp, device="cpu")[upsampled]
+    _assert_eval_close(get_ranks(), "spatial", upsampled, want)
 
 
 def test_sharded_push_matches_jax_with_a_cross_rank_tie(world):
