@@ -305,21 +305,12 @@ def _window(spec: str):
 def _eval_mesh(args, mesh):
     """(mesh, exit code) of an eval command: the batch split over
     ``--mesh-data`` ranks and image H over ``--mesh-model`` ranks (spatial
-    eval; an MSC experiment there exits)."""
+    eval)."""
     if mesh is not None:
         return mesh, None
     if args.windowed and (getattr(args, "mesh_data", 0) or args.mesh_model > 1):
         raise SystemExit("--mesh-* shards whole-image eval; windowed mode is "
                          "the single-device memory-bounded alternative")
-    if args.mesh_model > 1:
-        from adlm_tpu_torch.core.checkpoint import CheckpointStore
-        from adlm_tpu_torch.core.config import ExperimentConfig
-
-        cfg = ExperimentConfig.from_json(CheckpointStore(args.run_dir).load_config_json())
-        if cfg.model.msc_scales:
-            raise SystemExit(f"--mesh-model > 1 (spatial eval) of an MSC experiment "
-                             f"(msc_scales {tuple(cfg.model.msc_scales)}) is not ported "
-                             f"yet (ROADMAP.md Queue 1 item 9b)")
     return _mesh_for(args, args.run_dir, batch_size=args.batch_size)
 
 
@@ -1205,9 +1196,7 @@ def _add_mesh(p, model: bool = True, distributed: bool = False,
         p.add_argument("--mesh-model", type=int, default=1,
                        help="model mesh axis size: ranks that share a data "
                             "coordinate take the same batch slice (on eval, "
-                            "> 1 splits image H over them: spatial eval, "
-                            "whose MSC experiments are ROADMAP.md Queue 1 "
-                            "item 9b)")
+                            "> 1 splits image H over them: spatial eval)")
     if distributed:
         p.add_argument("--distributed", action="store_true",
                        help="join the world torchrun describes (RANK, "

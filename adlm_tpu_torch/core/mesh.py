@@ -223,16 +223,18 @@ class Mesh:
             t.copy_(flat[off:off + n].view_as(t))
             off += n
 
-    def lexmin(self, values: torch.Tensor, index: torch.Tensor
+    def lexmin(self, values: torch.Tensor, index: torch.Tensor, over: str = "data"
                ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Element-wise lexicographic (value, index) minimum: the least
-        value, and among the ranks that hold it the least index.
-        ``index`` is int64."""
-        v = self.all_reduce_(values.clone(), "min")
+        """Element-wise lexicographic (value, index) minimum over the data
+        group (``over="model"``: the model group): the least value, and
+        among the ranks that hold it the least index.  ``index`` is
+        int64."""
+        reduce = self.all_reduce_ if over == "data" else self.all_reduce_model_
+        v = reduce(values.clone(), "min")
         big = torch.iinfo(torch.int64).max
         idx = torch.where(values == v, index.long(),
                           torch.full_like(index, big, dtype=torch.int64))
-        return v, self.all_reduce_(idx, "min")
+        return v, reduce(idx, "min")
 
     def gather_rows(self, local: torch.Tensor) -> torch.Tensor:
         """The global batch of a batch-sharded ``local`` (b, ...): a
@@ -245,7 +247,17 @@ class Mesh:
         buf[self.data_index * b:(self.data_index + 1) * b] = local
         return self.all_reduce_(buf)
 
-    # -- the row exchange over the model group -------------------------------
+    # -- collectives and the row exchange over the model group --------------
+
+    def all_reduce_model_(self, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        """In place over the model group, SUM or MIN (a model group of one:
+        nothing).  Every rank gets the same bits: each element's reduction
+        runs once and is handed to every rank (a SUM of two ranks is one
+        commutative add)."""
+        if self.distributed and self.model > 1:
+            _reduce(t, op, self.model_group)
+        return t
+
 
     def exchange_rows(self, local: torch.Tensor, dim: int,
                       owned: Sequence[Tuple[int, int]],
@@ -287,8 +299,7 @@ class Mesh:
             for q, lo, hi, src, off in slots:
                 if src == me:
                     recv.narrow(dim, off, hi - lo).copy_(local.narrow(dim, lo - olo, hi - lo))
-            if self.distributed and self.model > 1:
-                _reduce(words, "sum", self.model_group)
+            self.all_reduce_model_(words)
         pieces = []
         mine = {(lo, hi): off for q, lo, hi, _, off in slots if q == me}
         for lo, hi, src in row_sources(owned, need[me]):

@@ -8,7 +8,14 @@
 //
 // with half-pixel source coordinates (torch align_corners=False) and
 // first-occurrence ties (strict < in ascending p), without the
-// upsampled (B, H, W, P) tensor ever existing in memory.
+// upsampled (B, H, W, P) tensor ever existing in memory.  On request it
+// also writes the winning value, min_p bilinear_up(dist)[b, y, x, p]
+// (B, H, W) f32: the running best the argmin keeps anyway (the TPU
+// kernel's bs_ref), one more store per output pixel.  A tensor-parallel
+// head's rank calls it on its slice of the prototypes and combines the
+// (value, index) pairs across ranks; each value is the whole-bank
+// launch's blend of that prototype bit for bit, since nothing in a
+// prototype's arithmetic depends on the others.
 //
 // A launch may cover an output-row window [o0, o0 + rows) of the whole
 // (H, W) result alone, from a slab of the map: rows [y_first,
@@ -207,7 +214,7 @@ __device__ __forceinline__ void y_pass_rows(const float* fx, int np, int p0, int
 template <typename T>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
 upsample_argmin_kernel(const T* __restrict__ dist, int32_t* __restrict__ out,
-                       int h, int w, int p, int H, int W, int o0, int o_end,
+                       float* __restrict__ val, int h, int w, int p, int H, int W, int o0, int o_end,
                        int y_first, int hs, int th, int tw, float scale_y,
                        float scale_x, int ext_h, int ext_w, int pc, int slot_w) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -327,7 +334,11 @@ upsample_argmin_kernel(const T* __restrict__ dist, int32_t* __restrict__ out,
 #pragma unroll
     for (int i = 0; i < kR; ++i) {
       const int oy = oy0 + i;
-      if (oy <= ly) out[(static_cast<int64_t>(b) * (o_end - o0) + oy - o0) * W + ox] = arg[i];
+      if (oy <= ly) {
+        const int64_t at = (static_cast<int64_t>(b) * (o_end - o0) + oy - o0) * W + ox;
+        out[at] = arg[i];
+        if (val != nullptr) val[at] = best[i];
+      }
     }
   }
 }
@@ -355,7 +366,7 @@ size_t smem_bytes(int pc, int elem, int ext_h, int ext_w, int* slot_w) {
 }
 
 template <typename T>
-int launch(const void* dist, int32_t* out, int b, int h, int w, int p, int H, int W,
+int launch(const void* dist, int32_t* out, float* val, int b, int h, int w, int p, int H, int W,
            int o0, int rows, int y_first, int hs, cudaStream_t stream) {
   // float32(h / H), as the plain version computes it
   const float scale_y = static_cast<float>(static_cast<double>(h) / H);
@@ -386,7 +397,7 @@ int launch(const void* dist, int32_t* out, int b, int h, int w, int p, int H, in
   if (err != cudaSuccess) return err;
   const dim3 grid((W + tw - 1) / tw, (rows + th - 1) / th, b);
   const dim3 block(kTW, kGroups);
-  kernel<<<grid, block, smem, stream>>>(static_cast<const T*>(dist), out, h, w, p, H, W, o0,
+  kernel<<<grid, block, smem, stream>>>(static_cast<const T*>(dist), out, val, h, w, p, H, W, o0,
                                         o0 + rows, y_first, hs, th, tw, scale_y, scale_x,
                                         ext_h, ext_w, pc, slot_w);
   return cudaGetLastError();
@@ -399,10 +410,10 @@ extern "C" {
 // dist: (b, hs, w, p) f32 or bf16 (bf16 != 0), contiguous: rows
 // [y_first, y_first + hs) of a (b, h, w, p) map, which must hold every
 // row that output rows [o0, o0 + rows) read; out: (b, rows, W) int32,
-// rows [o0, o0 + rows) of the (b, H, W) result.  The whole frame is
-// (o0, rows, y_first, hs) = (0, H, 0, h).  Returns a cudaError_t (0 on a
-// successful launch).
-int adlm_upsample_argmin(const void* dist, int bf16, int32_t* out, int b, int h,
+// rows [o0, o0 + rows) of the (b, H, W) result; val: null, or (b, rows,
+// W) f32 for the winning values.  The whole frame is (o0, rows, y_first,
+// hs) = (0, H, 0, h).  Returns a cudaError_t (0 on a successful launch).
+int adlm_upsample_argmin(const void* dist, int bf16, int32_t* out, float* val, int b, int h,
                          int w, int p, int H, int W, int o0, int rows, int y_first,
                          int hs, void* stream) {
   if (b <= 0 || rows <= 0 || W <= 0) return cudaSuccess;
@@ -412,8 +423,8 @@ int adlm_upsample_argmin(const void* dist, int bf16, int32_t* out, int b, int h,
   // the kernel indexes one image's elements with int
   if (static_cast<long long>(hs) * w * p > 0x7fffffffLL) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch<__nv_bfloat16>(dist, out, b, h, w, p, H, W, o0, rows, y_first, hs, s)
-              : launch<float>(dist, out, b, h, w, p, H, W, o0, rows, y_first, hs, s);
+  return bf16 ? launch<__nv_bfloat16>(dist, out, val, b, h, w, p, H, W, o0, rows, y_first, hs, s)
+              : launch<float>(dist, out, val, b, h, w, p, H, W, o0, rows, y_first, hs, s);
 }
 
 const char* adlm_error_string(int err) {

@@ -289,7 +289,7 @@ class SegEvaluator:
     package) each rank of a model group also splits image H: the step is
     ``parallel/spatial.py``'s, on the same host counters and sample
     pixels as one process.  ``pred`` and the statistic maps are then the
-    rank's own rows; an MSC model raises (ROADMAP item 9b).
+    rank's own rows.
     """
 
     def __init__(self, model: nn.Module, num_classes: int,
@@ -347,35 +347,46 @@ class SegEvaluator:
         return out
 
     def _sharded_update(self, proto_class, images, labels, args, share: int):
-        mesh, K = self.mesh, self.num_classes
-        dev = mesh.device
-        if share > 0:
-            out = self.fn(proto_class, images, labels, *args)
-        else:
-            # all padding: nothing to count, no forward
-            out = {"intersection": torch.zeros(K, dtype=torch.long, device=dev),
-                   "union": torch.zeros(K, dtype=torch.long, device=dev),
-                   "correct": torch.zeros((), dtype=torch.long, device=dev),
-                   "total": torch.zeros((), dtype=torch.long, device=dev)}
-        counts = torch.cat([out["intersection"].long(), out["union"].long(),
-                            out["correct"].long().reshape(1),
-                            out["total"].long().reshape(1)])
-        mesh.all_reduce_(counts)
-        out.update(intersection=counts[:K], union=counts[K:2 * K],
-                   correct=counts[2 * K], total=counts[2 * K + 1])
-        if self.with_stats:
-            P = int(torch.as_tensor(proto_class).shape[0])
-            b = images.shape[0]
-            for key, dt in (("agree_counts", torch.int32), ("topk_purity", _F32)):
-                local = out.get(key)
-                rows = torch.zeros((b, P), dtype=dt, device=dev)
-                if local is not None:
-                    rows[:share] = local[:share]
-                out[key] = mesh.gather_rows(rows)
-        return out
+        return sharded_update(self.fn, self.mesh, self.num_classes, self.with_stats,
+                              proto_class, images, labels, args, share)
 
     def results(self) -> Dict[str, Any]:
         miou, ious = mean_iou_from_confusion(self.intersection, self.union)
         acc = self.correct * 100.0 / max(self.total, 1)
         return {"mean_iou": miou, "iou_per_class": ious,
                 "pixel_accuracy": acc}
+
+
+def sharded_update(fn: Callable, mesh, num_classes: int, with_stats: bool,
+                   proto_class, images, labels, args, share: int) -> Dict[str, Any]:
+    """One batch-sharded eval step: ``fn(proto_class, images, labels,
+    *args)`` on this rank's slice (skipped when none of its ``share``
+    images is real), its counters summed over the data group and its
+    ``agree_counts``/``topk_purity`` rows gathered into the global
+    batch's (zero for padding)."""
+    K = num_classes
+    dev = mesh.device
+    if share > 0:
+        out = fn(proto_class, images, labels, *args)
+    else:
+        # all padding: nothing to count, no forward
+        out = {"intersection": torch.zeros(K, dtype=torch.long, device=dev),
+               "union": torch.zeros(K, dtype=torch.long, device=dev),
+               "correct": torch.zeros((), dtype=torch.long, device=dev),
+               "total": torch.zeros((), dtype=torch.long, device=dev)}
+    counts = torch.cat([out["intersection"].long(), out["union"].long(),
+                        out["correct"].long().reshape(1),
+                        out["total"].long().reshape(1)])
+    mesh.all_reduce_(counts)
+    out.update(intersection=counts[:K], union=counts[K:2 * K],
+               correct=counts[2 * K], total=counts[2 * K + 1])
+    if with_stats:
+        P = int(torch.as_tensor(proto_class).shape[0])
+        b = images.shape[0]
+        for key, dt in (("agree_counts", torch.int32), ("topk_purity", _F32)):
+            local = out.get(key)
+            rows = torch.zeros((b, P), dtype=dt, device=dev)
+            if local is not None:
+                rows[:share] = local[:share]
+            out[key] = mesh.gather_rows(rows)
+    return out

@@ -187,14 +187,17 @@ class PPNet(nn.Module):
         """(P, K) last-layer weight, the JAX package's layout."""
         return self.last_layer.weight.t()
 
-    def head(self, conv_features: torch.Tensor, return_distances: bool = True
-             ) -> Head:
+    def head(self, conv_features: torch.Tensor, return_distances: bool = True,
+             bank: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> Head:
         """Per-patch logits (B, h, w, K) (+ distances (B, h, w, P)) from
-        NCHW conv features (reference model.py:259-283)."""
+        NCHW conv features (reference model.py:259-283).  ``bank``
+        ((P', C) prototypes, (P', K) last layer) replaces the module's
+        own: a tensor-parallel rank's slice (partial logits, its slice's
+        distances) or a bank gathered from the ranks."""
         rows = conv_features.permute(0, 2, 3, 1)
-        return prototype_head(rows, self.prototypes(), self.last_layer_pk(),
-                              self.cfg.prototype_activation, self.cfg.epsilon,
-                              return_distances)
+        protos, w = (self.prototypes(), self.last_layer_pk()) if bank is None else bank
+        return prototype_head(rows, protos, w, self.cfg.prototype_activation,
+                              self.cfg.epsilon, return_distances)
 
     def global_head(self, conv_features: torch.Tensor
                     ) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -22,6 +22,14 @@ reference's nearest prototype per label pixel: bilinearly upsample the
   kernel; a CPU map takes the integer path where it applies, else the
   scan.
 
+Each of them returns, when asked (``with_value=True``), the winning
+value beside the index: ``min_p`` of the upsampled distances, f32, the
+running best that the argmin keeps.  A tensor-parallel head's rank
+(``parallel/sharding.py``) calls them on its slice of the prototypes
+and combines the (value, index) pairs across ranks; a prototype's value
+does not depend on the other prototypes of the call, so the combined
+index is the whole bank's.
+
 The kernel and the plain version also take an output-row window
 (``out_rows=(o0, n)``: output rows [o0, o0 + n) of the whole (H, W)
 result) and a slab of the map (``map_rows=(first, h)``: ``dist`` holds
@@ -50,9 +58,10 @@ _F32 = torch.float32
 _PAD = 1e30
 
 
-def upsampled_nearest_integer(dist: torch.Tensor, sy: int, sx: int
-                              ) -> torch.Tensor:
-    """argmin of the bilinear upsample by integer factors (sy, sx).
+def upsampled_nearest_integer(dist: torch.Tensor, sy: int, sx: int,
+                              with_value: bool = False):
+    """argmin of the bilinear upsample by integer factors (sy, sx) (with
+    ``with_value``, and its min: (index, value)).
 
     Each output pixel's 4 taps and weights depend only on its phase
     (o mod s), so each phase is one 4-tap blend + argmin on grid-sized
@@ -88,10 +97,16 @@ def upsampled_nearest_integer(dist: torch.Tensor, sy: int, sx: int
                      + shifted(ylo, xlo + 1) * ((1 - wy) * wx)
                      + shifted(ylo + 1, xlo) * (wy * (1 - wx))
                      + shifted(ylo + 1, xlo + 1) * (wy * wx))
-            phases.append(torch.argmin(blend, dim=-1).to(torch.int32))
-    out = torch.stack(phases).reshape(sy, sx, B, h, w)
-    # out[b, sy·i+dy, sx·j+dx] = phases[dy, dx, b, i, j]
-    return out.permute(2, 3, 0, 4, 1).reshape(B, h * sy, w * sx)
+            phases.append((torch.argmin(blend, dim=-1).to(torch.int32),
+                           blend.amin(dim=-1) if with_value else None))
+
+    def interleave(maps):
+        # out[b, sy·i+dy, sx·j+dx] = maps[dy, dx, b, i, j]
+        out = torch.stack(maps).reshape(sy, sx, B, h, w)
+        return out.permute(2, 3, 0, 4, 1).reshape(B, h * sy, w * sx)
+
+    idx = interleave([i for i, _ in phases])
+    return (idx, interleave([v for _, v in phases])) if with_value else idx
 
 
 def _src_coords(n_out: int, n_in: int, device) -> Tuple[torch.Tensor, ...]:
@@ -137,8 +152,8 @@ def _window(dist: torch.Tensor, size: Tuple[int, int], out_rows, map_rows
 def upsampled_argmin_reference(dist: torch.Tensor, size: Tuple[int, int],
                                chunk: int = 16, exact: bool = False,
                                out_rows: Optional[Tuple[int, int]] = None,
-                               map_rows: Optional[Tuple[int, int]] = None
-                               ) -> torch.Tensor:
+                               map_rows: Optional[Tuple[int, int]] = None,
+                               with_value: bool = False):
     """Plain version: a scan over prototype chunks with a running
     (min, argmin), first-occurrence ties (strict ``<``).
 
@@ -151,8 +166,10 @@ def upsampled_argmin_reference(dist: torch.Tensor, size: Tuple[int, int],
       dist: (B, h, w, P) distances, or rows [first, first + h') of them
         with ``map_rows=(first, h)``.  size: (H, W).
       out_rows: (o0, n): output rows [o0, o0 + n) alone.
+      with_value: also return the running min, f32.
     Returns:
-      (B, H, W) int32, or (B, n, W) for a window.
+      (B, H, W) int32, or (B, n, W) for a window; with ``with_value``
+      (index, value).
     """
     B, _, w, P = dist.shape
     H, W = size
@@ -189,7 +206,7 @@ def upsampled_argmin_reference(dist: torch.Tensor, size: Tuple[int, int],
         take = cmin < best
         best = torch.where(take, cmin, best)
         best_i = torch.where(take, cidx.to(torch.int32) + i * chunk, best_i)
-    return best_i
+    return (best_i, best.to(_F32)) if with_value else best_i
 
 
 def _lib() -> ctypes.CDLL:
@@ -197,18 +214,20 @@ def _lib() -> ctypes.CDLL:
     f = lib.adlm_upsample_argmin
     if f.argtypes is None:  # first use: declare the C signature
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        f.argtypes = [vp, ci, vp, ci, ci, ci, ci, ci, ci, ci, ci, ci, ci, vp]
+        f.argtypes = [vp, ci, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, ci, ci, vp]
         f.restype = ci
     return lib
 
 
 def upsampled_argmin_cuda(dist: torch.Tensor, size: Tuple[int, int],
                           out_rows: Optional[Tuple[int, int]] = None,
-                          map_rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+                          map_rows: Optional[Tuple[int, int]] = None,
+                          with_value: bool = False):
     """Launch the fused kernel: (B, h, w, P) f32/bf16 CUDA → (B, H, W)
     int32, exact f32 blend for both dtypes; with ``out_rows=(o0, n)`` the
     (B, n, W) rows [o0, o0 + n) alone, from the slab of the map that
-    ``map_rows=(first, h)`` places (the plain version's arguments)."""
+    ``map_rows=(first, h)`` places (the plain version's arguments).
+    ``with_value``: (index, the winning value f32), one launch."""
     if not dist.is_cuda:
         raise ValueError("upsampled_argmin_cuda takes a CUDA tensor")
     if dist.dtype not in (torch.float32, torch.bfloat16):
@@ -221,23 +240,27 @@ def upsampled_argmin_cuda(dist: torch.Tensor, size: Tuple[int, int],
     lib = _lib()
     dist = dist.contiguous()
     out = torch.empty((B, n, W), dtype=torch.int32, device=dist.device)
+    val = torch.empty((B, n, W), dtype=_F32, device=dist.device) if with_value else None
     with torch.cuda.device(dist.device):
         status = lib.adlm_upsample_argmin(
             dist.data_ptr(), int(dist.dtype == torch.bfloat16), out.data_ptr(),
+            val.data_ptr() if with_value else None,
             B, h, w, P, H, W, o0, n, first, hs, _build.stream_ptr(dist))
     _build.check(lib, status, "upsample_argmin")
     _build.LAUNCHES["upsample_argmin"] += 1
-    return out
+    return (out, val) if with_value else out
 
 
 def upsampled_nearest(dist: torch.Tensor, size: Tuple[int, int],
                       chunk: int = 16, exact: bool = False,
                       out_rows: Optional[Tuple[int, int]] = None,
-                      map_rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+                      map_rows: Optional[Tuple[int, int]] = None,
+                      with_value: bool = False):
     """argmin over prototypes of the bilinearly upsampled distance maps,
     ``argmin(resize_bilinear(dist, size), -1)`` (reference
     eval_valid.py:172-174), as (B, H, W) int32 (an output-row window:
-    ``upsampled_argmin_reference``'s ``out_rows`` and ``map_rows``).
+    ``upsampled_argmin_reference``'s ``out_rows`` and ``map_rows``;
+    ``with_value``: (index, the winning value f32), by the same path).
 
     A CUDA map goes to the kernel (exact f32 blend whatever ``exact``
     says).  A whole CPU frame with integer factors whose f32 maps fit
@@ -246,13 +269,15 @@ def upsampled_nearest(dist: torch.Tensor, size: Tuple[int, int],
     """
     window = {} if out_rows is None and map_rows is None else dict(out_rows=out_rows,
                                                                    map_rows=map_rows)
+    if with_value:
+        window["with_value"] = True
     if dist.is_cuda:
         return upsampled_argmin_cuda(dist, size, **window)
-    if window:
+    if "out_rows" in window:
         return upsampled_argmin_reference(dist, size, chunk, True, **window)
     B, h, w, P = dist.shape
     H, W = size
     if (H % h == 0 and W % w == 0 and (H // h) * (W // w) <= 256
             and B * h * w * P <= 64 * 1024 * 1024):
-        return upsampled_nearest_integer(dist, H // h, W // w)
-    return upsampled_argmin_reference(dist, size, chunk, exact)
+        return upsampled_nearest_integer(dist, H // h, W // w, with_value)
+    return upsampled_argmin_reference(dist, size, chunk, exact, with_value=with_value)

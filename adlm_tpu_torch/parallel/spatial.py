@@ -29,8 +29,18 @@ the modules' own parameters; the single-device forward in
 ``models/*.py`` is not touched.  The first convolution reads its input
 rows, with the stem's halo, straight from the frame the data rank
 loaded.  The dilated convs run as dilated convs (the ``s2b`` route is
-the same function).  MSC models and the tensor-parallel head are
-ROADMAP item 9b and raise.
+the same function).
+
+An MSC model (``msc_scales``) runs the trunk once more per scale: each
+rank resizes the whole frame by the scale (the call one process makes,
+so the same bits, and no exchange), runs the trunk on its rows of that
+scale's grid (a row plan of its own), fetches the pyramid rows its
+base-grid rows read (one exchange per scale) and resizes them as the
+logits are resized (a zero-filled whole grid), then takes the max over
+the scales.
+
+The tensor-parallel head (``parallel/sharding.py``) runs here with the
+bank its model group gathered (``bank``).
 
 ``make_spatial_inference_fn`` is the eval step of
 ``make_inference_fn`` over such a mesh: the counters summed over the
@@ -51,8 +61,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from adlm_tpu_torch.core.mesh import Mesh, row_range
+from adlm_tpu_torch.ops.resize import (
+    bilinear_source_rows,
+    resize_bilinear_factor,
+    resize_bilinear_rows,
+)
 
-ITEM_9B = "is not ported yet (ROADMAP.md Queue 1 item 9b)"
 Rows = Tuple[int, int]
 _F32 = torch.float32
 
@@ -152,24 +166,17 @@ def _convbn_op(cb: nn.Module) -> RowOp:
 
 
 def check_model(model: nn.Module) -> None:
-    """Spatial eval runs the non-MSC DeepLabV2 segmentation models."""
+    """Spatial eval runs the DeepLabV2 segmentation models, MSC or not."""
     cfg = model.cfg
     if cfg.base_architecture != "deeplabv2_resnet101" or not cfg.patch_classification:
         raise ValueError("spatial eval runs the DeepLabV2 segmentation models")
-    if cfg.msc_scales:
-        raise NotImplementedError(f"spatial eval of an MSC model (msc_scales "
-                                  f"{tuple(cfg.msc_scales)}) {ITEM_9B}")
 
 
-def forward_rows(model: nn.Module, images: torch.Tensor, rank: Rank,
-                 return_distances: bool = True
-                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor], int]:
-    """The PPNet forward on this rank's rows: (logits (B, h_r, w, K),
-    distances (B, h_r, w, P) or None, the grid height h).
-
-    ``images`` are the data rank's whole normalized frames, (B, 3, H, W)
-    in the model's dtype (any strides)."""
-    base = model.features.base
+def trunk_rows(base: nn.Module, images: torch.Tensor, rank: Rank
+               ) -> Tuple[torch.Tensor, int]:
+    """DeepLabV2 (stem to the ASPP sum) on this rank's rows: (its rows of
+    the output, NCHW, the output's height).  ``images`` are whole frames
+    (B, 3, H, W) in the model's dtype (any strides)."""
     n = images.shape[2]
     # the stem conv reads its rows (zero-filled past the edge) from the frame
     cb = base.layer1.conv1
@@ -207,7 +214,40 @@ def forward_rows(model: nn.Module, images: torch.Tensor, rank: Rank,
         r = c.dilation[0]
         sub = xs[:, :, r_max - r:r_max - r + own + 2 * r]
         parts.append(_conv_rows(c, sub))
-    x = sum(parts)
+    return sum(parts), n
+
+
+def msc_rows(base: nn.Module, images: torch.Tensor, rank: Rank, x: torch.Tensor,
+             n: int, scales: Sequence[float]) -> torch.Tensor:
+    """``models.deeplab.MSC``'s eval output on this rank's rows of the
+    base grid (``n`` rows; ``x`` its trunk rows at scale 1): the max of
+    ``x`` and of each scale's trunk output resized to the base grid."""
+    lo, hi = rank.rows(n)
+    size = (n, x.shape[3])
+    parts = [x]
+    for s in scales:
+        y, n_s = trunk_rows(base, resize_bilinear_factor(images, s, channel_last=False), rank)
+        need = [bilinear_source_rows(n, n_s, *r) for r in row_plan(n, rank.M)]
+        y = rank.exchange(y, n_s, need).permute(0, 2, 3, 1)
+        up = resize_bilinear_rows(y, size, lo, hi, first_row=need[rank.me][0], in_h=n_s)
+        parts.append(up.permute(0, 3, 1, 2))
+    return torch.stack(parts).amax(dim=0)
+
+
+def forward_rows(model: nn.Module, images: torch.Tensor, rank: Rank,
+                 return_distances: bool = True,
+                 bank: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor], int]:
+    """The PPNet forward on this rank's rows: (logits (B, h_r, w, K),
+    distances (B, h_r, w, P) or None, the grid height h).
+
+    ``images`` are the data rank's whole normalized frames, (B, 3, H, W)
+    in the model's dtype (any strides); ``bank`` replaces the head's
+    prototypes and last layer (``PPNet.head``)."""
+    features = model.features
+    x, n = trunk_rows(features.base, images, rank)
+    if features.scales:
+        x = msc_rows(features.base, images, rank, x, n, features.scales)
     for m in model.add_on_layers.children():
         if isinstance(m, nn.Conv2d) and (m.kernel_size[0] > 1 or m.stride[0] > 1):
             op = conv_op(m)
@@ -215,7 +255,7 @@ def forward_rows(model: nn.Module, images: torch.Tensor, rank: Rank,
             x, n = _conv_rows(m, rank.fetch(x, n, op, n_out)), n_out
         else:
             x = m(x)
-    logits, dist = model.head(x, return_distances)
+    logits, dist = model.head(x, return_distances, bank)
     return logits, dist, n
 
 
@@ -235,9 +275,10 @@ def make_spatial_inference_fn(model: nn.Module, num_classes: int, mesh: Mesh,
                               proto_chunk: int = 16) -> Callable:
     """The eval step of ``interpret.evaluate.make_inference_fn`` with
     image H over ``mesh``'s model ranks (and the batch over its data
-    ranks): ``fn(proto_class, images, labels, *uv, n_valid=None)`` on
-    this data rank's (b, H, W, ·) slice of a global batch whose first
-    ``n_valid`` images are real (default: all).
+    ranks): ``fn(proto_class, images, labels, *uv, n_valid=None,
+    bank=None)`` on this data rank's (b, H, W, ·) slice of a global batch
+    whose first ``n_valid`` images are real (default: all); ``bank``
+    replaces the head's prototypes and last layer.
 
     Returns ``intersection``/``union``/``correct``/``total`` summed over
     the world (int64), ``pred`` (b, H_r, W) of this rank's label rows
@@ -254,14 +295,14 @@ def make_spatial_inference_fn(model: nn.Module, num_classes: int, mesh: Mesh,
     from adlm_tpu_torch.interpret import evaluate as E
     from adlm_tpu_torch.ops import upsample_argmin as UA
     from adlm_tpu_torch.ops.normalize import normalize as normalize_images
-    from adlm_tpu_torch.ops.resize import bilinear_source_rows, resize_bilinear_rows
 
     check_model(model)
     dev = E._prepare(model, mesh.device)
     rank = Rank(mesh)
     K = num_classes
 
-    def fn(proto_class, images, labels, *uv, n_valid: Optional[int] = None
+    def fn(proto_class, images, labels, *uv, n_valid: Optional[int] = None,
+           bank: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
            ) -> Dict[str, torch.Tensor]:
         with torch.inference_mode(), ieee_f32():
             b, H, W = labels.shape[0], labels.shape[1], labels.shape[2]
@@ -275,7 +316,7 @@ def make_spatial_inference_fn(model: nn.Module, num_classes: int, mesh: Mesh,
                 x = normalize_images(to_device(images, dev), normalize)
                 lab = to_device(labels, dev)[:, lo:hi]
                 grid_logits, dist, h = forward_rows(model, E._images_nchw(model, x), rank,
-                                                    with_stats)
+                                                    with_stats, bank)
                 g_plan = row_plan(h, mesh.model)
                 need = bilinear_source_rows(H, h, lo, hi)
                 lg = rank.exchange(grid_logits.permute(0, 3, 1, 2), h,

@@ -32,13 +32,21 @@ non-zero and prints no result:
    integer-scale shapes, each through ``upsampled_nearest`` (which must
    launch the kernel); then output-row windows of five of those maps,
    as spatial eval's ranks cut them, on the slab of map rows each reads,
-   bit-equal to the whole-frame launch's rows; 0 mismatches;
+   bit-equal to the whole-frame launch's rows; 0 mismatches; and the
+   kernel's winning-value output on those maps (``with_value``): the
+   index unchanged, the value equal to the plain version's running min
+   (``UA_VALUE_ULPS``), on a row window too, and the prototypes cut into
+   2 and 3 contiguous slices as a tensor-parallel head's ranks hold
+   them, each slice's pair equal to the plain version's and the combined
+   (value, index) equal to the whole-bank launch's;
 4. the slice: ``SegEvaluator(with_stats=True, stats_upsampled=True)``
    on uint8 batches normalized on the device, in f32 and bf16, plus one
    ``make_overlay_fn`` call, with the launch counts reset just before
    and read just after; then the same batches once more with the plain
    versions patched in, compared within a tie budget;
-5. timings (CUDA events for the kernels, host clock + synchronize for
+5. timings (CUDA events for the kernels: the upsample-argmin with and
+   without its value output, alternated, and the head on a tensor-
+   parallel rank's 95-prototype slice; host clock + synchronize for
    eval images/s at batch 2 and 8);
 6. a ``torch.profiler`` window over eval batches: device time by kernel
    and the device's busy share;
@@ -194,10 +202,33 @@ non-zero and prints no result:
    the whole-frame kernel on the ranks' own distance map; then
    ``eval-valid --mesh-model 2`` through the CLI's rank entry on phase
    15's prepared frames, its mIoU and per-class IoU equal to the
-   one-process command's; each rank's seconds, a gloo figure.  On a
-   machine with two cards or more, the same checks on two NCCL ranks,
-   one card each, and ``python -m adlm_tpu_torch.cli eval-valid
-   --mesh-model 2`` (its own NCCL ranks, one card each).
+   one-process command's; each rank's seconds, a gloo figure.  The same
+   ranks then run (a) the tensor-parallel prototype head on the
+   flagship's batch (``prototype_parallel_params``, 95 of the 190
+   prototypes each; ``make_sharded_inference_fn(spatial=False,
+   prototype_parallel=True)``) with grid and upsampled statistics in f32
+   and bf16, against the whole-bank eval in this process: counters
+   within phase 4's tie budget (the logits are a sum of two partial
+   products; the pixels whose class moved are printed),
+   ``nearest_proto`` bit-equal, agree counts apart by no more than the
+   statistic classes that moved,
+   purity at rtol 1e-5 / atol 1e-6, one head launch per batch (and one
+   upsample-argmin with upsampled statistics), every rank the same
+   outputs; and one f32 batch with ``spatial=True`` as well (the bank
+   gathered), bit-equal to spatial eval with the whole bank; (b) spatial
+   eval of the MSC model ``pascal_kld_imnet`` (PPNet, 210 prototypes x
+   64 channels, 21 classes, DeepLabV2-ResNet101 at full depth, scales
+   1, 0.5 and 0.75) at batch 2 of 513x513 uint8 frames with a void band:
+   f32 0 apart from this process on every counter, agree count, sampled
+   distance and purity, bf16 by the rule above, the row windows, one
+   head and one upsample-argmin launch per rank; then ``eval-valid
+   --mesh-model 2`` of that experiment through the CLI's rank entry on
+   4 PASCAL-sized frames (375x500, resized to 513x513 as its eval does)
+   that the phase writes in the prepared ``.npy`` layout, against the
+   one-process command (mIoU and per-class IoU equal).  On a machine
+   with two cards or more, the same checks on two NCCL ranks, one card
+   each, and ``python -m adlm_tpu_torch.cli eval-valid --mesh-model 2``
+   (its own NCCL ranks, one card each) for both experiments.
 
 Precision: f32 runs with TF32 off for convolutions and matmuls (the
 entry points' ``ieee_f32`` scope; the comparisons here run in the same
@@ -253,6 +284,9 @@ HEAD_EPILOGUE_OPS = {"log": 3 + 2 + DIV_SASS + LOGF_SASS, "linear": 4}
 # the distances alone (the general path's distances-only route): C FMAs
 # and the d update, per (row, prototype) pair
 HEAD_DIST_OPS = 3
+# a tensor-parallel rank's slice of the flagship's 190 prototypes over 2
+# model ranks (phase 5 times the head on it)
+TP_SLICE_P = 95
 # the port's first kernels (head: one (row, prototype) pair per thread
 # step; upsample-argmin: direct 4-tap blend), f32 batch 2, on "NVIDIA
 # H100 80GB HBM3, 700.00 W" (PERF.md)
@@ -559,6 +593,7 @@ def check_upsample(report) -> None:
         if name == "all-equal tie" and int(got.abs().sum()):
             raise AssertionError("tie case: every index must be 0")
     check_upsample_windows([c for c in cases if c[0] in UPSAMPLE_WINDOW_CASES])
+    check_upsample_value([c for c in cases if c[0] in UPSAMPLE_WINDOW_CASES])
     report["upsample_argmin"]["max_abs_err"] = 0
 
 
@@ -614,6 +649,91 @@ def check_upsample_windows(cases) -> None:
     log(f"  {n} row windows: 0 mismatches")
 
 
+# the winning value's limit against the plain version's, in f32 units in
+# the last place: both blend separably (x pass, then y pass), every
+# product and sum rounded on its own, so they agree bit for bit
+UA_VALUE_ULPS = 0
+
+
+def f32_ulps(a, b) -> int:
+    """Largest distance in f32 units in the last place between two f32
+    tensors of finite values (their bit patterns on one ordered line)."""
+    import torch
+
+    def ordered(t):
+        i = t.contiguous().view(torch.int32).long()
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+
+    return int((ordered(a) - ordered(b)).abs().max()) if a.numel() else 0
+
+
+def check_upsample_value(cases) -> None:
+    """The kernel's winning-value output (``with_value=True``): the index
+    equal to the call without it and to the plain version's, the value
+    within UA_VALUE_ULPS of the plain version's running min, on the whole
+    frame and on a row window; then the prototypes split into contiguous
+    slices (2 and 3, as a tensor-parallel head's ranks hold them), each
+    slice's values bit-equal to the plain version's on that slice, and
+    the (value, index) combine over the slices (least value, then least
+    global index) bit-equal to the whole-bank launch's pair."""
+    import torch
+    from adlm_tpu_torch.core.mesh import row_range
+    from adlm_tpu_torch.ops import _build
+    from adlm_tpu_torch.ops.upsample_argmin import (
+        tap_rows,
+        upsampled_argmin_cuda,
+        upsampled_argmin_reference,
+    )
+
+    for name, d, size in cases:
+        Hs, P, h = size[0], d.shape[-1], d.shape[1]
+        with torch.inference_mode():
+            idx0 = upsampled_argmin_cuda(d, size)
+            before = _build.LAUNCHES["upsample_argmin"]
+            idx, val = upsampled_argmin_cuda(d, size, with_value=True)
+            if _build.LAUNCHES["upsample_argmin"] != before + 1:
+                raise AssertionError(f"value output of {name}: not one launch")
+            ridx, rval = upsampled_argmin_reference(d, size, exact=True, with_value=True)
+            lo, hi = row_range(1, Hs, 2)
+            first, last = tap_rows(Hs, h, lo, hi)
+            widx, wval = upsampled_argmin_cuda(d[:, first:last].contiguous(), size,
+                                               out_rows=(lo, hi - lo), map_rows=(first, h),
+                                               with_value=True)
+            combos = []
+            for m in (2, 3):
+                best_v = best_i = None
+                for q in range(m):
+                    a, b = row_range(q, P, m)
+                    part = d[..., a:b].contiguous()
+                    si, sv = upsampled_argmin_cuda(part, size, with_value=True)
+                    pi, pv = upsampled_argmin_reference(part, size, exact=True,
+                                                        with_value=True)
+                    if not (torch.equal(si, pi) and torch.equal(sv, pv)):
+                        raise AssertionError(f"{name}: slice [{a}, {b}) of {m} differs from "
+                                             "the plain version's")
+                    si = si + a
+                    if best_v is None:
+                        best_v, best_i = sv, si
+                    else:   # earlier slices hold lower indices: strict < keeps them
+                        take = sv < best_v
+                        best_v, best_i = torch.where(take, sv, best_v), torch.where(take, si,
+                                                                                     best_i)
+                combos.append((m, torch.equal(best_i, idx), torch.equal(best_v, val)))
+            torch.cuda.synchronize()
+        ulps = f32_ulps(val, rval)
+        log(f"  upsample_argmin {name:17s} value output: index equal to the call without "
+            f"it {torch.equal(idx, idx0)}, to the plain version's {torch.equal(idx, ridx)}; "
+            f"value vs the plain version's {ulps} ulps (limit {UA_VALUE_ULPS}); row window "
+            f"[{lo}, {hi}) equal {torch.equal(widx, idx[:, lo:hi])}/"
+            f"{torch.equal(wval, val[:, lo:hi])}; P split into contiguous slices, combined "
+            "(index, value) equal to the whole bank's: "
+            + ", ".join(f"{m} slices {ci}/{cv}" for m, ci, cv in combos))
+        if not (torch.equal(idx, idx0) and torch.equal(idx, ridx) and ulps <= UA_VALUE_ULPS
+                and torch.equal(widx, idx[:, lo:hi]) and torch.equal(wval, val[:, lo:hi])
+                and all(ci and cv for _, ci, cv in combos)):
+            raise AssertionError(f"upsample_argmin value output of {name} disagrees")
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the slice
 # ---------------------------------------------------------------------------
@@ -635,9 +755,10 @@ def random_model(cfg, seed: int):
     return model
 
 
-def make_batches(n: int, B: int, seed: int):
-    """uint8 frames with structure at several scales (a random coarse
-    image upsampled, plus noise) and random labels with a void band."""
+def make_batches(n: int, B: int, seed: int, size=(H, W), n_labels: int = 20):
+    """uint8 frames of ``size`` with structure at several scales (a random
+    coarse image upsampled, plus noise) and random labels (training ids
+    below ``n_labels``, 0 void) with a void band."""
     import torch
     import torch.nn.functional as F
 
@@ -645,11 +766,11 @@ def make_batches(n: int, B: int, seed: int):
     out = []
     for _ in range(n):
         coarse = torch.rand(B, 3, 16, 32, device="cuda", generator=g)
-        img = F.interpolate(coarse, size=(H, W), mode="bilinear",
+        img = F.interpolate(coarse, size=size, mode="bilinear",
                             align_corners=False) * 200
-        img = img + torch.rand(B, 3, H, W, device="cuda", generator=g) * 55
+        img = img + torch.rand(B, 3, *size, device="cuda", generator=g) * 55
         img = img.clamp(0, 255).to(torch.uint8).permute(0, 2, 3, 1).contiguous()
-        lab = torch.randint(0, 20, (B, H, W), device="cuda", generator=g,
+        lab = torch.randint(0, n_labels, (B,) + tuple(size), device="cuda", generator=g,
                             dtype=torch.uint8)
         lab[:, :64] = 0
         out.append((img, lab))
@@ -895,8 +1016,24 @@ def time_kernels(report, card: str) -> None:
                           + (4 * N * P if emit else 0))
                 b_ms, b_by = bound(ops, nbytes, PEAK_F32_OPS)
                 rows.append(("prototype_head", str(dtype)[6:], emit, ms, plain, b_ms, b_by))
+            # one rank of the tensor-parallel head (P = 190 over 2 model
+            # ranks): its 95-prototype slice of the bank, d written
+            Ps = TP_SLICE_P
+            ps, ws = pd[:Ps].contiguous(), wd[:Ps].contiguous()
+            ms = cuda_ms(lambda: prototype_head_cuda(xd, ps, ws, "log", 1e-4, True), 50)
+            plain = cuda_ms(lambda: prototype_head_reference(xd, ps, ws, "log"), 20)
+            ops = N * Ps * (C + K + HEAD_EPILOGUE_OPS["log"])
+            nbytes = N * C * xd.element_size() + 4 * (Ps * C + Ps * K + N * K + N * Ps)
+            b_ms, b_by = bound(ops, nbytes, PEAK_F32_OPS)
+            rows.append((f"head P={Ps} slice", str(dtype)[6:], True, ms, plain, b_ms, b_by))
             dd = dist.to(dtype)
-            ms = cuda_ms(lambda: upsampled_argmin_cuda(dd, (H, W)), 20)
+            # with and without the winning value, alternated in one process
+            plain_ms, value_ms = [], []
+            for _ in range(2):
+                plain_ms.append(cuda_ms(lambda: upsampled_argmin_cuda(dd, (H, W)), 20))
+                value_ms.append(cuda_ms(
+                    lambda: upsampled_argmin_cuda(dd, (H, W), with_value=True), 20))
+            ms = min(plain_ms)
             plain = cuda_ms(lambda: upsampled_argmin_reference(dd, (H, W), 16, True), 3, 1)
             # separable blend (x pass over h rows, y pass over H) and
             # compares: single f32 instructions, none fuses
@@ -904,15 +1041,21 @@ def time_kernels(report, card: str) -> None:
             nbytes = B * (h * w * P * dd.element_size() + 4 * H * W)
             b_ms, b_by = bound(ops, nbytes, PEAK_F32_OPS)
             rows.append(("upsample_argmin", str(dtype)[6:], None, ms, plain, b_ms, b_by))
+            b_ms, b_by = bound(ops, nbytes + B * 4 * H * W, PEAK_F32_OPS)
+            rows.append(("ua +value", str(dtype)[6:], None, min(value_ms), plain, b_ms, b_by))
+            log(f"  upsample_argmin {str(dtype)[6:]} whole frame, alternated: without the "
+                f"value {', '.join(f'{t:.4f}' for t in plain_ms)} ms, with it "
+                f"{', '.join(f'{t:.4f}' for t in value_ms)} ms (PR 17: 0.3083-0.3114 ms f32)"
+                f"  [{card}]")
     for name, dt, emit, ms, plain, b_ms, b_by in rows:
         extra = "" if emit is None else f" dist={emit!s:5s}"
-        was = {"prototype_head": PR1_HEAD_MS, "upsample_argmin": PR1_UPSAMPLE_MS}[name]
-        was = f"  (first kernel {was} ms f32)"
+        was = {"prototype_head": PR1_HEAD_MS, "upsample_argmin": PR1_UPSAMPLE_MS}.get(name)
+        was = f"  (first kernel {was} ms f32)" if was else ""
         log(f"  {name:16s} {dt:8s}{extra} kernel {ms:.4f} ms  plain {plain:.4f} ms  "
             f"bound {b_ms:.4f} ms ({b_by}){was}  [{card}]")
     # the kernels line reports the f32 shape the stats eval runs
     for name, dt, emit, ms, plain, b_ms, b_by in rows:
-        if dt == "float32" and emit in (True, None):
+        if name in report and dt == "float32" and emit in (True, None):
             report[name].update(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by)
 
 
@@ -5650,13 +5793,14 @@ def dp_eval(model, cfg, inp, dev, mesh, draws=None):
     from adlm_tpu_torch.interpret.evaluate import SegEvaluator
     from adlm_tpu_torch.models.ppnet import default_proto_class
 
-    pc = default_proto_class(190, 19, device=dev)
+    K = cfg.model.num_classes
+    pc = default_proto_class(cfg.model.num_prototypes, K, device=dev)
     img, lab = inp["eval_img"].to(dev), inp["eval_lab"].to(dev)
     n_valid = img.shape[0]
     if mesh is not None:
         rows = mesh.batch_slice(img.shape[0])
         img, lab = img[rows], lab[rows]
-    ev = SegEvaluator(model, 19, with_stats=True, stats_upsampled=True,
+    ev = SegEvaluator(model, K, with_stats=True, stats_upsampled=True,
                       normalize=(cfg.data.mean, cfg.data.std), n_random_pixels=N_RANDOM,
                       seed=SEED, device=dev, mesh=mesh)
     if draws is not None:
@@ -6192,15 +6336,29 @@ SP_TIMEOUT = 600.0              # seconds allowed the spawned ranks in all
 # bf16 eval no further than SP_BF16_FACTOR times the control is, plus
 # phase 4's budgets.  f32 keeps phase 4's budgets.
 SP_BF16_FACTOR = 2.0
+# the MSC case: PASCAL's model (PPNet, 210 prototypes x 64 channels, 21
+# classes, DeepLabV2-ResNet101 at full depth, msc_scales (0.5, 0.75)) on
+# frames at its eval size; the CLI case's frames are resized to it
+MSC_EXPERIMENT = "pascal_kld_imnet"
+MSC_HW = (513, 513)
+MSC_CLI_HW, MSC_CLI_FRAMES = (375, 500), 4
+# the tensor-parallel head's purity against one process
+# (tests/test_parallel.py's prototype-parallel test)
+TP_PURITY = dict(rtol=1e-5, atol=1e-6)
+TP_KEYS = ("intersection", "union", "correct", "total", "pred", "stat_pred",
+           "nearest_proto", "agree_counts", "topk_purity")
 
 
 def sp_inputs(path: str) -> None:
-    """Phase 4's first batch (2 x 1024 x 2048, uint8, a void band), for
-    the ranks and this process alike."""
+    """The ranks' and this process's batches: the flagship's (2 x 1024 x
+    2048, uint8, a void band) and the MSC model's (2 x 513 x 513, PASCAL's
+    21 classes)."""
     import torch
 
     img, lab = make_batches(1, 2, SEED + 71)[0]
-    torch.save({"eval_img": img.cpu(), "eval_lab": lab.cpu()}, path)
+    m_img, m_lab = make_batches(1, 2, SEED + 73, MSC_HW, 22)[0]
+    torch.save({"flagship": {"eval_img": img.cpu(), "eval_lab": lab.cpu()},
+                "msc": {"eval_img": m_img.cpu(), "eval_lab": m_lab.cpu()}}, path)
 
 
 def sp_models(cfg, dev):
@@ -6237,7 +6395,7 @@ def sp_work(cfg, inp, dev, mesh):
 
         def record(d, size, *args, **kw):
             out = orig(d, size, *args, **kw)
-            calls.append((d, kw.get("out_rows"), kw.get("map_rows"), out))
+            calls.append((d, kw.get("out_rows"), kw.get("map_rows"), out, tuple(size)))
             return out
 
         ua.upsampled_nearest = record
@@ -6252,8 +6410,8 @@ def sp_work(cfg, inp, dev, mesh):
         finally:
             ua.upsampled_nearest = orig
         if mesh is not None:
-            (d, out_rows, map_rows, out), = calls
-            res[tag]["window"] = (d.cpu(), out_rows, map_rows, out.cpu())
+            (d, out_rows, map_rows, out, size), = calls
+            res[tag]["window"] = (d.cpu(), out_rows, map_rows, out.cpu(), size)
         elif tag == "bf16":
             # each image on the pixels the batch's evaluator draws for it
             rng, n = np.random.RandomState(SEED), inp["eval_img"].shape[0]
@@ -6277,10 +6435,89 @@ def sp_rank(dev, mesh_args, in_path: str, out_dir: str) -> None:
     mesh = make_mesh(MeshSpec(1, SP_WORLD), dev, **mesh_args)
     try:
         inp = torch.load(in_path, weights_only=False)
-        res = sp_work(get_experiment("cityscapes_kld_imnet"), inp, dev, mesh)
+        flagship = get_experiment("cityscapes_kld_imnet")
+        res = {"spatial": sp_work(flagship, inp["flagship"], dev, mesh),
+               "tp": tp_work(flagship, inp["flagship"], dev, mesh),
+               "msc": sp_work(get_experiment(MSC_EXPERIMENT), inp["msc"], dev, mesh)}
     finally:
         destroy(mesh)
     torch.save(res, f"{out_dir}/rank{mesh.rank}.pt")
+
+
+def tp_keep(o) -> dict:
+    """What the tensor-parallel comparison reads of an eval output, on the
+    host (the maps narrowed: classes to uint8)."""
+    import torch
+
+    out = {k: o[k].cpu() for k in TP_KEYS if k in o}
+    for k in ("pred", "stat_pred"):
+        if k in out:
+            out[k] = out[k].to(torch.uint8)
+    return out
+
+
+def tp_work(cfg, inp, dev, mesh):
+    """The tensor-parallel head on the flagship's batch: with a mesh, the
+    rank's ``PrototypeSlice`` through ``make_sharded_inference_fn(spatial=
+    False, prototype_parallel=True)``; without, ``make_inference_fn`` with
+    the whole bank.  Grid and upsampled statistics, f32 and bf16, the
+    same sample pixels, launches counted around each.  With a mesh also
+    one f32 batch of ``spatial=True`` and ``prototype_parallel=True``
+    (the bank gathered) against ``spatial=True`` with the whole bank."""
+    import numpy as np
+    import torch
+    from adlm_tpu_torch.interpret.evaluate import make_inference_fn
+    from adlm_tpu_torch.models.ppnet import default_proto_class
+    from adlm_tpu_torch.ops import _build
+    from adlm_tpu_torch.parallel.sharding import (
+        make_sharded_inference_fn,
+        prototype_parallel_params,
+    )
+
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    K = cfg.model.num_classes
+    pc = default_proto_class(cfg.model.num_prototypes, K, device=dev)
+    img, lab = inp["eval_img"].to(dev), inp["eval_lab"].to(dev)
+    rng = np.random.RandomState(SEED + 5)
+    u, v = (torch.from_numpy(rng.random_sample((img.shape[0], N_RANDOM)).astype(np.float32))
+            for _ in range(2))
+    mean_std = (cfg.data.mean, cfg.data.std)
+    models = sp_models(cfg, dev)
+    res = {}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        o = fn()
+        torch.cuda.synchronize()
+        return {"out": tp_keep(o), "launches": dict(_build.LAUNCHES),
+                "secs": time.perf_counter() - t0}
+
+    for tag in ("f32", "bf16"):
+        model = models[tag].eval()
+        tp = prototype_parallel_params(model, mesh) if mesh is not None else None
+
+        def step(upsampled, spatial=False, parallel=True):
+            if mesh is None:
+                f = make_inference_fn(model, K, True, upsampled, normalize=mean_std, device=dev)
+                return lambda: f(pc, img, lab, u, v)
+            f = make_sharded_inference_fn(model, K, mesh, spatial=spatial, with_stats=True,
+                                          prototype_parallel=parallel,
+                                          stats_upsampled=upsampled, normalize=mean_std)
+            return (lambda: f(tp, pc, img, lab, u, v)) if parallel else (
+                lambda: f(pc, img, lab, u, v))
+
+        step(False)()   # the whole frame's first batch in this dtype: not counted
+        for upsampled in (False, True):
+            res[(tag, upsampled)] = timed(step(upsampled))
+        if tag == "f32" and mesh is not None:
+            res["spatial whole bank"] = timed(step(True, spatial=True, parallel=False))
+            res["spatial tp"] = timed(step(True, spatial=True))
+        models[tag] = None
+        del model
+        torch.cuda.empty_cache()
+    return res
 
 
 def sp_cli_rank(dev, mesh_args, argv, root: str) -> None:
@@ -6322,10 +6559,10 @@ def sp_windows(ranks, tag: str) -> None:
     from adlm_tpu_torch.ops.upsample_argmin import upsampled_argmin_cuda
 
     slabs = [res[tag]["window"] for res in ranks]
-    h = slabs[0][2][1]
+    h, size = slabs[0][2][1], slabs[0][4]
     d0 = slabs[0][0]
     full = torch.full((d0.shape[0], h) + tuple(d0.shape[2:]), math.nan)
-    for d, _, (first, _), _ in slabs:
+    for d, _, (first, _), _, _ in slabs:
         rows = full[:, first:first + d.shape[1]]
         seen = ~rows.isnan().all(dim=(0, 2, 3))
         if not torch.equal(rows[:, seen], d[:, seen]):
@@ -6334,9 +6571,9 @@ def sp_windows(ranks, tag: str) -> None:
     if bool(full.isnan().any()):
         raise AssertionError(f"spatial {tag}: the slabs leave map rows out")
     with torch.inference_mode():
-        whole = upsampled_argmin_cuda(full.cuda(), (H, W)).cpu()
+        whole = upsampled_argmin_cuda(full.cuda(), size).cpu()
     parts = []
-    for r, (d, (o0, n), (first, _), out) in enumerate(slabs):
+    for r, (d, (o0, n), (first, _), out, _) in enumerate(slabs):
         bad = int((out != whole[:, o0:o0 + n]).sum())
         parts.append(f"rank {r}: rows [{o0}, {o0 + n}) from map rows [{first}, "
                      f"{first + d.shape[1]}), {bad} mismatches")
@@ -6400,12 +6637,13 @@ def sp_hold_cli(label: str, run: str, prepared) -> None:
                              "command's")
 
 
-def sp_cli(root: str, prepared) -> None:
-    """``eval-valid --stats --stats-upsampled --mesh-model 2`` on phase 15's
-    prepared frames through the CLI's rank entry (two gloo ranks sharing
-    the card), against phase 15's one-process command; on a machine
-    with two cards, also ``python -m adlm_tpu_torch.cli`` with the same
-    arguments, which starts its own NCCL ranks, one card each."""
+def sp_cli(root: str, prepared, label: str = "cityscapes_kld_imnet") -> None:
+    """``eval-valid --stats --stats-upsampled --mesh-model 2`` on prepared
+    frames (phase 15's, or ``msc_cli``'s) through the CLI's rank entry
+    (two gloo ranks sharing the card), against the one-process command;
+    on a machine with two cards, also ``python -m adlm_tpu_torch.cli``
+    with the same arguments, which starts its own NCCL ranks, one card
+    each."""
     import os
 
     import torch
@@ -6423,25 +6661,28 @@ def sp_cli(root: str, prepared) -> None:
                 with open(p) as f:
                     log("\n".join(f.read().splitlines()[-30:]))
         raise
-    sp_hold_cli(f"eval-valid --mesh-model {SP_WORLD} (CLI rank entry, gloo)", run, prepared)
+    sp_hold_cli(f"{label} eval-valid --mesh-model {SP_WORLD} (CLI rank entry, gloo)", run,
+                prepared)
     if torch.cuda.device_count() < 2:
         return
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, "-m", "adlm_tpu_torch.cli", *argv],
                           capture_output=True, text=True, timeout=SP_TIMEOUT)
-    log(f"  python -m adlm_tpu_torch.cli eval-valid --mesh-model {SP_WORLD} (NCCL, cuda:0 "
-        f"and cuda:1): exit {proc.returncode} in {time.perf_counter() - t0:.1f} s")
+    log(f"  python -m adlm_tpu_torch.cli eval-valid ({label}) --mesh-model {SP_WORLD} (NCCL, "
+        f"cuda:0 and cuda:1): exit {proc.returncode} in {time.perf_counter() - t0:.1f} s")
     if proc.returncode != 0:
         log("\n".join((proc.stdout + proc.stderr).splitlines()[-40:]))
         raise AssertionError(f"eval-valid --mesh-model {SP_WORLD} on {SP_WORLD} cards failed")
-    sp_hold_cli(f"eval-valid --mesh-model {SP_WORLD} (NCCL)", run, prepared)
+    sp_hold_cli(f"{label} eval-valid --mesh-model {SP_WORLD} (NCCL)", run, prepared)
 
 
-def sp_compare(ranks, single, report, label: str, n_pixels: int) -> None:
+def sp_compare(ranks, single, report, label: str, n_pixels: int, exact: bool = False) -> None:
     """Each rank of a spatial world against this process's one-process
-    evals: f32 within phase 4's budgets, bf16 by ``sp_hold_bf16``; one
-    head and one upsample-argmin launch per rank; the same totals on
-    every rank; the row windows against the whole-frame kernel."""
+    evals: f32 within phase 4's budgets (``exact``: 0 apart on every
+    counter, agree count, sampled distance and purity), bf16 by
+    ``sp_hold_bf16``; one head and one upsample-argmin launch per rank;
+    the same totals on every rank; the row windows against the
+    whole-frame kernel."""
     import torch
     from adlm_tpu_torch.ops import _build
 
@@ -6450,8 +6691,13 @@ def sp_compare(ranks, single, report, label: str, n_pixels: int) -> None:
         for r, res in enumerate(ranks):
             name = f"spatial {label} {tag} rank {r}"
             if tag == "f32":
-                compare_eval(name, res[tag]["eval"], want, n_pixels)
-                log(f"  {name} vs one process: {sp_distance(res[tag]['eval'], want)}")
+                far = sp_distance(res[tag]["eval"], want)
+                log(f"  {name} vs one process: {far}, {res[tag]['secs']:.2f} s (one process "
+                    f"{single[tag]['secs']:.2f} s)")
+                if exact and any(far.values()):
+                    raise AssertionError(f"{name}: not equal to the one-process eval")
+                if not exact:
+                    compare_eval(name, res[tag]["eval"], want, n_pixels)
             else:
                 sp_hold_bf16(name, res[tag]["eval"], want, single["bf16 b1"], n_pixels)
             got = res[tag]["launches"]
@@ -6472,12 +6718,137 @@ def sp_compare(ranks, single, report, label: str, n_pixels: int) -> None:
         sp_windows(ranks, tag)
 
 
+def tp_compare(ranks, single, report, label: str, n_pixels: int) -> None:
+    """Each rank of the tensor-parallel head against this process's
+    whole-bank eval: the counters within phase 4's tie budget (the logits
+    are a sum of two partial products, so a near-tie may flip; the
+    pixels that moved are printed), ``nearest_proto`` bit-equal, ``agree_counts`` apart by no
+    more than the statistic's predicted classes that moved, purity at
+    ``TP_PURITY``; launches: one head per batch, and one upsample-argmin
+    with upsampled statistics; every rank the same outputs (the SUM gives
+    every model rank the same bits).  Then the spatial batch with the
+    gathered bank against the spatial batch with the whole bank, bit for
+    bit on every output of the rank."""
+    import torch
+    from adlm_tpu_torch.ops import _build
+
+    budget = math.ceil(TIE_SHARE * n_pixels)
+    limits = {"intersection": budget, "correct": budget, "total": 0, "union": 2 * budget}
+    for tag in ("f32", "bf16"):
+        for upsampled in (False, True):
+            mode = "upsampled" if upsampled else "grid"
+            want = single[(tag, upsampled)]["out"]
+            for r, res in enumerate(ranks):
+                got = res[(tag, upsampled)]
+                o = got["out"]
+                name = f"tensor-parallel head {label} {tag} {mode} rank {r}"
+                moved = int((o["pred"] != want["pred"]).sum())
+                stat_moved = int((o["stat_pred"] != want["stat_pred"]).sum())
+                diffs = {k: int((o[k].long() - want[k].long()).abs().sum()) for k in limits}
+                agree = int((o["agree_counts"].long() - want["agree_counts"].long()).abs().sum())
+                near = torch.equal(o["nearest_proto"], want["nearest_proto"])
+                pur = (o["topk_purity"] - want["topk_purity"]).abs().max().item()
+                pur_ok = bool(torch.allclose(o["topk_purity"], want["topk_purity"], **TP_PURITY))
+                log(f"  {name} vs one process: pixels moved {moved}, counters {diffs} (budget "
+                    f"{budget} px, x2 for union), nearest_proto bit-equal {near}, agree_counts "
+                    f"{agree} apart ({stat_moved} statistic classes moved), purity max |diff| "
+                    f"{pur:.3e}; launches {got['launches']}; {got['secs']:.2f} s (one process "
+                    f"{single[(tag, upsampled)]['secs']:.2f} s)")
+                if (any(diffs[k] > v for k, v in limits.items())
+                        or not near or agree > stat_moved or not pur_ok):
+                    raise AssertionError(f"{name}: differs from the one-process eval")
+                if got["launches"] != {"prototype_head": 1, "upsample_argmin": int(upsampled)}:
+                    raise AssertionError(f"{name}: launched {got['launches']}")
+                for k in _build.KERNELS:
+                    report[k]["launches"] += got["launches"][k]
+            first = ranks[0][(tag, upsampled)]["out"]
+            if not all(torch.equal(first[k], res[(tag, upsampled)]["out"][k])
+                       for res in ranks[1:] for k in first):
+                raise AssertionError(f"tensor-parallel head {label} {tag} {mode}: the ranks' "
+                                     "outputs differ")
+            log(f"  tensor-parallel head {label} {tag} {mode}: every rank holds the same "
+                "prediction, counters, nearest_proto, agree_counts and purity")
+    for r, res in enumerate(ranks):
+        whole, got = res["spatial whole bank"], res["spatial tp"]
+        same = all(torch.equal(whole["out"][k], got["out"][k]) for k in whole["out"])
+        log(f"  spatial + tensor-parallel {label} f32 rank {r} (bank gathered) vs spatial with "
+            f"the whole bank: bit-equal {same}; launches {got['launches']}; "
+            f"{got['secs']:.2f} s ({whole['secs']:.2f} s)")
+        if not same or got["launches"] != {"prototype_head": 1, "upsample_argmin": 1}:
+            raise AssertionError(f"spatial + tensor-parallel {label} rank {r} differs")
+        for k in _build.KERNELS:
+            report[k]["launches"] += got["launches"][k]
+
+
+def msc_cli(root: str) -> None:
+    """``eval-valid --stats --stats-upsampled --mesh-model 2`` of the MSC
+    experiment through the CLI (``sp_cli``) against the one-process
+    command, on a val split this phase writes in the prepared ``.npy``
+    layout (PASCAL-sized frames, raw ids 0..20 and a band of 255) and a
+    run imported from the seeded model (``import-protoseg``)."""
+    import json
+    import os
+
+    import numpy as np
+    import torch
+
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    data, results = os.path.join(root, "msc_data"), os.path.join(root, "msc_runs")
+    ids = [f"val{i}" for i in range(MSC_CLI_FRAMES)]
+    for sub in ("img_with_margin_0", "annotations"):
+        os.makedirs(os.path.join(data, sub, "val"))
+    frames = make_batches(MSC_CLI_FRAMES // 2, 2, SEED + 75, MSC_CLI_HW, 22)
+    imgs = torch.cat([i for i, _ in frames]).cpu().numpy()
+    labs = torch.cat([lb for _, lb in frames]).cpu().numpy()
+    for i, fid in enumerate(ids):
+        np.save(os.path.join(data, "img_with_margin_0", "val", f"{fid}.npy"), imgs[i])
+        raw = np.where(labs[i] == 0, 255, labs[i].astype(np.int32) - 1).astype(np.uint8)
+        np.save(os.path.join(data, "annotations", "val", f"{fid}.npy"), raw)
+    with open(os.path.join(data, "all_images.json"), "w") as f:
+        json.dump({"train": [], "val": ids}, f)
+    from adlm_tpu_torch.core.config import get_experiment
+
+    m32 = random_model(get_experiment(MSC_EXPERIMENT).model, SEED)
+    sd = {k: v.detach().cpu() for k, v in m32.state_dict().items()}
+    del m32
+    for k in list(sd):   # the reference's layout, as phase 15 writes it
+        if k.endswith("bn.running_mean"):
+            sd[k[:-len("running_mean")] + "num_batches_tracked"] = torch.tensor(0)
+    ckpt = os.path.join(root, "msc.pth")
+    torch.save(sd, ckpt)
+    saved_env = os.environ.get("RESULTS_DIR")
+    os.environ["RESULTS_DIR"] = results
+    rec, launches = {"first_window": None}, []
+    try:
+        run_command(["import-protoseg", MSC_EXPERIMENT, "msc", ckpt], rec, launches)
+        run = os.path.join(results, "msc")
+        run_command(["eval-valid", run, "push", "--data-path", data, "--stats",
+                     "--stats-upsampled", "--batch-size", str(PREP_EVAL_BS), "--examples", "0"],
+                    rec, launches)
+    finally:
+        if saved_env is None:
+            os.environ.pop("RESULTS_DIR", None)
+        else:
+            os.environ["RESULTS_DIR"] = saved_env
+    n_batches = MSC_CLI_FRAMES // PREP_EVAL_BS
+    if launches[-1][1] != {"prototype_head": n_batches, "upsample_argmin": n_batches}:
+        raise AssertionError(f"{MSC_EXPERIMENT} eval-valid launched {launches[-1][1]}")
+    out = os.path.join(run, "evaluation", "push")
+    with open(os.path.join(out, "mean_iou.txt")) as f:
+        miou = f.read()
+    with open(os.path.join(out, "iou_scores.json")) as f:
+        ious = json.load(f)
+    sp_cli(root, {"run": run, "data": data, "miou": miou, "ious": ious}, MSC_EXPERIMENT)
+
+
 def check_spatial(report, card: str, prepared) -> None:
     """Phase 17: spatial eval of the flagship at full width on two gloo
-    ranks sharing the card, against this process's one-process eval;
-    the row windows against the whole-frame kernel; then eval-valid
-    --mesh-model 2 through the CLI.  On two cards or more, the same on
-    two NCCL ranks, one card each."""
+    ranks sharing the card, against this process's one-process eval; the
+    row windows against the whole-frame kernel; the tensor-parallel head
+    (spatial off, then on) and spatial eval of the MSC model on the same
+    ranks; then eval-valid --mesh-model 2 through the CLI, the flagship's
+    and the MSC model's.  On two cards or more, the same on two NCCL
+    ranks, one card each."""
     import os
     import shutil
     import tempfile
@@ -6504,25 +6875,43 @@ def check_spatial(report, card: str, prepared) -> None:
             ranks[backend] = [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
                               for r in range(SP_WORLD)]
         inp = torch.load(in_path, weights_only=False)
-        single = sp_work(cfg, inp, torch.device("cuda", 0), None)
-        n_pixels = 2 * H * W
-        log("  control: the one-process bf16 eval one image at a time vs the batch of 2, "
-            f"on the same sample pixels: {sp_distance(single['bf16 b1'], single['bf16']['eval'])} "
-            f"(phase 4's budget {math.ceil(TIE_SHARE * n_pixels)} px)")
+        dev = torch.device("cuda", 0)
+        t0 = time.perf_counter()
+        single = sp_work(cfg, inp["flagship"], dev, None)
+        single_tp = tp_work(cfg, inp["flagship"], dev, None)
+        single_msc = sp_work(get_experiment(MSC_EXPERIMENT), inp["msc"], dev, None)
+        log(f"  the one-process evals (flagship, its grid and upsampled statistics, "
+            f"{MSC_EXPERIMENT}): {time.perf_counter() - t0:.1f} s")
+        n_pixels, n_msc = 2 * H * W, 2 * MSC_HW[0] * MSC_HW[1]
+        for name, one, n in (("", single, n_pixels), (f"{MSC_EXPERIMENT} ", single_msc, n_msc)):
+            log(f"  control: the one-process {name}bf16 eval one image at a time vs the batch "
+                f"of 2, on the same sample pixels: "
+                f"{sp_distance(one['bf16 b1'], one['bf16']['eval'])} (phase 4's budget "
+                f"{math.ceil(TIE_SHARE * n)} px)")
         for backend, devices in worlds:
-            sp_compare(ranks[backend], single, report, backend, n_pixels)
+            sp_compare([res["spatial"] for res in ranks[backend]], single, report, backend,
+                       n_pixels)
+            tp_compare([res["tp"] for res in ranks[backend]], single_tp, report, backend,
+                       n_pixels)
+            sp_compare([res["msc"] for res in ranks[backend]], single_msc, report,
+                       f"{MSC_EXPERIMENT} {backend}", n_msc, exact=True)
             log(f"  seconds per batch of 2 on each {backend} rank ("
                 + ("host-staged collectives on one shared card: not a speed figure"
                    if backend == "gloo" else "one card each") + "): " + "; ".join(
-                    f"{tag} rank {r} {res[tag]['secs']:.2f} (one process "
-                    f"{single[tag]['secs']:.2f})" for tag in ("f32", "bf16")
-                    for r, res in enumerate(ranks[backend])) + f"  [{card}]")
+                    f"{case} {tag} rank {r} {res[key][tag]['secs']:.2f} (one process "
+                    f"{one[tag]['secs']:.2f})" for case, key, one in (
+                        ("flagship", "spatial", single), (MSC_EXPERIMENT, "msc", single_msc))
+                    for tag in ("f32", "bf16") for r, res in enumerate(ranks[backend]))
+                + f"  [{card}]")
         if len(worlds) == 1:
             log(f"  two NCCL ranks, one card each, and python -m adlm_tpu_torch.cli "
                 f"eval-valid --mesh-model {SP_WORLD}: skipped, this machine has one card")
-        del single, ranks
+        del single, single_tp, single_msc, ranks
         torch.cuda.empty_cache()
         sp_cli(root, prepared)
+        t0 = time.perf_counter()
+        msc_cli(root)
+        log(f"  {MSC_EXPERIMENT} CLI case {time.perf_counter() - t0:.1f} s")
     finally:
         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved_det
         shutil.rmtree(root, ignore_errors=True)
@@ -6652,7 +7041,9 @@ def main() -> int:
 
         log("[17] spatial eval: the flagship at 1024x2048 on two gloo ranks sharing the "
             "card, image H split (f32, bf16) against one process; the row windows against "
-            "the whole-frame kernel; eval-valid --mesh-model 2 through the CLI")
+            "the whole-frame kernel; the tensor-parallel head on the same ranks; spatial "
+            "eval of pascal_kld_imnet (MSC) at 513x513; eval-valid --mesh-model 2 through "
+            "the CLI for both")
         check_spatial(report, card, prepared)
     except Exception:  # report any failure and exit non-zero
         traceback.print_exc()

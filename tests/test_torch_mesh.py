@@ -31,9 +31,9 @@ against ``adlm_tpu.core.mesh``, the rank slices of every loader, and the
   eval: two ranks split image H) end within the eval tie budget of the
   one-process commands: mIoU and per-class IoU within what
   ``SPATIAL_TIE_PIXELS`` moved pixels can change, the PNGs in at most
-  that many pixels.  ``--mesh-model 2`` on an MSC experiment exits
-  naming ROADMAP item 9b, and a rank count above the machine's cards
-  exits saying so.
+  that many pixels; so does ``eval-valid --mesh-model 2`` of an MSC
+  experiment (the trained run under ``msc_scales`` (0.5, 0.75)).  A
+  rank count above the machine's cards exits saying so.
 """
 
 import csv
@@ -380,22 +380,38 @@ def test_eval_on_a_spatial_mesh_matches_one_process(trained, seg_data, in_proces
     assert abs(m1 - m2) <= SPATIAL_TIE_PIXELS * 100 / 1000
 
 
-def test_eval_with_spatial_mesh_exits_naming_item_9b(trained, seg_data, tmp_path):
-    """Spatial eval of an MSC experiment is ROADMAP item 9b: eval under
-    ``--mesh-model 2`` refuses one before it starts a rank."""
+def test_msc_eval_on_a_spatial_mesh_matches_one_process(trained, seg_data, in_process):
+    """``eval-valid --mesh-model 2`` of an MSC experiment: the trained run
+    with ``msc_scales`` (0.5, 0.75) in its config (MSC adds no weights),
+    against the one-process command."""
     import dataclasses
 
     from adlm_tpu_torch.core.config import ExperimentConfig
 
-    cfg = ExperimentConfig.from_json(CheckpointStore(str(trained / "one")).load_config_json())
-    msc = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, msc_scales=(0.5, 0.75)))
-    run = tmp_path / "msc"
-    run.mkdir()
-    CheckpointStore(str(run)).save_config(msc.to_json())
-    for cmd in ("eval-valid", "eval-test"):
-        with pytest.raises(SystemExit, match="9b"):
-            cli.main([cmd, str(run), "push", "--data-path", seg_data,
-                      "--mesh-model", "2", "--batch-size", "2", "--device", "cpu"])
+    one = str(trained / "one")
+    run = str(in_process.parent / "msc")
+    shutil.copytree(os.path.join(one, "checkpoints"), os.path.join(run, "checkpoints"))
+    store = CheckpointStore(run)
+    cfg = ExperimentConfig.from_json(CheckpointStore(one).load_config_json())
+    store.save_config(dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model, msc_scales=(0.5, 0.75))).to_json())
+    ev_dir = os.path.join(run, "evaluation", "push")
+    base = ["eval-valid", run, "push", "--data-path", seg_data, "--stats", "--stats-upsampled",
+            "--examples", "0", "--batch-size", "2", "--device", "cpu"]
+    outs = {}
+    for tag, extra in (("one", []), ("spatial", ["--mesh-model", "2"])):
+        cli.main(base + extra)
+        with open(os.path.join(ev_dir, "mean_iou.txt")) as f:
+            miou = float(f.read())
+        with open(os.path.join(ev_dir, "iou_scores.json")) as f:
+            outs[tag] = (miou, json.load(f))
+    (m1, i1), (m2, i2) = outs["one"], outs["spatial"]
+    # a moved pixel changes a class's IoU by at most 100 / (its union - 1)
+    # percentage points; every union here exceeds 1,000 pixels
+    assert set(i1) == set(i2)
+    for k in i1:
+        assert abs(i1[k] - i2[k]) <= SPATIAL_TIE_PIXELS * 100 / 1000, k
+    assert abs(m1 - m2) <= SPATIAL_TIE_PIXELS * 100 / 1000
 
 
 def test_more_ranks_than_cards_exits(monkeypatch, tmp_path):

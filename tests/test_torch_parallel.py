@@ -40,7 +40,20 @@ tests):
   grid rows split 4 + 5: against the JAX package's
   ``make_sharded_inference_fn(spatial=True)`` on a (1, 2) device mesh
   and against the port's one-process eval, with the eval budgets above,
-  and every rank holding the same totals.
+  and every rank holding the same totals; the same for the MSC model
+  (``msc_scales`` (0.5, 0.75), the same weights: MSC adds none), whose
+  pyramid grids of 5 and 7 rows split 2 + 3 and 3 + 4;
+* the tensor-parallel prototype head on the same (data 1, model 2)
+  ranks (``prototype_parallel_params``: 6 of the 12 prototypes each;
+  ``make_sharded_inference_fn(spatial=False, prototype_parallel=True)``)
+  with grid and upsampled statistics on 4 frames of 64x64, against the
+  JAX package's ``make_sharded_inference_fn(spatial=False,
+  prototype_parallel=True)`` fed its ``prototype_parallel_params`` on a
+  (1, 2) device mesh, with tests/test_parallel.py's assertions:
+  counters, ``nearest_proto`` and ``agree_counts`` equal, purity at
+  ``TP_PURITY``; against the port's one-process eval the same; every
+  rank the same outputs; and with ``spatial=True`` too (the bank
+  gathered over the ranks), equal to spatial eval with the whole bank.
 """
 
 import os
@@ -73,6 +86,9 @@ PROTOSEG_MODEL = dict(num_prototypes=6, num_classes=3, prototype_channels=8,
 EVAL_MODEL = dict(num_prototypes=12, num_classes=4, prototype_channels=16,
                   deeplab_n_features=16, deeplab_n_blocks=(1, 1, 1, 1))
 EVAL_TIE_BUDGET = 4   # tests/test_torch_evaluate.py's TIE_BUDGET
+MSC_SCALES = (0.5, 0.75)
+TP_PURITY = dict(rtol=1e-5, atol=1e-6)   # tests/test_parallel.py's prototype-parallel test
+TP_EXACT = ("intersection", "union", "correct", "total", "nearest_proto", "agree_counts")
 UTIL, NOISE, UHW, UB = (2, 2), (2, 2), 16, 4
 CLS_B, CLS_HW = 8, 32
 
@@ -177,11 +193,11 @@ def _rank_cls(mesh, inp):
             "grads": _named_grads(model), "sd": model.state_dict()}
 
 
-def _eval_model(sd):
+def _eval_model(sd, msc=False):
     from adlm_tpu_torch.core.config import PPNetConfig
     from adlm_tpu_torch.models.ppnet import PPNet
 
-    model = PPNet(PPNetConfig(**EVAL_MODEL))
+    model = PPNet(PPNetConfig(**EVAL_MODEL, msc_scales=MSC_SCALES if msc else ()))
     model.load_state_dict(sd, strict=True)
     return model.eval()
 
@@ -222,7 +238,7 @@ def _rank_eval(mesh, inp):
     return out
 
 
-def _spatial_eval(mesh, inp, device=None):
+def _spatial_eval(mesh, inp, device=None, msc=False):
     """SegEvaluator over the spatial frames (``mesh`` None: one process),
     grid and upsampled statistics: {upsampled: totals and statistic rows}."""
     from adlm_tpu_torch.interpret.evaluate import SegEvaluator
@@ -232,7 +248,7 @@ def _spatial_eval(mesh, inp, device=None):
     pc = default_proto_class(P, K)
     out = {}
     for upsampled in (False, True):
-        ev = SegEvaluator(_eval_model(inp["ev_sd"]), K, with_stats=True,
+        ev = SegEvaluator(_eval_model(inp["ev_sd"], msc), K, with_stats=True,
                           stats_upsampled=upsampled, mesh=mesh, device=device)
         rows = []
         for im, lb, n in eval_batches(inp["sp_images"], inp["sp_labels"], 2):
@@ -242,6 +258,44 @@ def _spatial_eval(mesh, inp, device=None):
                           "correct": ev.correct, "total": ev.total,
                           "agree": torch.cat([r[0] for r in rows]),
                           "purity": torch.cat([r[1] for r in rows])}
+    return out
+
+
+def _tp_keep(o):
+    return {k: o[k].clone() for k in TP_EXACT + ("topk_purity", "pred")}
+
+
+def _tp_eval(mesh, inp):
+    """The tensor-parallel head on the 4 frames (``mesh`` None: the port's
+    one-process eval with the whole bank): {upsampled: outputs}; with a
+    mesh also {"spatial": (whole bank, gathered bank)} under spatial eval."""
+    from adlm_tpu_torch.interpret.evaluate import make_inference_fn
+    from adlm_tpu_torch.models.ppnet import default_proto_class
+    from adlm_tpu_torch.parallel.sharding import (
+        make_sharded_inference_fn,
+        prototype_parallel_params,
+    )
+
+    K, P = EVAL_MODEL["num_classes"], EVAL_MODEL["num_prototypes"]
+    pc = default_proto_class(P, K)
+    args = (pc, inp["tp_images"], inp["tp_labels"], inp["tp_u"], inp["tp_v"])
+    model = _eval_model(inp["ev_sd"])
+    out = {}
+    for upsampled in (False, True):
+        if mesh is None:
+            o = make_inference_fn(model, K, True, upsampled, device="cpu")(*args)
+        else:
+            fn = make_sharded_inference_fn(model, K, mesh, spatial=False, with_stats=True,
+                                           prototype_parallel=True, stats_upsampled=upsampled)
+            o = fn(prototype_parallel_params(model, mesh), *args)
+        out[upsampled] = _tp_keep(o)
+    if mesh is not None:
+        whole = make_sharded_inference_fn(model, K, mesh, with_stats=True,
+                                          stats_upsampled=True)(*args)
+        tp = make_sharded_inference_fn(model, K, mesh, with_stats=True, prototype_parallel=True,
+                                       stats_upsampled=True)(
+            prototype_parallel_params(model, mesh), *args)
+        out["spatial"] = (_tp_keep(whole), _tp_keep(tp))
     return out
 
 
@@ -257,7 +311,8 @@ def _rank_main(dev, mesh_args, in_path, out_dir):
     try:
         out = {"protoseg": _rank_protoseg(mesh, inp), "unoise": _rank_unoise(mesh, inp),
                "cls": _rank_cls(mesh, inp), "eval": _rank_eval(mesh, inp),
-               "spatial": _spatial_eval(spatial, inp)}
+               "spatial": _spatial_eval(spatial, inp),
+               "msc": _spatial_eval(spatial, inp, msc=True), "tp": _tp_eval(spatial, inp)}
     finally:
         destroy(mesh)
     torch.save(out, os.path.join(out_dir, f"rank{mesh.rank}.pt"))
@@ -336,9 +391,13 @@ def _eval_inputs():
     sp_images = rng.rand(3, 64, 64, 3).astype(np.float32)
     sp_labels = rng.randint(0, K + 1, (3, 64, 64)).astype(np.int32)
     sp_labels[1, 30:34] = 0                 # void across the ranks' row boundary
+    tp_images = rng.rand(4, 64, 64, 3).astype(np.float32)
+    tp_labels = rng.randint(0, K + 1, (4, 64, 64)).astype(np.int32)
+    tp_u, tp_v = (rng.random_sample((4, 16)).astype(np.float32) for _ in range(2))
     return dict(ev_images=ev_images, ev_labels=ev_labels, ev_sd=tm.state_dict(),
                 push_images=frames, push_labels=flabels.astype(np.int32),
-                sp_images=sp_images, sp_labels=sp_labels, ev_jax=(jm, params, constants))
+                sp_images=sp_images, sp_labels=sp_labels, tp_images=tp_images,
+                tp_labels=tp_labels, tp_u=tp_u, tp_v=tp_v, ev_jax=(jm, params, constants))
 
 
 @pytest.fixture(scope="module")
@@ -618,6 +677,97 @@ def test_spatial_eval_matches_one_process(world, upsampled):
     inp, get_ranks = world
     want = _spatial_eval(None, inp, device="cpu")[upsampled]
     _assert_eval_close(get_ranks(), "spatial", upsampled, want)
+
+
+def _jax_msc_model(jm):
+    import dataclasses
+
+    from adlm_tpu.models.ppnet import PPNet as JaxPPNet
+
+    return JaxPPNet(cfg=dataclasses.replace(jm.cfg, msc_scales=MSC_SCALES))
+
+
+@pytest.mark.parametrize("upsampled", [False, True], ids=["grid", "upsampled"])
+def test_msc_spatial_eval_matches_jax_and_one_process(world, upsampled):
+    import jax
+
+    from adlm_tpu.core.mesh import MeshSpec as JaxMeshSpec, make_mesh as jax_make_mesh
+    from adlm_tpu.interpret.evaluate import SegEvaluator as JaxSegEvaluator
+    from adlm_tpu.models.ppnet import default_proto_class as jax_pc
+
+    inp, get_ranks = world
+    jm, params, constants = inp["ev_jax"]
+    K, P = EVAL_MODEL["num_classes"], EVAL_MODEL["num_prototypes"]
+    mesh = jax_make_mesh(JaxMeshSpec(data=1, model=WORLD), devices=jax.devices()[:WORLD])
+    ev = JaxSegEvaluator(_jax_msc_model(jm), K, with_stats=True, stats_upsampled=upsampled,
+                         mesh=mesh)
+    agree, purity = [], []
+    for im, lb, n in eval_batches(inp["sp_images"], inp["sp_labels"], 2):
+        o = ev.update(params, constants, jax_pc(P, K), im, lb)
+        agree.append(np.asarray(o["agree_counts"])[:n])
+        purity.append(np.asarray(o["topk_purity"])[:n])
+    want = {"intersection": ev.intersection, "union": ev.union, "correct": ev.correct,
+            "total": ev.total, "agree": np.concatenate(agree),
+            "purity": np.concatenate(purity)}
+    ranks = get_ranks()
+    _assert_eval_close(ranks, "msc", upsampled, want)
+    _assert_eval_close(ranks, "msc", upsampled,
+                       _spatial_eval(None, inp, device="cpu", msc=True)[upsampled])
+
+
+@pytest.fixture(scope="module")
+def jax_tp(world):
+    """The JAX package's tensor-parallel head on a (1, 2) device mesh:
+    {upsampled: outputs}."""
+    import jax
+    import jax.numpy as jnp
+
+    from adlm_tpu.core.mesh import MeshSpec as JaxMeshSpec, make_mesh as jax_make_mesh
+    from adlm_tpu.models.ppnet import default_proto_class as jax_pc
+    from adlm_tpu.parallel.sharding import make_sharded_inference_fn, prototype_parallel_params
+
+    inp, _ = world
+    jm, params, constants = inp["ev_jax"]
+    K, P = EVAL_MODEL["num_classes"], EVAL_MODEL["num_prototypes"]
+    mesh = jax_make_mesh(JaxMeshSpec(data=1, model=WORLD), devices=jax.devices()[:WORLD])
+    tp_params = prototype_parallel_params(params, mesh)
+    args = [jnp.asarray(inp[k]) for k in ("tp_images", "tp_labels", "tp_u", "tp_v")]
+    out = {}
+    for upsampled in (False, True):
+        fn = make_sharded_inference_fn(jm, K, mesh, spatial=False, with_stats=True,
+                                       prototype_parallel=True, stats_upsampled=upsampled)
+        o = fn(tp_params, constants, jax_pc(P, K), *args)
+        out[upsampled] = {k: np.asarray(o[k]) for k in TP_EXACT + ("topk_purity",)}
+    return out
+
+
+def _assert_tp_equal(got, want, what):
+    for k in TP_EXACT:
+        np.testing.assert_array_equal(np.asarray(got[k]), np.asarray(want[k]), err_msg=(what, k))
+    np.testing.assert_allclose(np.asarray(got["topk_purity"]), np.asarray(want["topk_purity"]),
+                               err_msg=what, **TP_PURITY)
+
+
+@pytest.mark.parametrize("upsampled", [False, True], ids=["grid", "upsampled"])
+def test_tensor_parallel_head_matches_jax_and_one_process(world, jax_tp, upsampled):
+    inp, get_ranks = world
+    one = _tp_eval(None, inp)[upsampled]
+    ranks = get_ranks()
+    for r, res in enumerate(ranks):
+        got = res["tp"][upsampled]
+        _assert_tp_equal(got, jax_tp[upsampled], f"rank {r} vs JAX")
+        _assert_tp_equal(got, one, f"rank {r} vs one process")
+    # the logits' SUM gives every model rank the same bits
+    for k, v in ranks[0]["tp"][upsampled].items():
+        assert torch.equal(v, ranks[1]["tp"][upsampled][k]), k
+
+
+def test_spatial_with_the_tensor_parallel_head_equals_the_whole_bank(world):
+    _, get_ranks = world
+    for r, res in enumerate(get_ranks()):
+        whole, tp = res["tp"]["spatial"]
+        for k in whole:
+            assert torch.equal(whole[k], tp[k]), (r, k)
 
 
 def test_sharded_push_matches_jax_with_a_cross_rank_tie(world):

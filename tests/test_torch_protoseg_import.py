@@ -304,9 +304,9 @@ def test_load_protoseg_model_reports_like_jax(files):
 
 
 def test_refusals_name_no_completed_roadmap_item():
-    """The port's CLI cites open roadmap items only (9b and 11)."""
+    """The port's CLI cites open roadmap items only (11)."""
     import inspect
     import re
 
     cited = set(re.findall(r"Queue 1 item (\d+[a-z]?)", inspect.getsource(cli)))
-    assert cited <= {"9b", "11"}, cited
+    assert cited <= {"11"}, cited

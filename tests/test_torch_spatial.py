@@ -15,8 +15,21 @@ row windows of the resize and of upsample-argmin's plain version.
 * ``resize_bilinear_rows`` and ``upsampled_argmin_reference`` on row
   windows of a slab equal the same rows of their whole-frame result bit
   for bit; the resize's whole frame is ``resize_bilinear``'s.
-* MSC models and the tensor-parallel head still raise naming ROADMAP
-  item 9b; a slab that lacks a row its window reads raises.
+* The MSC trunk (``trunk_rows`` at each scale, ``msc_rows``) on each
+  rank's rows equals the same rows of the one-process MSC features bit
+  for bit (frames whose pyramid grids have 9 rows at least: on smaller
+  maps the CPU's convolutions round a row slab differently from the
+  whole map).
+* ``prototype_parallel_params`` on an uneven P (7 over 2, 50 over 4,
+  and the presets' 190 and 210 over 2) gives blocks that tile the bank
+  and the last layer in order, and leaves the module whole; the
+  (value, index) combine over the model group (``Mesh.lexmin(...,
+  over="model")``) on planted cross-rank ties gives the lowest global
+  index, as one argmin over the whole bank does; the plain
+  upsample-argmin's value output is the min of the whole-bank blend,
+  on a row window too, and its P slices combine to the whole bank's.
+* The MSC spatial step and the tensor-parallel head build and run (they
+  raised before); a slab that lacks a row its window reads raises.
 
 The spatial eval against the JAX package's spatially sharded eval runs
 in tests/test_torch_parallel.py's 2-rank world.
@@ -43,11 +56,17 @@ from adlm_tpu_torch.ops.upsample_argmin import (
     upsampled_argmin_reference,
     upsampled_nearest,
 )
+from adlm_tpu_torch.parallel.sharding import (
+    make_sharded_inference_fn,
+    prototype_parallel_params,
+)
 from adlm_tpu_torch.parallel.spatial import (
     Rank,
     forward_rows,
     make_spatial_inference_fn,
+    msc_rows,
     row_plan,
+    trunk_rows,
 )
 
 TINY = dict(num_prototypes=12, num_classes=4, prototype_channels=16,
@@ -91,8 +110,8 @@ def geometries():
 
 
 class _ThreadWorld:
-    """M ranks as threads: ``core.mesh._reduce`` becomes a SUM across the
-    threads' tensors behind a barrier."""
+    """M ranks as threads: ``core.mesh._reduce`` becomes a SUM (or MIN)
+    across the threads' tensors behind a barrier."""
 
     def __init__(self, M: int):
         self.M = M
@@ -104,7 +123,10 @@ class _ThreadWorld:
         r = self.ranks[threading.get_ident()]
         self.slots[r] = t
         self.barrier.wait()
-        total = sum(s.clone() for s in self.slots)
+        if op == "sum":
+            total = sum(s.clone() for s in self.slots)
+        else:
+            total = torch.stack([s.clone() for s in self.slots]).amin(dim=0)
         self.barrier.wait()
         t.copy_(total)
         self.barrier.wait()
@@ -116,7 +138,7 @@ class _ThreadWorld:
             self.ranks[threading.get_ident()] = r
             try:
                 out[r] = fn(Mesh(1, self.M, r, torch.device("cpu"), backend="threads",
-                                 model_group=None))
+                                 data_group=mesh_mod._SELF, model_group=None))
             except BaseException as e:  # noqa: BLE001 - re-raised below
                 errs.append(e)
                 self.barrier.abort()
@@ -233,15 +255,159 @@ def test_upsample_argmin_rows_equal_the_whole_frame_rows(shape):
                                    map_rows=(first, h))
 
 
-def test_msc_and_the_tensor_parallel_head_still_raise_naming_item_9b():
-    from adlm_tpu_torch.parallel.sharding import make_sharded_inference_fn
+def _msc_model(P: int = 12) -> PPNet:
+    cfg = PPNetConfig(**dict(TINY, num_prototypes=P), msc_scales=(0.5, 0.75))
+    model = PPNet(cfg, generator=torch.Generator().manual_seed(0)).eval()
+    return model.to(memory_format=torch.channels_last)
 
-    mesh = Mesh(1, 2, 0, torch.device("cpu"))
-    msc = PPNet(PPNetConfig(**TINY, msc_scales=(0.5, 0.75)))
-    with pytest.raises(NotImplementedError, match="9b"):
-        make_spatial_inference_fn(msc, 4, mesh)
-    with pytest.raises(NotImplementedError, match="9b"):
-        make_sharded_inference_fn(_model(False), 4, mesh, prototype_parallel=True)
+
+@pytest.fixture
+def one_thread():
+    """One intra-op thread: the CPU's convolutions block their work by
+    the thread count, so the rows' and the whole map's runs use the same."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(saved)
+
+
+@pytest.mark.parametrize("M", [2, 3])
+@pytest.mark.parametrize("hw", [(128, 128), (97, 129)], ids=str)
+def test_msc_trunk_rows_equal_the_one_process_features(hw, M, monkeypatch, one_thread):
+    model = _msc_model()
+    x = torch.from_numpy(np.random.RandomState(2).randn(2, hw[0], hw[1], 3).astype(
+        np.float32)).permute(0, 3, 1, 2)
+    base = model.features.base
+    with torch.no_grad():
+        whole = model.features(x)
+    n = whole.shape[2]
+    world = _ThreadWorld(M)
+    monkeypatch.setattr(mesh_mod, "_reduce", world.reduce)
+
+    def rows(mesh):
+        rank = Rank(mesh)
+        with torch.no_grad():
+            x1, n1 = trunk_rows(base, x, rank)
+            return msc_rows(base, x, rank, x1, n1, model.features.scales), n1
+
+    for q, (got, n1) in enumerate(world.run(rows)):
+        lo, hi = row_plan(n, M)[q]
+        assert n1 == n
+        assert torch.equal(got, whole[:, :, lo:hi]), q
+
+
+@pytest.mark.parametrize("P,M", [(7, 2), (50, 4), (190, 2), (210, 2)])
+def test_prototype_parallel_params_tile_the_bank(P, M):
+    model = PPNet(PPNetConfig(**dict(TINY, num_prototypes=P)),
+                  generator=torch.Generator().manual_seed(1))
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    parts = [prototype_parallel_params(model, Mesh(1, M, m, torch.device("cpu")))
+             for m in range(M)]
+    start = 0
+    for m, tp in enumerate(parts):
+        assert tp.start == start and tp.total == P, m
+        assert tp.prototypes.is_contiguous() and tp.last_layer.is_contiguous()
+        assert tp.prototypes.shape[0] == tp.last_layer.shape[0] == row_range(m, P, M)[1] - start
+        start += tp.prototypes.shape[0]
+    assert start == P
+    assert torch.equal(torch.cat([tp.prototypes for tp in parts]), model.prototypes())
+    assert torch.equal(torch.cat([tp.last_layer for tp in parts]), model.last_layer_pk())
+    for k, v in model.state_dict().items():
+        assert torch.equal(v, before[k]), k
+    with pytest.raises(ValueError):
+        prototype_parallel_params(PPNet(PPNetConfig(**dict(TINY, num_prototypes=4))),
+                                  Mesh(1, 8, 0, torch.device("cpu")))
+
+
+@pytest.mark.parametrize("M", [2, 3])
+def test_value_index_combine_takes_the_lowest_global_index(M, monkeypatch):
+    # (pixels, P = 7): each row's minimum sits at several prototypes,
+    # on both sides of the slices' boundaries
+    vals = torch.tensor([[3., 1., 2., 1., 1., 5., 1.],
+                         [0., 4., 4., 0., 0., 2., 0.],
+                         [5., 5., 5., 5., 5., 5., 2.],
+                         [2., 2., 2., 2., 2., 2., 2.],
+                         [9., 8., 7., 7., 8., 9., 7.]])
+    want_v, want_i = vals.amin(dim=-1), torch.argmin(vals, dim=-1)
+    world = _ThreadWorld(M)
+    monkeypatch.setattr(mesh_mod, "_reduce", world.reduce)
+
+    def combine(mesh):
+        lo, hi = row_range(mesh.model_index, vals.shape[1], M)
+        local = vals[:, lo:hi]
+        return mesh.lexmin(local.amin(dim=-1), torch.argmin(local, dim=-1) + lo, over="model")
+
+    for q, (v, i) in enumerate(world.run(combine)):
+        assert torch.equal(v, want_v) and torch.equal(i, want_i), q
+
+
+@pytest.mark.parametrize("shape", [(9, 9, 12, 64, 64), (33, 65, 70, 257, 513),
+                                   (16, 32, 19, 128, 256), (65, 97, 19, 33, 47)], ids=str)
+def test_plain_value_output_is_the_min_of_the_whole_bank_blend(shape):
+    h, w, P, H, W = shape
+    rng = np.random.RandomState(3)
+    d = torch.from_numpy(rng.rand(2, h, w, P).astype(np.float32))
+    ties = torch.from_numpy(rng.randint(0, 3, (2, h, w, P)).astype(np.float32))
+    y0, y1, wy = _src_coords(H, h, "cpu")
+    x0, x1, wx = _src_coords(W, w, "cpu")
+    for dist in (d, ties):
+        # the exact separable blend of every prototype at once
+        fx = dist[:, :, x0, :] * (1.0 - wx[:, None]) + dist[:, :, x1, :] * wx[:, None]
+        up = fx[:, y0] * (1.0 - wy[:, None, None]) + fx[:, y1] * wy[:, None, None]
+        idx, val = upsampled_argmin_reference(dist, (H, W), exact=True, with_value=True)
+        assert torch.equal(val, up.amin(dim=-1)) and val.dtype == torch.float32
+        assert torch.equal(idx, upsampled_argmin_reference(dist, (H, W), exact=True))
+        assert torch.equal(idx, torch.argmin(up, dim=-1).to(torch.int32))
+        # the dispatch (the integer-phase path where it applies) by the same rule
+        ni, nv = upsampled_nearest(dist, (H, W), with_value=True)
+        assert torch.equal(ni, upsampled_nearest(dist, (H, W)))
+        assert torch.equal(nv, torch.gather(up, -1, ni.long()[..., None])[..., 0]) \
+            if H % h or W % w else torch.equal(ni, idx)
+        lo, hi = row_plan(H, 2)[1]
+        first, last = tap_rows(H, h, lo, hi)
+        wi, wv = upsampled_argmin_reference(dist[:, first:last], (H, W), exact=True,
+                                            out_rows=(lo, hi - lo), map_rows=(first, h),
+                                            with_value=True)
+        assert torch.equal(wi, idx[:, lo:hi]) and torch.equal(wv, val[:, lo:hi])
+        # P in contiguous slices, combined: least value, then the first slice
+        for m in (2, 3):
+            best_v = best_i = None
+            for q in range(m):
+                a, b = row_range(q, P, m)
+                si, sv = upsampled_argmin_reference(dist[..., a:b], (H, W), exact=True,
+                                                    with_value=True)
+                if best_v is None:
+                    best_v, best_i = sv, si + a
+                else:
+                    take = sv < best_v
+                    best_v = torch.where(take, sv, best_v)
+                    best_i = torch.where(take, si + a, best_i)
+            assert torch.equal(best_i, idx) and torch.equal(best_v, val), m
+
+
+def test_msc_spatial_step_and_the_tensor_parallel_head_build_and_run(monkeypatch):
+    """The calls that raised before this slice (an MSC model under spatial
+    eval, ``prototype_parallel=True``) build, and run on two thread
+    ranks: the maps of each rank's rows, the counters of the frame."""
+    rng = np.random.RandomState(4)
+    images = rng.rand(2, 64, 64, 3).astype(np.float32)
+    labels = rng.randint(0, 5, (2, 64, 64))
+    pc = torch.arange(12) % 4
+    world = _ThreadWorld(2)
+    monkeypatch.setattr(mesh_mod, "_reduce", world.reduce)
+
+    def run(mesh):
+        msc = make_spatial_inference_fn(_msc_model(), 4, mesh)(pc, images, labels)
+        model = _model(False)
+        tp = make_sharded_inference_fn(model, 4, mesh, spatial=False, prototype_parallel=True)
+        return msc, tp(prototype_parallel_params(model, mesh), pc, images, labels)
+
+    for q, (msc, tp) in enumerate(world.run(run)):
+        lo, hi = row_plan(64, 2)[q]
+        assert msc["pred"].shape == (2, hi - lo, 64)
+        assert tp["pred"].shape == (2, 64, 64)
+        for out in (msc, tp):
+            assert int(out["total"]) == int((labels > 0).sum())
     assert row_range(1, 9, 2) == (4, 9)
     with pytest.raises(ValueError):
         row_plan(7, 8)                              # a rank would hold no row
