@@ -698,16 +698,15 @@ def cmd_prepare_unoise(args):
 
 
 def cmd_preprocess(args):
-    """preprocess-cityscapes / preprocess-pancreas: host numpy, as in the
-    JAX package."""
+    """preprocess-cityscapes / preprocess-pascal / preprocess-pancreas:
+    host work (numpy and the host library's JPEG decoder), as in the JAX
+    package."""
     from adlm_tpu_torch.core.device import resolve_device
     from adlm_tpu_torch.data import preprocess
 
-    if args.cmd == "preprocess-pascal":
-        raise SystemExit("preprocess-pascal is not ported yet: its images are JPEG "
-                         "(ROADMAP.md Queue 1 item 11)")
     resolve_device(args.device)
     fn = {"preprocess-cityscapes": preprocess.preprocess_cityscapes,
+          "preprocess-pascal": preprocess.preprocess_pascal,
           "preprocess-pancreas": preprocess.preprocess_pancreas}[args.cmd]
     fn(args.source_path, args.target_path)
 
@@ -1578,8 +1577,7 @@ def _parser() -> argparse.ArgumentParser:
     pu.set_defaults(fn=cmd_prepare_unoise)
 
     for name in ("preprocess-cityscapes", "preprocess-pascal", "preprocess-pancreas"):
-        sp = sub.add_parser(name, help="raw dataset -> the npy layout" + (
-            " (not ported yet: JPEG)" if name == "preprocess-pascal" else ""))
+        sp = sub.add_parser(name, help="raw dataset -> the npy layout")
         sp.add_argument("source_path")
         sp.add_argument("target_path")
         _add_device(sp)

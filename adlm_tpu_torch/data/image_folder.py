@@ -1,8 +1,8 @@
 """Image-folder dataset of the ProtoPNet classifier (counterpart of
 ``adlm_tpu.data.image_folder``; reference main.py:50-105: resize to
-``img_size``, /255, normalize), and the port's PNG codec.  Layout::
+``img_size``, /255, normalize), and the port's image codecs.  Layout::
 
-    root/<class_name>/*.png|*.npy
+    root/<class_name>/*.jpg|*.jpeg|*.png|*.npy
 
 Classes are the sorted subdirectory names (torchvision's convention).
 
@@ -10,6 +10,12 @@ The port reads images without PIL, whose pixels the JAX package's come
 from, and gives the same ones bit for bit:
 
 * ``.npy`` arrays (H, W) or (H, W, 3|4) are taken as uint8;
+* JPEG files (``read_jpeg``) go through the host library's decoder
+  (``native/jpeg.cc``), bit-equal to PIL's libjpeg-turbo: baseline,
+  extended and progressive Huffman, 8-bit, grey or 3 components (YCbCr,
+  or RGB where libjpeg-turbo takes it so), 4:4:4, 4:2:2 and 4:2:0,
+  restart markers; arithmetic coding, lossless, 12-bit, CMYK/YCCK and
+  other sampling factors raise, naming ROADMAP.md Queue 1 item 11;
 * PNG files (``read_png``: 8-bit grey, grey + alpha, RGB, RGBA or
   palette, and 16-bit grey; not interlaced; any of the five scanline
   filters) are inflated with ``zlib`` and unfiltered with numpy;
@@ -20,11 +26,13 @@ from, and gives the same ones bit for bit:
   the horizontal pass, then the vertical pass on its rounded uint8
   result, each in PIL's 22-bit fixed point.
 
-``write_png`` writes 8-bit grey or RGB with filter 0 and zlib level 6:
-PIL's encoder picks other filters, so the bytes differ from PIL's and
-the pixels do not.  Any other file type listed (JPEG, BMP, WebP) raises
-``ValueError``, naming the conversion to ``.npy``.  This module imports
-no torch.
+``load_rgb`` picks the decoder from a file's leading bytes, as
+``PIL.Image.open`` does (a PNG named ``.jpg`` reads as a PNG), and
+``.npy`` by its suffix.  ``write_png`` writes 8-bit grey or RGB with
+filter 0 and zlib level 6: PIL's encoder picks other filters, so the
+bytes differ from PIL's and the pixels do not.  Any other file type
+listed (BMP, WebP) raises ``ValueError``, naming the conversion to
+``.npy`` and ROADMAP.md Queue 1 item 11.  This module imports no torch.
 """
 
 from __future__ import annotations
@@ -37,12 +45,14 @@ from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
 
+from adlm_tpu_torch import native
 from adlm_tpu_torch.data.dataset import _pil_bilinear_coeffs
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 _EXTS = (".jpg", ".jpeg", ".png", ".bmp", ".webp", ".npy")
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+_JPEG_SIGNATURE = b"\xff\xd8\xff"          # PIL's JpegImagePlugin._accept
 _PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}  # colour type → samples per pixel
 _PNG_TYPES = {0: "grey", 2: "RGB", 3: "palette", 4: "grey + alpha", 6: "RGBA"}
 _PRECISION_BITS = 32 - 8 - 2               # PIL's Resample.c
@@ -125,6 +135,13 @@ def read_png(path: str, palette: bool = False):
     return (px, table if color == 3 else None) if palette else px
 
 
+def read_jpeg(path: str) -> np.ndarray:
+    """(H, W, 1) grey or (H, W, 3) RGB uint8 pixels of a JPEG file,
+    ``np.asarray(Image.open(path))`` bit for bit (``native.decode_jpeg``)."""
+    with open(path, "rb") as fh:
+        return native.decode_jpeg(fh.read(), path)
+
+
 def to_rgb(pixels: np.ndarray, palette=None) -> np.ndarray:
     """PIL's ``convert("RGB")`` of ``read_png``'s (H, W, channels) pixels:
     (H, W, 3) uint8.  ``palette`` (n, 3), where given, maps the indices
@@ -199,7 +216,8 @@ def resize_bilinear_u8(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
 
 
 def load_rgb(path: str) -> np.ndarray:
-    """(H, W, 3) uint8 pixels of a ``.npy`` or PNG image file."""
+    """(H, W, 3) uint8 pixels of a ``.npy``, JPEG or PNG image file, the
+    last two told apart by their leading bytes."""
     if path.endswith(".npy"):
         arr = np.load(path)
         if arr.ndim == 2:
@@ -208,12 +226,16 @@ def load_rgb(path: str) -> np.ndarray:
         if arr.ndim != 3 or arr.shape[2] not in (1, 2, 3, 4):
             raise ValueError(f"{path}: image of shape {arr.shape}")
         return to_rgb(arr)
-    if path.lower().endswith(".png"):
+    with open(path, "rb") as fh:
+        head = fh.read(len(_PNG_SIGNATURE))
+    if head.startswith(_JPEG_SIGNATURE):
+        return to_rgb(read_jpeg(path))
+    if head == _PNG_SIGNATURE:
         return to_rgb(*read_png(path, palette=True))
-    raise ValueError(f"{path}: the port reads .npy and PNG images only (no "
-                     "JPEG/BMP/WebP decoder without PIL); convert it to an "
-                     "(H, W, 3) uint8 .npy, e.g. np.save(out, "
-                     "np.asarray(Image.open(path).convert('RGB')))")
+    raise ValueError(f"{path}: the port reads .npy, JPEG and PNG images only (BMP, "
+                     "WebP: ROADMAP.md Queue 1 item 11); convert it to an (H, W, 3) "
+                     "uint8 .npy, e.g. np.save(out, np.asarray(Image.open(path)"
+                     ".convert('RGB')))")
 
 
 class ImageFolderDataset:

@@ -8,6 +8,8 @@ Raw datasets → the npy layout that every command reads
 
 * Cityscapes (reference segmentation/preprocess_cityscapes.py:45-158),
   with per-image object masks from ``instanceIds``;
+* PASCAL VOC 2012 with SegmentationClassAug (reference
+  preprocess_pascal.py:26-104): JPEG images, PNG labels;
 * Medical Decathlon Task07 Pancreas NIfTI → 2-D slices
   (reference preprocessPancreasScans.py:10-167);
 * ``all_images.json`` from an existing layout, and the PNG → ``.npy``
@@ -16,13 +18,13 @@ Raw datasets → the npy layout that every command reads
   data/prepare_data.py:13-60).
 
 The JAX package reads and writes images with PIL; the port with its
-own codec (``data/image_folder.py``: ``read_png``, ``to_rgb``,
-``write_png``) and its numpy copies of PIL's 8-bit bilinear and nearest
-resize, so every ``.npy`` file and ``all_images.json`` is byte-equal to
-the JAX package's and every PNG pixel-equal (PIL's encoder picks other
+own codecs (``data/image_folder.py``: ``read_png``, ``load_rgb`` with
+the host library's JPEG decoder, ``to_rgb``, ``write_png``) and its
+numpy copies of PIL's 8-bit bilinear and nearest resize, so every
+``.npy`` file and ``all_images.json`` is byte-equal to the JAX
+package's and every PNG pixel-equal (PIL's encoder picks other
 scanline filters).  Volumes load through the bundled NIfTI-1 reader
-(``data/nifti.py``).  ``preprocess_pascal`` is not ported: its images
-are JPEG, which the port does not decode (ROADMAP.md Queue 1 item 11).
+(``data/nifti.py``).
 """
 
 from __future__ import annotations
@@ -165,6 +167,46 @@ def preprocess_cityscapes_obj_masks(source_path: str, target_path: str) -> None:
                 ) if obj_ids else np.zeros((0, *inst.shape), np.uint8)
                 np.savez_compressed(os.path.join(out_root, split, f"{img_id}.npz"),
                                     masks=masks, instance_ids=np.asarray(obj_ids, np.int32))
+
+
+def preprocess_pascal(source_path: str, target_path: str, margin: int = 0) -> None:
+    """PASCAL VOC 2012 + SegmentationClassAug → the npy layout (reference
+    preprocess_pascal.py:26-104), serially as the JAX function runs:
+    for each id of ``ImageSets/SegmentationAug/train_aug.txt`` (split
+    ``train``) and ``val.txt`` (``val``), a split file that is missing
+    being skipped, ``SegmentationClassAug/<id>.png``'s samples (a palette
+    label's indices) → ``annotations/<split>/<id>.npy``, and
+    ``JPEGImages/<id>.jpg`` as RGB with mirrored margins →
+    ``img_with_margin_<m>/<split>/<id>.{png,npy}``; ``all_images.json``
+    lists each split's ids sorted."""
+    ann_src = os.path.join(source_path, "SegmentationClassAug")
+    img_src = os.path.join(source_path, "JPEGImages")
+    split_dir = os.path.join(source_path, "ImageSets", "SegmentationAug")
+    ann_out = os.path.join(target_path, "annotations")
+    img_out = os.path.join(target_path, f"img_with_margin_{margin}")
+    all_images: Dict[str, List[str]] = {}
+    for split_file, split in (("train_aug.txt", "train"), ("val.txt", "val")):
+        path = os.path.join(split_dir, split_file)
+        if not os.path.exists(path):
+            continue
+        os.makedirs(os.path.join(ann_out, split), exist_ok=True)
+        os.makedirs(os.path.join(img_out, split), exist_ok=True)
+        ids = []
+        with open(path) as f:
+            for line in f:
+                img_id = os.path.basename(line.split()[0]).split(".")[0]
+                ids.append(img_id)
+                label = read_png(os.path.join(ann_src, img_id + ".png"))
+                if label.shape[2] == 1:
+                    label = label[:, :, 0]
+                np.save(os.path.join(ann_out, split, f"{img_id}.npy"), label.astype(np.uint8))
+                img = add_margins_to_image(load_rgb(os.path.join(img_src, img_id + ".jpg")),
+                                           margin)
+                write_png(os.path.join(img_out, split, f"{img_id}.png"), img)
+                np.save(os.path.join(img_out, split, f"{img_id}.npy"), img)
+        all_images[split] = sorted(ids)
+    with open(os.path.join(target_path, "all_images.json"), "w") as f:
+        json.dump(all_images, f)
 
 
 def preprocess_pancreas(source_path: str, target_path: str,

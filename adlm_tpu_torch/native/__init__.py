@@ -1,13 +1,14 @@
 """ctypes bindings for the port's host C++ data library (counterpart of
 ``adlm_tpu.native``).
 
-``augment.cc`` is the port's own copy of the JAX package's source.  It
-is built with ``g++`` at first use into ``adlm_tpu_torch/_build/``,
-under a name that carries a hash of the source and the flags, as
-``ops/_build.py`` does for the CUDA kernels: an edited source rebuilds,
-an unchanged one loads the earlier build.  It runs on the host CPU, so
-building it needs no card.  A failed build raises: there is no PIL or
-pure-Python path behind it.
+``augment.cc`` is the port's own copy of the JAX package's source;
+``jpeg.cc`` is the port's JPEG decoder, bit-equal to PIL's pixels
+(``decode_jpeg``).  Both are built with ``g++`` at first use into one
+library in ``adlm_tpu_torch/_build/``, under a name that carries a hash
+of both sources and the flags, as ``ops/_build.py`` does for the CUDA
+kernels: an edit to either source rebuilds, unchanged ones load the
+earlier build.  It runs on the host CPU, so building it needs no card.
+A failed build raises: there is no PIL or pure-Python path behind it.
 
 ``augment_sample_plain`` is a numpy version of the fused chain, and
 ``remap_bilinear_plain``, ``remap_nearest_plain`` and
@@ -28,6 +29,7 @@ import numpy as np
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 SOURCE = os.path.join(_DIR, "augment.cc")
+JPEG_SOURCE = os.path.join(_DIR, "jpeg.cc")
 BUILD_DIR = os.path.join(os.path.dirname(_DIR), "_build")
 # portable -O3 (no -march=native: a build copied to another host must
 # not fault on a missing instruction); no FMA contraction, so that every
@@ -39,9 +41,11 @@ _lock = threading.Lock()
 
 
 def library_path() -> str:
-    """Where the build of the current source and flags lives."""
-    with open(SOURCE, "rb") as f:
-        h = hashlib.sha1(f.read() + " ".join(CXX_FLAGS).encode())
+    """Where the build of the current sources and flags lives."""
+    h = hashlib.sha1(" ".join(CXX_FLAGS).encode())
+    for path in (SOURCE, JPEG_SOURCE):
+        with open(path, "rb") as f:
+            h.update(f.read())
     return os.path.join(BUILD_DIR, f"libadlm_data-{h.hexdigest()[:12]}.so")
 
 
@@ -55,13 +59,13 @@ def build() -> str:
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{target}.{os.getpid()}.{threading.get_ident()}.tmp"
     try:
-        out = subprocess.run(["g++", *CXX_FLAGS, "-o", tmp, SOURCE],
+        out = subprocess.run(["g++", *CXX_FLAGS, "-o", tmp, SOURCE, JPEG_SOURCE],
                              capture_output=True, text=True)
     except FileNotFoundError as e:
         raise RuntimeError("g++ not found: the host data library is built "
-                           "from adlm_tpu_torch/native/augment.cc") from e
+                           "from adlm_tpu_torch/native/augment.cc and jpeg.cc") from e
     if out.returncode != 0:
-        raise RuntimeError(f"g++ failed for native/augment.cc (exit "
+        raise RuntimeError(f"g++ failed for native/augment.cc and jpeg.cc (exit "
                            f"{out.returncode}):\n{out.stderr}")
     os.replace(tmp, target)
     return target
@@ -93,6 +97,9 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.remap_bilinear_f32.argtypes = [f32p, i, i, i, f32p, f32p, i, i, f32p]
     lib.remap_nearest_f32.argtypes = [f32p, i, i, f32p, f32p, i, i, f32p]
     lib.gaussian_blur_f32.argtypes = [f32p, i, i, ctypes.c_float, f32p, f32p]
+    lib.jpeg_header.argtypes = [u8p, ctypes.c_size_t, i32p, ctypes.c_char_p, i]
+    lib.jpeg_decode.argtypes = [u8p, ctypes.c_size_t, u8p, i, i, i, ctypes.c_char_p, i]
+    lib.jpeg_header.restype = lib.jpeg_decode.restype = ctypes.c_int
     for fn in (lib.resize_bilinear_u8, lib.resize_nearest_i32,
                lib.augment_sample, lib.augment_sample_fused,
                lib.remap_bilinear_f32, lib.remap_nearest_f32,
@@ -325,6 +332,30 @@ def gaussian_blur(src: np.ndarray, sigma: float) -> np.ndarray:
     lib.gaussian_blur_f32(src.reshape(-1), h, w, ctypes.c_float(sigma),
                           tmp.reshape(-1), out.reshape(-1))
     return out
+
+
+def decode_jpeg(data: bytes, name: str) -> np.ndarray:
+    """(H, W, 1) grey or (H, W, 3) RGB uint8 pixels of a JPEG file's
+    bytes, bit-equal to what PIL decodes (``jpeg.cc``).  Raises
+    ``ValueError`` naming ``name`` for corrupt or truncated data, and for
+    the variants the decoder does not read (arithmetic coding, lossless
+    and hierarchical frames, 12-bit samples, 2 or 4 components, other
+    sampling factors), naming ROADMAP.md Queue 1 item 11 for those."""
+    lib = _load()
+    buf = np.frombuffer(data, np.uint8)
+    err = ctypes.create_string_buffer(256)
+    hwc = np.zeros(3, np.int32)
+    code = lib.jpeg_header(buf, buf.size, hwc, err, len(err))
+    if code == 0:
+        out = np.empty(tuple(int(v) for v in hwc), np.uint8)
+        code = lib.jpeg_decode(buf, buf.size, out, *out.shape, err, len(err))
+        if code == 0:
+            return out
+    msg = err.value.decode(errors="replace")
+    if code == 2:
+        raise ValueError(f"{name}: JPEG with {msg}, which the port does not read "
+                         "(ROADMAP.md Queue 1 item 11); convert it to an (H, W, 3) uint8 .npy")
+    raise ValueError(f"{name}: corrupt or truncated JPEG: {msg}")
 
 
 def _reflect101(coords: np.ndarray, n: int) -> np.ndarray:

@@ -146,7 +146,7 @@ non-zero and prints no result:
    run), ``import-protoseg`` of a reference-layout state_dict and of a
    pickled module (bit-equal), ``eval-valid`` on the imported run
    (counters equal), ``export-torch`` and a second import (bit-equal),
-   ``analyze-local --top-k 10 --per-class-top 3`` against the plain
+   ``analyze-local --top-k 10 --per-class-top 1`` against the plain
    head (ranks moved only on a near-tie of the minimum distances) and
    ``analyze-global --k 5`` over the four train frames against
    ``find_k_nearest_patches``; then windowed and whole-frame img/s at
@@ -229,6 +229,24 @@ non-zero and prints no result:
    with two cards or more, the same checks on two NCCL ranks, one card
    each, and ``python -m adlm_tpu_torch.cli eval-valid --mesh-model 2``
    (its own NCCL ranks, one card each) for both experiments.
+18. JPEG: (a) the host library built afresh by this host's ``g++``
+   decodes every fixture of ``tests/fixtures/torch_jpeg`` to the pixels
+   of its manifest (shape and SHA-256 of PIL's ``convert("RGB")``,
+   written where PIL runs), with ms per PASCAL-sized frame; (b) a VOC
+   tree of the four PASCAL-sized fixtures (SBD's two-column split files,
+   8-bit labels 0..20 and 255) through ``preprocess-pascal`` in its own
+   process, every image array and PNG equal to the manifest's pixels and
+   every label to the one written, then the function in this process
+   (byte-equal files), host seconds per frame; (c) ``import-protoseg`` of
+   the seeded ``pascal_kld_imnet`` and ``eval-valid --stats
+   --stats-upsampled`` on the prepared val split (batch 1, its 513x513
+   eval resize): every count and sampled distance bit-equal to the same
+   frames evaluated in this process, and within phase 4's tie budget of
+   them through the plain versions, one head and one upsample-argmin
+   launch per batch; (d) a JPEG class folder of the fixtures (2 classes)
+   whose batches at 224x224 equal its ``.npy`` twin's bit for bit, and a
+   warm epoch of ``cls-train`` on it at phase 12's preset (P = 2000,
+   K = 200), with its head launches (the general path).
 
 Precision: f32 runs with TF32 off for convolutions and matmuls (the
 entry points' ``ieee_f32`` scope; the comparisons here run in the same
@@ -4507,7 +4525,7 @@ def check_analysis_cli(m32, pc, cfg, data, src, launches_by_cmd):
 
     rec = {"first_window": None}
     run_command(["analyze-local", src, "push", "--data-path", data, "--top-k", "10",
-                 "--per-class-top", "3"], rec, launches_by_cmd)
+                 "--per-class-top", "1"], rec, launches_by_cmd)
     res = json.loads(rec["stdout"])
     ds = SegmentationDataset(cfg.data, "val", data_path=data, is_eval=True)
     img = ds.get_eval_item(0)[0][None]
@@ -4532,7 +4550,7 @@ def check_analysis_cli(m32, pc, cfg, data, src, launches_by_cmd):
     top_k, top_p = res["top_prototypes"], plain["top_prototypes"].tolist()
     moved = [(r, a, b) for r, (a, b) in enumerate(zip(top_k, top_p)) if a != b]
     unexplained = [(r, a, b) for r, a, b in moved if abs(dp[a] - dp[b]) > tol[a] + tol[b]]
-    log(f"  analyze-local --top-k 10 --per-class-top 3: {n_png} PNGs and {len(sections)} "
+    log(f"  analyze-local --top-k 10 --per-class-top 1: {n_png} PNGs and {len(sections)} "
         f"class sections written; top prototypes {top_k}, plain head {top_p}; min-d "
         f"max_abs {np.abs(dk - dp).max():.2e} (d tolerance {'ok' if d_ok else 'EXCEEDED'}), "
         f"{len(moved)} ranks on a near-tie {moved}, unexplained {unexplained}; own class "
@@ -4688,10 +4706,10 @@ def check_windowed(report, card: str) -> None:
 DEPLOY_BATCH = {"flagship_f32": 2, "flagship_bf16": 2, "classifier_f32": 2,
                 "unoise_utility_f32": 8}
 DEPLOY_ITEMS = 4          # items the flagship's and classifier's requests cycle through
-DEPLOY_SEQ_S = 2.0        # seconds of sequential requests of 1 item, then of a full batch
+DEPLOY_SEQ_S = 1.0        # seconds of sequential requests of 1 item, then of a full batch
 # the sustained window: client threads sending single items back to
 # back, and its seconds
-DEPLOY_CLIENTS, DEPLOY_SUSTAIN_S = 4, 10.0
+DEPLOY_CLIENTS, DEPLOY_SUSTAIN_S = 4, 4.0
 UN_DEPLOY_HW = 256
 # artifact → (outputs held as values, outputs held as choices)
 DEPLOY_OUTPUTS = {
@@ -6918,6 +6936,373 @@ def check_spatial(report, card: str, prepared) -> None:
     log(f"  phase 17 {time.perf_counter() - t_phase:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 18: JPEG.  The host library's decoder against PIL's pixels (the
+# committed manifest of tests/fixtures/torch_jpeg), preprocess-pascal on a
+# VOC tree of the fixtures' PASCAL-sized frames, eval-valid of
+# pascal_kld_imnet on the prepared val split, and a JPEG class folder fed
+# to the classifier
+# ---------------------------------------------------------------------------
+
+JPEG_FIXTURES = ("tests", "fixtures", "torch_jpeg")
+# the fixtures' four frames at PASCAL's shapes (375x500, 500x375, 333x500,
+# 375x500; PIL's defaults, quality 75, 4:2:0) under VOC-style ids: 4 of
+# PASCAL's 1,449 val and 10,582 train_aug frames
+JPEG_PASCAL = {"2007_000032": "pascal_0.jpg", "2007_000039": "pascal_1.jpg",
+               "2008_000123": "pascal_2.jpg", "2009_000001": "pascal_3.jpg"}
+JPEG_DECODES = 9        # decodes of each frame; the median is kept
+JPEG_EXPERIMENT = "pascal_kld_imnet"
+# eval-valid's default batch: PASCAL's frames differ in shape, and the
+# eval dataset stacks each frame's labels at its own shape
+JPEG_EVAL_BS = 1
+# the class folder (2 classes) fed to cls-train at phase 12's preset
+# (VGG19 224^2, P = 2000, C = 128, K = 200: --num-classes keeps K at the
+# preset's 200 over the folder's 2), one warm epoch, no push
+JPEG_CLASSES = {"class_000": ("pascal_0.jpg", "pascal_1.jpg", "pascal_2.jpg",
+                              "pascal_3.jpg", "q95_444.jpg", "q100_optimize.jpg", "q10.jpg"),
+                "class_001": ("grey.jpg", "s422.jpg", "progressive.jpg",
+                              "progressive_grey.jpg", "restart.jpg", "adobe_rgb.jpg")}
+JPEG_CLS_ARGS = ("--epochs", "1", "--warm-epochs", "1", "--push-start", "2",
+                 "--num-classes", str(200))
+
+
+def host_cpu() -> str:
+    """The host's CPU: its architecture, the model ``/proc/cpuinfo`` names
+    (x86's "model name", or an Arm core's implementer and part), and the
+    core count."""
+    import os
+    import platform
+
+    fields = {}
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                key, _, value = line.partition(":")
+                fields.setdefault(key.strip(), value.strip())
+    except OSError:
+        pass
+    model = fields.get("model name") or (
+        f"implementer {fields['CPU implementer']} part {fields['CPU part']}"
+        if "CPU part" in fields else "model not named")
+    return f"{platform.machine()} {model}, {os.cpu_count()} cores"
+
+
+def jpeg_decode_check(root: str, fixtures: str, where: str):
+    """(a) The host library built afresh by this host's g++ into a
+    directory of its own; every fixture decoded through it to the
+    manifest's pixels (shape and SHA-256 of PIL's ``convert("RGB")``);
+    the median ms per PASCAL-sized frame.  Returns {fixture: pixels}."""
+    import hashlib
+    import os
+    import statistics
+
+    from adlm_tpu_torch import native
+    from adlm_tpu_torch.data.image_folder import load_rgb
+
+    with open(os.path.join(fixtures, "manifest.json")) as f:
+        manifest = json.load(f)
+    gxx = subprocess.run(["g++", "--version"], capture_output=True, text=True).stdout
+    saved = (native.BUILD_DIR, native._lib)
+    native.BUILD_DIR, native._lib = os.path.join(root, "build"), None
+    try:
+        t0 = time.perf_counter()
+        lib = native.build()
+        build_s = time.perf_counter() - t0
+        decoded = {}
+        for name in sorted(manifest):
+            px = load_rgb(os.path.join(fixtures, name))
+            want = manifest[name]
+            if (list(px.shape) != want["shape"]
+                    or hashlib.sha256(px.tobytes()).hexdigest() != want["sha256"]):
+                raise AssertionError(f"{name}: decoded {px.shape}, not the manifest's pixels "
+                                     f"{want['shape']} ({want['mode']})")
+            decoded[name] = px
+        ms = {}
+        for name in JPEG_PASCAL.values():
+            with open(os.path.join(fixtures, name), "rb") as f:
+                data = f.read()
+            times = []
+            for _ in range(JPEG_DECODES):
+                t0 = time.perf_counter()
+                native.decode_jpeg(data, name)
+                times.append(time.perf_counter() - t0)
+            ms[name] = statistics.median(times) * 1e3
+    finally:
+        native.BUILD_DIR, native._lib = saved
+    log(f"  host library built by {gxx.splitlines()[0] if gxx else 'g++'} in {build_s:.1f} s "
+        f"({os.path.basename(lib)}); {len(decoded)} fixtures decoded to the manifest's pixels "
+        f"(PIL's convert('RGB'), SHA-256 and shape)")
+    log("  decode ms per PASCAL-sized frame (median of "
+        f"{JPEG_DECODES}): " + ", ".join(f"{n} {decoded[n].shape[1]}x{decoded[n].shape[0]} "
+                                          f"{v:.3f}" for n, v in ms.items())
+        + f"  [host: {host_cpu()}; {where}]")
+    return decoded
+
+
+def write_voc(voc: str, fixtures: str, decoded, seed: int):
+    """A VOC 2012 + SegmentationClassAug tree of the PASCAL-sized
+    fixtures: ``JPEGImages/<id>.jpg``, 8-bit grey labels 0..20 in 25-pixel
+    blocks with a void (255) band (``write_png``), SBD's two-column
+    ``train_aug.txt`` and ``val.txt`` listing every frame.  Returns
+    {id: label}."""
+    import os
+    import shutil
+
+    import numpy as np
+    from adlm_tpu_torch.data.image_folder import write_png
+
+    rng = np.random.RandomState(seed)
+    split_dir = os.path.join(voc, "ImageSets", "SegmentationAug")
+    for sub in ("JPEGImages", "SegmentationClassAug", split_dir):
+        os.makedirs(os.path.join(voc, sub))
+    labels = {}
+    for fid, name in JPEG_PASCAL.items():
+        shutil.copy(os.path.join(fixtures, name), os.path.join(voc, "JPEGImages", fid + ".jpg"))
+        h, w = decoded[name].shape[:2]
+        blocks = rng.randint(0, 21, (-(-h // 25), -(-w // 25)))
+        lab = np.repeat(np.repeat(blocks, 25, 0), 25, 1)[:h, :w].astype(np.uint8)
+        lab[:, :16] = 255
+        write_png(os.path.join(voc, "SegmentationClassAug", fid + ".png"), lab)
+        labels[fid] = lab
+    lines = "".join(f"/JPEGImages/{fid}.jpg /SegmentationClassAug/{fid}.png\n"
+                    for fid in JPEG_PASCAL)
+    for split_file in ("train_aug.txt", "val.txt"):
+        with open(os.path.join(split_dir, split_file), "w") as f:
+            f.write(lines)
+    return labels
+
+
+def jpeg_prepare_check(root: str, fixtures: str, decoded, where: str) -> str:
+    """(b) ``preprocess-pascal`` as a user runs it (a process of its own)
+    on a VOC tree of the fixtures: every prepared image ``.npy`` and PNG
+    equal to the manifest's pixels, every label ``.npy`` to the label
+    written, ``all_images.json`` the sorted ids; then the function in
+    this process on the same tree, byte-equal, for the host seconds per
+    frame without the interpreter's start.  Returns the prepared root."""
+    import os
+    import shutil
+
+    import numpy as np
+    from adlm_tpu_torch.data.image_folder import read_png
+    from adlm_tpu_torch.data.preprocess import preprocess_pascal
+
+    voc, out = os.path.join(root, "voc"), os.path.join(root, "pascal")
+    labels = write_voc(voc, fixtures, decoded, SEED + 81)
+    secs_cli, _ = prep_command(cli_argv("preprocess-pascal", voc, out), "preprocess-pascal")
+    ids = sorted(JPEG_PASCAL)
+    with open(os.path.join(out, "all_images.json")) as f:
+        if json.load(f) != {"train": ids, "val": ids}:
+            raise AssertionError("preprocess-pascal listed other ids")
+    for split in ("train", "val"):
+        for fid, name in JPEG_PASCAL.items():
+            stem = os.path.join(out, "img_with_margin_0", split, fid)
+            img, png = np.load(stem + ".npy"), read_png(stem + ".png")
+            lab = np.load(os.path.join(out, "annotations", split, fid + ".npy"))
+            if (img.dtype != np.uint8 or not np.array_equal(img, decoded[name])
+                    or not np.array_equal(png, decoded[name])
+                    or lab.dtype != np.uint8 or not np.array_equal(lab, labels[fid])):
+                raise AssertionError(f"preprocess-pascal: {split}/{fid} differs from the "
+                                     "manifest's pixels or the label written")
+    again = os.path.join(root, "pascal_fn")
+    t0 = time.perf_counter()
+    preprocess_pascal(voc, again)
+    secs_fn = time.perf_counter() - t0
+    n_files = same_files(again, out)
+    shutil.rmtree(again)
+    n = 2 * len(JPEG_PASCAL)
+    log(f"  preprocess-pascal (CLI, its own process): {secs_cli:.2f} s, {secs_cli / n:.3f} s per "
+        f"frame over {n} (4 train_aug + 4 val), images equal to the manifest's pixels, labels "
+        f"to those written; the function in process: {secs_fn:.3f} s, {secs_fn / n:.4f} s per "
+        f"frame ({n_files} files byte-equal)  [host: {host_cpu()}; {where}]")
+    return out
+
+
+def jpeg_eval_check(report, root: str, data: str) -> None:
+    """(c) ``import-protoseg`` of the seeded ``pascal_kld_imnet`` and
+    ``eval-valid --stats --stats-upsampled`` on the prepared val split
+    (eval-valid's default batch of 1, its 513x513 eval resize, f32 IEEE,
+    cuDNN deterministic); against the same frames through the eval
+    dataset in this process, with the kernels (every count and sampled
+    distance bit-equal) and with their plain versions (phase 4's tie
+    budget and near-tie rule).  One head and one upsample-argmin launch
+    per batch."""
+    import os
+
+    import numpy as np
+    import torch
+    import adlm_tpu_torch.interpret.evaluate as ev_mod
+    from adlm_tpu_torch import cli
+    from adlm_tpu_torch.core.config import get_experiment
+    from adlm_tpu_torch.data.dataset import SegmentationDataset
+    from adlm_tpu_torch.ops import _build
+
+    cfg = get_experiment(JPEG_EXPERIMENT)
+    results = os.path.join(root, "runs")
+    m32 = random_model(cfg.model, SEED)
+    sd = {k: v.detach().cpu() for k, v in m32.state_dict().items()}
+    del m32
+    for k in list(sd):   # the reference's layout, as phases 15 and 17 write it
+        if k.endswith("bn.running_mean"):
+            sd[k[:-len("running_mean")] + "num_batches_tracked"] = torch.tensor(0)
+    ckpt = os.path.join(root, "pascal.pth")
+    torch.save(sd, ckpt)
+    del sd
+    saved_env = os.environ.get("RESULTS_DIR")
+    saved_det = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    os.environ["RESULTS_DIR"] = results
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    rec, launches = {"first_window": None}, []
+    try:
+        run_command(["import-protoseg", JPEG_EXPERIMENT, "jpeg", ckpt], rec, launches)
+        run = os.path.join(results, "jpeg")
+        with _RecordedEvaluators() as recorded:
+            secs, _ = run_command(["eval-valid", run, "push", "--data-path", data, "--stats",
+                                   "--stats-upsampled", "--batch-size", str(JPEG_EVAL_BS),
+                                   "--examples", "0"], rec, launches)
+        (cli_ev,) = recorded.instances
+        res, cli_outs = cli_ev.results(), recorded.outs
+
+        _, payload, model = cli._load_stage(run, "push", "last", "cuda")
+        pc = payload["proto_class"]
+        ds = SegmentationDataset(cfg.data, "val", data_path=data, is_eval=True)
+        raw = ds.supports_raw_eval()
+        items = list(ds.eval_batches(JPEG_EVAL_BS, with_counts=True, raw=raw))
+        n_pixels = sum(int(np.prod(lab.shape)) for _, lab, _ in items)
+
+        def direct():
+            with _RecordedEvaluators() as r:    # it patches ev_mod.SegEvaluator
+                ev = ev_mod.SegEvaluator(model, cfg.model.num_classes, with_stats=True,
+                                  stats_upsampled=True,
+                                  normalize=(cfg.data.mean, cfg.data.std) if raw else None,
+                                  device="cuda")
+                for img, lab, _ in items:
+                    ev.update(pc, torch.from_numpy(img).cuda(), torch.from_numpy(lab).cuda())
+            return ev.results(), r.outs
+
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        got = direct()
+        direct_launches = dict(_build.LAUNCHES)
+        with plain_versions():
+            want = direct()
+        if dict(_build.LAUNCHES) != direct_launches:
+            raise AssertionError("the plain run launched a kernel")
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved_det
+        if saved_env is None:
+            os.environ.pop("RESULTS_DIR", None)
+        else:
+            os.environ["RESULTS_DIR"] = saved_env
+    differ = [k for a, b in zip(cli_outs, got[1]) for k in b if not torch.equal(a[k], b[k])]
+    same = (res["mean_iou"] == got[0]["mean_iou"]
+            and res["iou_per_class"] == got[0]["iou_per_class"]
+            and res["pixel_accuracy"] == got[0]["pixel_accuracy"])
+    n_batches = len(items)
+    log(f"  eval-valid --stats --stats-upsampled on the prepared val split ({len(ds)} frames, "
+        f"batch {JPEG_EVAL_BS}, {n_batches} batches): {secs:.2f} s, {secs / n_batches:.3f} s per "
+        f"batch; mIoU {res['mean_iou']!r}, direct from the eval dataset {got[0]['mean_iou']!r}; "
+        f"outputs that differ {sorted(set(differ))}")
+    if (not same or differ or not len(cli_outs) == len(got[1]) == len(want[1]) == n_batches
+            or not math.isfinite(res["mean_iou"])):
+        raise AssertionError("eval-valid on the prepared PASCAL split differs from the direct "
+                             "evaluation of the same frames")
+    compare_eval(f"{JPEG_EXPERIMENT} prepared", got, want, n_pixels, proto_class=pc)
+    (_, imp), (_, evl) = launches
+    for name in _build.KERNELS:
+        report[name]["launches"] += evl[name]
+    if (any(imp.values()) or evl != {k: n_batches for k in _build.KERNELS}
+            or direct_launches != evl):
+        raise AssertionError(f"launches: import-protoseg {imp}, eval-valid {evl}, direct "
+                             f"{direct_launches}; expected {n_batches} of each kernel")
+
+
+def jpeg_folder_check(report, root: str, fixtures: str) -> None:
+    """(d) A JPEG class folder of the fixtures (2 classes) against the same
+    folder written as ``.npy`` from the decoded pixels: every batch
+    ``ImageFolderDataset`` gives, shuffled and with counts, bit-equal;
+    then one warm epoch of ``cls-train`` on the JPEG folder at the
+    preset's width, its head launches (the general path: P = 2000) counted."""
+    import csv
+    import os
+    import shutil
+
+    import numpy as np
+    from adlm_tpu_torch.data.image_folder import ImageFolderDataset, read_jpeg
+    from adlm_tpu_torch.ops import _build
+
+    jpeg_dir, npy_dir = os.path.join(root, "cls_jpeg"), os.path.join(root, "cls_npy")
+    for cls, names in JPEG_CLASSES.items():
+        os.makedirs(os.path.join(jpeg_dir, cls))
+        os.makedirs(os.path.join(npy_dir, cls))
+        for name in names:
+            src = os.path.join(fixtures, name)
+            shutil.copy(src, os.path.join(jpeg_dir, cls, name))
+            np.save(os.path.join(npy_dir, cls, name[:-len(".jpg")] + ".npy"), read_jpeg(src))
+    jd, nd = ImageFolderDataset(jpeg_dir, CLS_HW), ImageFolderDataset(npy_dir, CLS_HW)
+    n_batches = 0
+    for kw in (dict(shuffle=True, seed=0), dict(with_count=True)):
+        for a, b in zip(jd.batches(CLS_BS, **kw), nd.batches(CLS_BS, **kw), strict=True):
+            n_batches += 1
+            if any(not np.array_equal(x, y) for x, y in zip(a, b, strict=True)):
+                raise AssertionError("the JPEG folder's batches differ from the .npy folder's")
+    t0 = time.perf_counter()
+    for _ in jd.batches(CLS_BS):
+        pass
+    secs_batch = time.perf_counter() - t0
+    log(f"  JPEG class folder ({len(jd)} images, 2 classes) bit-equal to its .npy folder over "
+        f"{n_batches} batches of {CLS_BS} at {CLS_HW}^2; one batch decoded and resized in "
+        f"{secs_batch:.3f} s on 8 threads")
+    results = os.path.join(root, "cls_runs")
+    saved_env = os.environ.get("RESULTS_DIR")
+    os.environ["RESULTS_DIR"] = results
+    try:
+        cls_command(["cls-train", "jpeg", *JPEG_CLS_ARGS, "--train-dir", jpeg_dir,
+                     "--test-dir", jpeg_dir])
+    finally:
+        if saved_env is None:
+            os.environ.pop("RESULTS_DIR", None)
+        else:
+            os.environ["RESULTS_DIR"] = saved_env
+    launches = dict(_build.LAUNCHES)
+    with open(os.path.join(results, "jpeg", "logs", "classification_metrics.csv")) as f:
+        rows = list(csv.DictReader(f))
+    log("  cls-train on the JPEG folder: rows " + ", ".join(
+        f"{r['phase']} accuracy {float(r['accuracy']):.4f}" for r in rows)
+        + f"; launches {launches}")
+    if [r["phase"] for r in rows] != ["warm"] or launches["prototype_head"] < 2:
+        raise AssertionError(f"cls-train on the JPEG folder: rows {rows}, launches {launches}")
+    report["prototype_head"]["launches"] += launches["prototype_head"]
+
+
+def check_jpeg(report, card: str) -> None:
+    """Phase 18: (a) the decoder, built by this host's g++, against the
+    manifest of PIL's pixels; (b) preprocess-pascal on a VOC tree of the
+    fixtures; (c) eval-valid of pascal_kld_imnet on the prepared frames
+    against the direct evaluation, kernels and plain versions; (d) a JPEG
+    class folder against its .npy twin, and cls-train on it."""
+    import os
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    fixtures = os.path.join(os.path.dirname(os.path.abspath(__file__)), *JPEG_FIXTURES)
+    root = tempfile.mkdtemp(prefix="adlm_jpeg_")
+    try:
+        decoded = jpeg_decode_check(root, fixtures, card)
+        t0 = time.perf_counter()
+        data = jpeg_prepare_check(root, fixtures, decoded, card)
+        log(f"  (b) {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        jpeg_eval_check(report, root, data)
+        log(f"  (c) {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        jpeg_folder_check(report, root, fixtures)
+        log(f"  (d) {time.perf_counter() - t0:.1f} s")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"  phase 18 {time.perf_counter() - t_phase:.1f} s  [{card}]")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -7045,6 +7430,12 @@ def main() -> int:
             "eval of pascal_kld_imnet (MSC) at 513x513; eval-valid --mesh-model 2 through "
             "the CLI for both")
         check_spatial(report, card, prepared)
+
+        log("[18] JPEG: the host decoder built by this host's g++ against the manifest of "
+            "PIL's pixels; preprocess-pascal on a VOC tree of PASCAL-sized JPEGs; eval-valid "
+            "--stats --stats-upsampled of pascal_kld_imnet on it, kernels and plain versions; a "
+            "JPEG class folder against its .npy twin, and cls-train on it")
+        check_jpeg(report, card)
     except Exception:  # report any failure and exit non-zero
         traceback.print_exc()
         log(f"FAILED after {time.perf_counter() - t_start:.1f} s")

@@ -2,11 +2,13 @@
 ``adlm_tpu_torch.data.image_folder`` against ``adlm_tpu.data.image_folder``
 (which decodes and resizes with PIL).
 
-Every comparison is exact: the port's PNG decoder, its copy of PIL's
-8-bit bilinear resize and the normalized float32 images equal the JAX
-dataset's bit for bit.  The PNG files are written by PIL (which chooses
-its scanline filters per row) and by the test's own encoder, which puts
-each of the five filter types on some rows of every colour type.
+Every comparison is exact: the port's PNG and JPEG decoders, its copy
+of PIL's 8-bit bilinear resize and the normalized float32 images equal
+the JAX dataset's bit for bit.  The PNG files are written by PIL (which
+chooses its scanline filters per row) and by the test's own encoder,
+which puts each of the five filter types on some rows of every colour
+type; the JPEG files by PIL (colour at 4:2:0 and 4:4:4, grey,
+progressive).
 """
 
 import struct
@@ -137,12 +139,41 @@ def test_resize_bilinear_u8_is_pils(size):
     np.testing.assert_array_equal(resize_bilinear_u8(img, size), want)
 
 
+def test_jpeg_folder_equals_the_jax_dataset_bit_for_bit(tmp_path):
+    """A class folder of JPEGs as CUB-200 and Stanford Cars ship: colour
+    (PIL's defaults, 4:4:4 at quality 95), grey, progressive, and one
+    ``.jpeg``; decode, ``convert("RGB")``, 8-bit resize, /255,
+    normalize equal to the JAX dataset's."""
+    rng = np.random.RandomState(1)
+    for c in ("bird", "car"):
+        (tmp_path / c).mkdir()
+    files = (("bird", "a.jpg", (61, 47), "RGB", {}),
+             ("bird", "b.jpeg", (30, 90), "RGB", dict(quality=95, subsampling=0)),
+             ("bird", "c.jpg", (50, 50), "L", {}),
+             ("car", "d.jpg", (73, 41), "RGB", dict(progressive=True)),
+             ("car", "e.jpg", (24, 24), "L", dict(progressive=True, quality=90)))
+    for cls, name, hw, mode, kw in files:
+        px = _smooth(rng, *hw, 3)
+        Image.fromarray(px[:, :, 0] if mode == "L" else px, mode).save(tmp_path / cls / name,
+                                                                       **kw)
+    port, ref = ImageFolderDataset(str(tmp_path), 32), JaxImageFolder(str(tmp_path), 32)
+    assert port.samples == ref.samples and len(port) == 5
+    for kw in (dict(), dict(with_count=True)):
+        got, want = list(port.batches(2, **kw)), list(ref.batches(2, **kw))
+        assert len(got) == len(want) == 3
+        for g, w in zip(got, want):
+            for a, b in zip(g, w):
+                np.testing.assert_array_equal(a, b)
+
+
 def test_other_formats_raise(tmp_path):
     (tmp_path / "a").mkdir()
-    Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(tmp_path / "a" / "x.jpg")
+    Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(tmp_path / "a" / "x.bmp")
+    Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(tmp_path / "a" / "y.webp")
     ds = ImageFolderDataset(str(tmp_path), 8)
-    with pytest.raises(ValueError, match=r"\.npy"):
-        ds.load(0)
+    for i in range(2):
+        with pytest.raises(ValueError, match=r"BMP, WebP: ROADMAP\.md Queue 1 item 11.*\.npy"):
+            ds.load(i)
     px = np.zeros((8, 8, 3), np.uint8)
     for name, kw in (("interlaced.png", dict(interlace=1)), ("deep.png", dict(depth=16))):
         encode_png(tmp_path / name, px, **kw)

@@ -1,8 +1,10 @@
 """PyTorch port, the dataset preprocessors: ``adlm_tpu_torch.data.preprocess``,
 the new PNG types of ``data/image_folder.py`` and the commands
-``preprocess-cityscapes``, ``preprocess-pancreas``, ``gen-image-list``
+``preprocess-cityscapes``, ``preprocess-pascal`` (JPEG images through
+the host library's decoder), ``preprocess-pancreas``, ``gen-image-list``
 and ``img-to-numpy`` against ``adlm_tpu.data.preprocess`` and the JAX
-CLI, which read and write images with PIL.
+CLI, which read and write images with PIL; and a prepared PASCAL split
+fed to both packages' eval datasets.
 
 Each case writes a small raw tree, with PIL and with the test's own
 encoder (which puts each of the five scanline filters on some rows,
@@ -23,10 +25,14 @@ import pytest
 from PIL import Image
 
 from adlm_tpu import cli as jax_cli
+from adlm_tpu.core.config import get_experiment as jax_experiment
 from adlm_tpu.data import preprocess as jpre
+from adlm_tpu.data.dataset import SegmentationDataset as JaxDataset
 
 from adlm_tpu_torch import cli
+from adlm_tpu_torch.core.config import get_experiment
 from adlm_tpu_torch.data import preprocess as tpre
+from adlm_tpu_torch.data.dataset import SegmentationDataset
 from adlm_tpu_torch.data.image_folder import read_png, to_rgb
 
 from test_nifti import _make_nifti
@@ -357,9 +363,111 @@ def test_commands_write_what_the_jax_cli_writes(cityscapes, tmp_path, capsys):
     assert_same_tree(str(tmp_path / "port"), str(tmp_path / "jax"))
 
 
+# ---------------------------------------------------------------------------
+# PASCAL VOC: JPEG images, L and P labels
+# ---------------------------------------------------------------------------
+
+# (id, (height, width), PIL mode of the JPEG, its save arguments)
+VOC = (("2007_000032", (28, 41), "RGB", {}),
+       ("2007_000039", (33, 26), "RGB", dict(progressive=True)),
+       ("2008_000123", (24, 24), "L", {}),
+       ("2009_000001", (30, 37), "RGB", dict(quality=95, subsampling=0)))
+
+
+def write_voc(root, seed: int, splits=("train_aug", "val"), cmyk: bool = False) -> str:
+    """A VOC 2012 + SegmentationClassAug tree: PIL JPEGs (colour at
+    4:2:0, progressive and 4:4:4, one grey), labels 0..20 with 255 as
+    ``L`` PNGs and one ``P`` PNG, SBD's two-column ``train_aug.txt`` and
+    VOC's one-column ``val.txt`` (each written if in ``splits``)."""
+    root = str(root)
+    rng = np.random.RandomState(seed)
+    for sub in ("JPEGImages", "SegmentationClassAug", os.path.join("ImageSets", "SegmentationAug")):
+        os.makedirs(os.path.join(root, sub))
+    for i, (img_id, hw, mode, kw) in enumerate(VOC):
+        px = _smooth(rng, *hw, 3)
+        im = Image.fromarray(px[:, :, 0] if mode == "L" else px, mode)
+        if cmyk and i == 1:
+            im, kw = im.convert("CMYK"), {}
+        im.save(os.path.join(root, "JPEGImages", img_id + ".jpg"), **kw)
+        lab = rng.randint(0, 21, hw).astype(np.uint8)
+        lab[:, :3] = 255
+        lim = Image.fromarray(lab, "L")
+        if i == 2:
+            lim = Image.fromarray(lab, "P")
+            lim.putpalette(rng.randint(0, 256, 768).tolist())
+        lim.save(os.path.join(root, "SegmentationClassAug", img_id + ".png"))
+    lines = {"train_aug": [f"/JPEGImages/{i}.jpg /SegmentationClassAug/{i}.png"
+                           for i, *_ in VOC[:3]],
+             "val": [i for i, *_ in VOC[1:]]}
+    for split in splits:
+        with open(os.path.join(root, "ImageSets", "SegmentationAug", split + ".txt"), "w") as f:
+            f.write("\n".join(lines[split]) + "\n")
+    return root
+
+
+@pytest.mark.parametrize("margin,splits", [(0, ("train_aug", "val")), (5, ("val",))])
+def test_preprocess_pascal_equals_the_jax_function(tmp_path, margin, splits):
+    """``.npy`` and ``all_images.json`` byte-equal, PNGs pixel-equal; a
+    missing split file is skipped, as the JAX function skips it."""
+    voc = write_voc(tmp_path / "voc", 11, splits)
+    jpre.preprocess_pascal(voc, str(tmp_path / "jax"), margin=margin)
+    tpre.preprocess_pascal(voc, str(tmp_path / "port"), margin=margin)
+    n = assert_same_tree(str(tmp_path / "port"), str(tmp_path / "jax"))
+    assert n == 1 + 3 * (3 * ("train_aug" in splits) + 3)
+    p_label = np.load(tmp_path / "port" / "annotations" / "val" / "2008_000123.npy")
+    assert p_label.ndim == 2 and p_label.max() == 255 and p_label.dtype == np.uint8
+    img = np.load(tmp_path / "port" / f"img_with_margin_{margin}" / "val" / "2007_000039.npy")
+    assert img.shape == (33 + 2 * margin, 26 + 2 * margin, 3)
+
+
+def test_preprocess_pascal_command_and_eval_datasets_equal_the_jax_ones(tmp_path):
+    """The slice: ``preprocess-pascal`` through both CLIs, then each
+    package's eval dataset on its prepared val split.  Raw uint8 and
+    normalized eval batches are bit-equal; with the experiment's own
+    513x513 eval resize (``pascal_kld_imnet``), the images within the
+    resize's stated 1e-6 (test_torch_data.py, PIL_ATOL) and the labels
+    bit-equal.  The model on those batches is held by
+    test_torch_evaluate.py."""
+    voc = write_voc(tmp_path / "voc", 12)
+    jax_cli.main(["preprocess-pascal", voc, str(tmp_path / "jax")])
+    assert cli.main(["preprocess-pascal", voc, str(tmp_path / "port"), "--device", "cpu"]) is None
+    assert_same_tree(str(tmp_path / "port"), str(tmp_path / "jax"))
+    jdata, tdata = jax_experiment("pascal_kld_imnet").data, get_experiment("pascal_kld_imnet").data
+    assert tdata.eval_resize == jdata.eval_resize == (513, 513)
+    # batch 2 without the resize (each frame's shape flushes a batch);
+    # batch 1, eval-valid's default, with it: both packages stack the
+    # labels, which keep each frame's shape
+    for resize, batch in ((None, 2), ((513, 513), 1)):
+        jds = JaxDataset(_replace(jdata, eval_resize=resize), "val",
+                         data_path=str(tmp_path / "jax"), is_eval=True)
+        tds = SegmentationDataset(_replace(tdata, eval_resize=resize), "val",
+                                  data_path=str(tmp_path / "port"), is_eval=True)
+        assert tds.img_ids == jds.img_ids and len(tds) == 3
+        for raw in ((False, True) if resize is None else (False,)):
+            got = list(tds.eval_batches(batch, with_counts=True, raw=raw))
+            want = list(jds.eval_batches(batch, with_counts=True, raw=raw))
+            assert len(got) == len(want) == 3
+            for (gi, gl, gn), (wi, wl, wn) in zip(got, want):
+                assert gn == wn and gi.dtype == wi.dtype and gi.shape == wi.shape
+                np.testing.assert_array_equal(gl, wl)
+                if resize is None:
+                    np.testing.assert_array_equal(gi, wi)
+                else:
+                    assert gi.shape[1:3] == resize
+                    np.testing.assert_allclose(gi, wi, rtol=0, atol=1e-6)
+
+
+def _replace(cfg, **kw):
+    import dataclasses
+
+    return dataclasses.replace(cfg, **kw)
+
+
 def test_preprocess_pascal_is_refused_naming_item_11(tmp_path):
-    with pytest.raises(SystemExit) as e:
-        cli.main(["preprocess-pascal", str(tmp_path / "voc"), str(tmp_path / "out"),
-                  "--device", "cpu"])
-    assert "not ported yet" in str(e.value) and "Queue 1 item 11" in str(e.value)
-    assert not (tmp_path / "out").exists()
+    """The command reads PASCAL's JPEGs; one of a variant the port does
+    not decode (CMYK) stops it with the file's name and item 11."""
+    voc = write_voc(tmp_path / "voc", 13, cmyk=True)
+    with pytest.raises(ValueError) as e:
+        cli.main(["preprocess-pascal", voc, str(tmp_path / "out"), "--device", "cpu"])
+    assert "2007_000039.jpg" in str(e.value) and "Queue 1 item 11" in str(e.value)
+    assert not (tmp_path / "out" / "all_images.json").exists()
