@@ -30,7 +30,10 @@ from, and gives the same ones bit for bit:
 ``PIL.Image.open`` does (a PNG named ``.jpg`` reads as a PNG), and
 ``.npy`` by its suffix.  ``write_png`` writes 8-bit grey or RGB with
 filter 0 and zlib level 6: PIL's encoder picks other filters, so the
-bytes differ from PIL's and the pixels do not.  Any other file type
+bytes differ from PIL's and the pixels do not.  ``write_jpeg`` writes
+PIL's default JPEG byte for byte (``native.encode_jpeg``), and
+``image_comment`` reads the comment that PIL keeps in ``im.info`` and
+writes back into a JPEG (``data/img_aug.py``).  Any other file type
 listed (BMP, WebP) raises ``ValueError``, naming the conversion to
 ``.npy`` and ROADMAP.md Queue 1 item 11.  This module imports no torch.
 """
@@ -181,6 +184,108 @@ def write_png(path: str, pixels: np.ndarray) -> None:
                 + _png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color, 0, 0, 0))
                 + _png_chunk(b"IDAT", zlib.compress(raw, 6))
                 + _png_chunk(b"IEND", b""))
+
+
+def write_jpeg(path: str, rgb: np.ndarray, comment: Optional[bytes] = None) -> None:
+    """Write (H, W, 3) uint8 pixels as ``Image.fromarray(rgb).save(path)``
+    does for a .jpg, with ``comment`` in a COM marker if it is not empty."""
+    data = native.encode_jpeg(rgb, comment)
+    with open(path, "wb") as f:
+        f.write(data)
+
+
+# JPEG markers without a length (PIL's JpegImagePlugin.MARKER entries
+# without a handler): JPG, RSTn, SOI, EOI, JPGn
+_JPEG_BARE = {0xC8, *range(0xD0, 0xDA), *range(0xF0, 0xFE)}
+
+
+def _jpeg_comment(data: bytes) -> Optional[bytes]:
+    """The last COM marker's bytes before the first scan, walking the
+    markers as ``JpegImageFile._open`` does (fill bytes and junk
+    between segments skipped)."""
+    pos, comment = 2, None
+    while pos + 1 < len(data):
+        if data[pos] != 0xFF:
+            pos += 1
+            continue
+        m = data[pos + 1]
+        if m == 0xFF or m == 0x00:
+            pos += 1
+            continue
+        if m == 0xDA:
+            break
+        if m in _JPEG_BARE:
+            pos += 2
+            continue
+        (length,) = struct.unpack(">H", data[pos + 2:pos + 4])
+        if m == 0xFE:
+            comment = data[pos + 4:pos + 2 + length]
+        pos += 2 + length
+    return comment
+
+
+def _png_comment(data: bytes) -> Optional[bytes]:
+    """The text of the last tEXt, zTXt or iTXt chunk whose key is
+    exactly ``comment``, as PIL decodes it into ``im.info`` (latin-1 for
+    tEXt and zTXt, UTF-8 for iTXt), encoded as PIL's JPEG encoder takes
+    a str: in UTF-8."""
+    pos, comment = 8, None
+    while pos + 8 <= len(data):
+        (length,) = struct.unpack(">I", data[pos:pos + 4])
+        kind, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + length]
+        pos += 12 + length
+        if kind == b"IEND":
+            break
+        if kind not in (b"tEXt", b"zTXt", b"iTXt"):
+            continue
+        key, _, value = body.partition(b"\0")
+        if kind == b"zTXt" and value[:1] not in (b"", b"\0"):   # PIL refuses the file
+            raise ValueError(f"unknown compression method {value[0]} in a zTXt chunk")
+        if key != b"comment":
+            continue
+        if kind == b"tEXt":
+            comment = value.decode("latin-1").encode()
+        elif kind == b"zTXt":
+            try:
+                text = zlib.decompress(value[1:])
+            except zlib.error:
+                text = b""
+            comment = text.decode("latin-1").encode()
+        else:
+            if len(value) < 2:
+                continue
+            flag, method, rest = value[0], value[1], value[2:]
+            parts = rest.split(b"\0", 2)
+            if len(parts) < 3:
+                continue
+            text = parts[2]
+            if flag:
+                if method:
+                    continue
+                try:
+                    text = zlib.decompress(text)
+                except zlib.error:
+                    continue
+            try:
+                parts[0].decode("utf-8"), parts[1].decode("utf-8")
+                comment = text.decode("utf-8").encode()
+            except UnicodeError:
+                continue
+    return comment
+
+
+def image_comment(path: str) -> Optional[bytes]:
+    """The comment PIL's ``Image.open(path)`` keeps in ``info["comment"]``,
+    as the bytes its JPEG encoder then writes into a COM marker: a
+    JPEG's last COM marker, or a PNG's text chunk keyed ``comment``.
+    None where there is none."""
+    with open(path, "rb") as fh:
+        data = fh.read()
+    if data.startswith(_JPEG_SIGNATURE):
+        return _jpeg_comment(data)
+    if data.startswith(_PNG_SIGNATURE):
+        return _png_comment(data)
+    return None
 
 
 def _resize_axis_u8(x: np.ndarray, out_size: int, axis: int) -> np.ndarray:

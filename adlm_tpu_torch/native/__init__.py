@@ -3,11 +3,13 @@
 
 ``augment.cc`` is the port's own copy of the JAX package's source;
 ``jpeg.cc`` is the port's JPEG decoder, bit-equal to PIL's pixels
-(``decode_jpeg``).  Both are built with ``g++`` at first use into one
-library in ``adlm_tpu_torch/_build/``, under a name that carries a hash
-of both sources and the flags, as ``ops/_build.py`` does for the CUDA
-kernels: an edit to either source rebuilds, unchanged ones load the
-earlier build.  It runs on the host CPU, so building it needs no card.
+(``decode_jpeg``); ``img_aug.cc`` holds PIL's bilinear affine warp
+(``affine_bilinear_u8``) and a JPEG encoder byte-equal to PIL's default
+``save`` (``encode_jpeg``).  All three are built with ``g++`` at first
+use into one library in ``adlm_tpu_torch/_build/``, under a name that
+carries a hash of the sources and the flags, as ``ops/_build.py`` does
+for the CUDA kernels: an edit to any source rebuilds, unchanged ones
+load the earlier build.  It runs on the host CPU, so building it needs no card.
 A failed build raises: there is no PIL or pure-Python path behind it.
 
 ``augment_sample_plain`` is a numpy version of the fused chain, and
@@ -30,20 +32,25 @@ import numpy as np
 _DIR = os.path.dirname(os.path.abspath(__file__))
 SOURCE = os.path.join(_DIR, "augment.cc")
 JPEG_SOURCE = os.path.join(_DIR, "jpeg.cc")
+IMG_AUG_SOURCE = os.path.join(_DIR, "img_aug.cc")
 BUILD_DIR = os.path.join(os.path.dirname(_DIR), "_build")
 # portable -O3 (no -march=native: a build copied to another host must
 # not fault on a missing instruction); no FMA contraction, so that every
-# multiply and add rounds as augment_sample_plain's numpy does
+# multiply and add rounds as augment_sample_plain's numpy and PIL's warp do
 CXX_FLAGS = ["-O3", "-shared", "-fPIC", "-ffp-contract=off"]
 
 _lib: Optional[ctypes.CDLL] = None
 _lock = threading.Lock()
 
 
+def _sources() -> Tuple[str, ...]:
+    return SOURCE, JPEG_SOURCE, IMG_AUG_SOURCE
+
+
 def library_path() -> str:
     """Where the build of the current sources and flags lives."""
     h = hashlib.sha1(" ".join(CXX_FLAGS).encode())
-    for path in (SOURCE, JPEG_SOURCE):
+    for path in _sources():
         with open(path, "rb") as f:
             h.update(f.read())
     return os.path.join(BUILD_DIR, f"libadlm_data-{h.hexdigest()[:12]}.so")
@@ -59,14 +66,14 @@ def build() -> str:
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{target}.{os.getpid()}.{threading.get_ident()}.tmp"
     try:
-        out = subprocess.run(["g++", *CXX_FLAGS, "-o", tmp, SOURCE, JPEG_SOURCE],
+        out = subprocess.run(["g++", *CXX_FLAGS, "-o", tmp, *_sources()],
                              capture_output=True, text=True)
     except FileNotFoundError as e:
-        raise RuntimeError("g++ not found: the host data library is built "
-                           "from adlm_tpu_torch/native/augment.cc and jpeg.cc") from e
+        raise RuntimeError("g++ not found: the host data library is built from "
+                           "adlm_tpu_torch/native/augment.cc, jpeg.cc and img_aug.cc") from e
     if out.returncode != 0:
-        raise RuntimeError(f"g++ failed for native/augment.cc and jpeg.cc (exit "
-                           f"{out.returncode}):\n{out.stderr}")
+        raise RuntimeError(f"g++ failed for native/augment.cc, jpeg.cc and img_aug.cc "
+                           f"(exit {out.returncode}):\n{out.stderr}")
     os.replace(tmp, target)
     return target
 
@@ -100,10 +107,14 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.jpeg_header.argtypes = [u8p, ctypes.c_size_t, i32p, ctypes.c_char_p, i]
     lib.jpeg_decode.argtypes = [u8p, ctypes.c_size_t, u8p, i, i, i, ctypes.c_char_p, i]
     lib.jpeg_header.restype = lib.jpeg_decode.restype = ctypes.c_int
+    lib.affine_bilinear_u8.argtypes = [
+        u8p, i, i, np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS"), u8p]
+    lib.jpeg_encode.argtypes = [u8p, i, i, u8p, i, u8p, ctypes.c_size_t]
+    lib.jpeg_encode.restype = ctypes.c_size_t
     for fn in (lib.resize_bilinear_u8, lib.resize_nearest_i32,
                lib.augment_sample, lib.augment_sample_fused,
                lib.remap_bilinear_f32, lib.remap_nearest_f32,
-               lib.gaussian_blur_f32):
+               lib.gaussian_blur_f32, lib.affine_bilinear_u8):
         fn.restype = None
 
 
@@ -356,6 +367,59 @@ def decode_jpeg(data: bytes, name: str) -> np.ndarray:
         raise ValueError(f"{name}: JPEG with {msg}, which the port does not read "
                          "(ROADMAP.md Queue 1 item 11); convert it to an (H, W, 3) uint8 .npy")
     raise ValueError(f"{name}: corrupt or truncated JPEG: {msg}")
+
+
+def _rgb_u8(img: np.ndarray, what: str) -> np.ndarray:
+    if not (isinstance(img, np.ndarray) and img.dtype == np.uint8 and img.ndim == 3
+            and img.shape[2] == 3 and img.shape[0] >= 1 and img.shape[1] >= 1):
+        desc = (f"{img.dtype} array of shape {img.shape}" if isinstance(img, np.ndarray)
+                else type(img).__name__)
+        raise ValueError(f"{what} takes an (H, W, 3) uint8 array with H, W >= 1, got {desc}")
+    return np.ascontiguousarray(img)
+
+
+def affine_bilinear_u8(img: np.ndarray, coeffs) -> np.ndarray:
+    """PIL's ``Image.transform(size, Image.AFFINE, coeffs, Image.BILINEAR)``
+    of an (H, W, 3) uint8 image, bit for bit: ``coeffs`` (a, b, c, d, e, f)
+    map the output pixel centre (x, y) to the source point (a·x + b·y + c,
+    d·x + e·y + f); points outside the image give 0 (``img_aug.cc``)."""
+    lib = _load()
+    img = _rgb_u8(img, "affine_bilinear_u8")
+    a = np.asarray(coeffs, np.float64)
+    if a.shape != (6,):
+        raise ValueError(f"an affine transform has 6 coefficients, got {a.shape}")
+    out = np.empty_like(img)
+    lib.affine_bilinear_u8(img, img.shape[0], img.shape[1], a, out)
+    return out
+
+
+JPEG_MAX_DIMENSION = 65500    # libjpeg's limit, which PIL's save hits first
+_COM_MAX = 65533              # a marker segment's payload
+
+
+def encode_jpeg(rgb: np.ndarray, comment: Optional[bytes] = None) -> bytes:
+    """The bytes of PIL's ``Image.fromarray(rgb).save(f, "JPEG")``
+    (baseline, quality 75, 4:2:0, the standard Huffman tables, JFIF 1.01)
+    with ``comment`` in a COM marker if it is not empty, as PIL writes
+    ``im.info["comment"]`` (``img_aug.cc``).  Raises ``ValueError`` for
+    anything but an (H, W, 3) uint8 array with 1 <= H, W <= 65500, or a
+    comment longer than a marker holds."""
+    lib = _load()
+    rgb = _rgb_u8(rgb, "encode_jpeg")
+    h, w = rgb.shape[:2]
+    if max(h, w) > JPEG_MAX_DIMENSION:
+        raise ValueError(f"encode_jpeg: {h}x{w} exceeds JPEG's {JPEG_MAX_DIMENSION} pixels a side")
+    com = np.frombuffer(bytes(comment or b""), np.uint8)
+    if com.size > _COM_MAX:
+        raise ValueError(f"encode_jpeg: a comment of {com.size} bytes exceeds {_COM_MAX}")
+    # a block codes in at most 1,700 bits, doubled by 0xFF stuffing
+    mcus = -(-h // 16) * -(-w // 16)
+    cap = mcus * 6 * 2 * 213 + com.size + 1024
+    out = np.empty(cap, np.uint8)
+    n = lib.jpeg_encode(rgb, h, w, com, com.size, out, cap)
+    if n == 0:
+        raise RuntimeError(f"jpeg_encode: {h}x{w} overran its {cap}-byte buffer")
+    return out[:n].tobytes()
 
 
 def _reflect101(coords: np.ndarray, n: int) -> np.ndarray:

@@ -247,6 +247,16 @@ non-zero and prints no result:
    whose batches at 224x224 equal its ``.npy`` twin's bit for bit, and a
    warm epoch of ``cls-train`` on it at phase 12's preset (P = 2000,
    K = 200), with its head launches (the general path).
+19. the classifier's offline augmentation: (a) ``data/img_aug.py``'s
+   ``augment_directory`` (the host library's PIL warp and JPEG encoder)
+   on the tree of ``tests/fixtures/torch_img_aug``'s manifest (the four
+   PASCAL-sized frames, small variants, a JPEG with a COM marker and a
+   palette PNG with a comment), every output's name, size and SHA-256
+   equal to the manifest of the JAX function's files (PIL's bytes,
+   written where PIL runs), with the host ms per PASCAL-sized output
+   split into warp and encode; (b) a warm epoch of ``cls-train`` on the
+   augmented folder at phase 12's preset (P = 2000, K = 200), with its
+   head launches (the general path).
 
 Precision: f32 runs with TF32 off for convolutions and matmuls (the
 entry points' ``ieee_f32`` scope; the comparisons here run in the same
@@ -7303,6 +7313,126 @@ def check_jpeg(report, card: str) -> None:
     log(f"  phase 18 {time.perf_counter() - t_phase:.1f} s  [{card}]")
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the classifier's offline augmentation (data/img_aug.py) on the
+# card's host, byte for byte against the committed manifest of the JAX
+# function's files, then cls-train on the augmented folder
+# ---------------------------------------------------------------------------
+
+IMG_AUG_FIXTURES = ("tests", "fixtures", "torch_img_aug")
+IMG_AUG_REPEATS = 5     # warps and encodes of each PASCAL-sized output; the median is kept
+
+
+def img_aug_bytes_check(root: str, where: str) -> str:
+    """(a) The manifest's tree of fixtures through ``augment_directory``
+    at its seed and copies: the count, every file name, size and SHA-256
+    equal to the manifest (PIL's bytes); then the warp and the encoder
+    timed apart on the PASCAL-sized sources.  Returns the augmented
+    folder."""
+    import importlib.util
+    import os
+    import random
+    import statistics
+
+    from adlm_tpu_torch import native
+    from adlm_tpu_torch.data import img_aug
+    from adlm_tpu_torch.data.image_folder import image_comment, load_rgb
+
+    fixtures = os.path.join(os.path.dirname(os.path.abspath(__file__)), *IMG_AUG_FIXTURES)
+    spec = importlib.util.spec_from_file_location(
+        "img_aug_fixtures", os.path.join(fixtures, "make_fixtures.py"))
+    mf = importlib.util.module_from_spec(spec)     # build_tree, outputs: no PIL
+    spec.loader.exec_module(mf)
+    with open(os.path.join(fixtures, "manifest.json")) as f:
+        manifest = json.load(f)
+    src, dst = os.path.join(root, "src"), os.path.join(root, "aug")
+    mf.build_tree(manifest["tree"], src)
+    t0 = time.perf_counter()
+    native._load()     # built by phase 9 in a whole run; timed apart from the work
+    load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    n = img_aug.augment_directory(src, dst, copies_per_op=manifest["copies_per_op"],
+                                  seed=manifest["seed"])
+    secs = time.perf_counter() - t0
+    got, want = mf.outputs(dst), manifest["outputs"]
+    differ = sorted(k for k in set(got) | set(want) if got.get(k) != want.get(k))
+    if n != len(want) or differ:
+        raise AssertionError(f"augment_directory wrote {n} files, the manifest {len(want)}; "
+                             f"names or bytes differ: {differ[:8]}")
+    warp_ms, enc_ms, sizes = [], [], []
+    rng = random.Random(SEED)
+    for rel in manifest["tree"]["class_000"]:
+        path = os.path.join(src, "class_000", os.path.basename(rel))
+        img, comment = load_rgb(path), image_comment(path)
+        for op in ("rotate", "shear", "skew"):
+            tw, te = [], []
+            for _ in range(IMG_AUG_REPEATS):
+                t0 = time.perf_counter()
+                out = img_aug._affine(img, op, rng)
+                t1 = time.perf_counter()
+                data = native.encode_jpeg(out, comment)
+                te.append(time.perf_counter() - t1)
+                tw.append(t1 - t0)
+            warp_ms.append(statistics.median(tw) * 1e3)
+            enc_ms.append(statistics.median(te) * 1e3)
+            sizes.append(len(data))
+    w, e = statistics.median(warp_ms), statistics.median(enc_ms)
+    log(f"  augment_directory: {n} files ({len(manifest['tree'])} classes, "
+        f"{sum(map(len, manifest['tree'].values()))} sources, {manifest['copies_per_op']} "
+        f"copies per operation, seed {manifest['seed']}) in {secs:.3f} s (the host library "
+        f"built or loaded before in {load_s:.3f} s), every name, size and SHA-256 equal to the "
+        "manifest of PIL's files")
+    log(f"  ms per PASCAL-sized output (median over {len(warp_ms)} source x operation cells, "
+        f"each the median of {IMG_AUG_REPEATS}): warp {w:.3f} + encode {e:.3f} = {w + e:.3f} "
+        f"(warp cells {min(warp_ms):.3f}..{max(warp_ms):.3f}, encode cells "
+        f"{min(enc_ms):.3f}..{max(enc_ms):.3f}; {statistics.mean(sizes) / 1e3:.1f} KB a file)  "
+        f"[host: {host_cpu()}; {where}]")
+    return dst
+
+
+def check_img_aug(report, card: str) -> None:
+    """Phase 19: (a) ``augment_directory`` on the manifest's tree, byte for
+    byte; (b) one warm epoch of ``cls-train`` on the augmented folder at
+    phase 12's preset (P = 2000: the head's general path), its head
+    launches counted."""
+    import csv
+    import os
+    import shutil
+    import tempfile
+
+    from adlm_tpu_torch.ops import _build
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="adlm_img_aug_")
+    saved_env = os.environ.get("RESULTS_DIR")
+    try:
+        aug = img_aug_bytes_check(root, card)
+        log(f"  (a) {time.perf_counter() - t_phase:.1f} s")
+        t0 = time.perf_counter()
+        results = os.path.join(root, "cls_runs")
+        os.environ["RESULTS_DIR"] = results
+        cls_command(["cls-train", "aug", *JPEG_CLS_ARGS, "--train-dir", aug,
+                     "--test-dir", aug])
+        launches = dict(_build.LAUNCHES)
+        with open(os.path.join(results, "aug", "logs", "classification_metrics.csv")) as f:
+            rows = list(csv.DictReader(f))
+        log("  cls-train on the augmented folder: rows " + ", ".join(
+            f"{r['phase']} accuracy {float(r['accuracy']):.4f}" for r in rows)
+            + f"; launches {launches}")
+        if [r["phase"] for r in rows] != ["warm"] or launches["prototype_head"] < 2:
+            raise AssertionError(f"cls-train on the augmented folder: rows {rows}, "
+                                 f"launches {launches}")
+        report["prototype_head"]["launches"] += launches["prototype_head"]
+        log(f"  (b) {time.perf_counter() - t0:.1f} s")
+    finally:
+        if saved_env is None:
+            os.environ.pop("RESULTS_DIR", None)
+        else:
+            os.environ["RESULTS_DIR"] = saved_env
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"  phase 19 {time.perf_counter() - t_phase:.1f} s  [{card}]")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -7436,6 +7566,11 @@ def main() -> int:
             "--stats --stats-upsampled of pascal_kld_imnet on it, kernels and plain versions; a "
             "JPEG class folder against its .npy twin, and cls-train on it")
         check_jpeg(report, card)
+
+        log("[19] the classifier's offline augmentation: augment_directory (the host "
+            "library's PIL warp and JPEG encoder) on the fixtures' tree against the manifest "
+            "of PIL's bytes; cls-train on the augmented folder")
+        check_img_aug(report, card)
     except Exception:  # report any failure and exit non-zero
         traceback.print_exc()
         log(f"FAILED after {time.perf_counter() - t_start:.1f} s")

@@ -198,14 +198,18 @@ def test_augment_refuses_what_the_c_code_would_overrun(fn):
 
 
 def test_host_library_build_raises_without_fallback(tmp_path, monkeypatch):
-    bad = tmp_path / "augment.cc"
+    """A source that does not compile fails the build, whichever of the
+    three it is, and leaves no library behind."""
+    bad = tmp_path / "bad.cc"
     bad.write_text("this is not C++\n")
-    monkeypatch.setattr(native, "SOURCE", str(bad))
     monkeypatch.setattr(native, "BUILD_DIR", str(tmp_path / "_build"))
-    with pytest.raises(RuntimeError, match="g\\+\\+ failed"):
-        native.build()
-    assert native.library_path().startswith(str(tmp_path / "_build"))
-    assert not os.path.exists(native.library_path())
+    for name in ("SOURCE", "JPEG_SOURCE", "IMG_AUG_SOURCE"):
+        with monkeypatch.context() as m:
+            m.setattr(native, name, str(bad))
+            with pytest.raises(RuntimeError, match="g\\+\\+ failed"):
+                native.build()
+            assert native.library_path().startswith(str(tmp_path / "_build"))
+            assert not os.path.exists(native.library_path())
 
 
 # -- numpy copies of PIL's resampling ----------------------------------------

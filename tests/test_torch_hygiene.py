@@ -75,7 +75,8 @@ def test_port_imports_nothing_of_jax():
               "models.backbones", "data.image_folder", "train.classification",
               "train.classification_pipeline", "utils.receptive_field",
               "interpret.windowed", "deploy", "deploy.export", "deploy.server",
-              "deploy.precompile", "core.mesh", "parallel", "parallel.sharding"):
+              "deploy.precompile", "core.mesh", "parallel", "parallel.sharding",
+              "data.img_aug"):
         assert f"adlm_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
@@ -96,7 +97,7 @@ def test_data_modules_import_no_torch():
         "import adlm_tpu_torch.data.constants, adlm_tpu_torch.native\n"
         "import adlm_tpu_torch.data.warps, adlm_tpu_torch.data.unoise_data\n"
         "import adlm_tpu_torch.data.nifti, adlm_tpu_torch.data.preprocess\n"
-        "import adlm_tpu_torch.data.image_folder\n"
+        "import adlm_tpu_torch.data.image_folder, adlm_tpu_torch.data.img_aug\n"
         "print(repr(sorted(m for m in sys.modules if m.split('.')[0] in "
         "('torch', 'jax', 'PIL'))))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,

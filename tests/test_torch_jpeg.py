@@ -298,9 +298,9 @@ def test_ctypes_signatures_match_jpeg_cc():
 
 
 def test_library_path_hashes_every_source(tmp_path, monkeypatch):
-    """An edit to either source names another build."""
+    """An edit to any of the three sources names another build."""
     before = native.library_path()
-    for name in ("SOURCE", "JPEG_SOURCE"):
+    for name in ("SOURCE", "JPEG_SOURCE", "IMG_AUG_SOURCE"):
         copy = tmp_path / f"{name}.cc"
         copy.write_bytes(open(getattr(native, name), "rb").read() + b"\n")
         monkeypatch.setattr(native, name, str(copy))
