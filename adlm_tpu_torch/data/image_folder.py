@@ -2,7 +2,7 @@
 ``adlm_tpu.data.image_folder``; reference main.py:50-105: resize to
 ``img_size``, /255, normalize), and the port's image codecs.  Layout::
 
-    root/<class_name>/*.jpg|*.jpeg|*.png|*.npy
+    root/<class_name>/*.jpg|*.jpeg|*.png|*.bmp|*.webp|*.npy
 
 Classes are the sorted subdirectory names (torchvision's convention).
 
@@ -16,26 +16,35 @@ from, and gives the same ones bit for bit:
   or RGB where libjpeg-turbo takes it so), 4:4:4, 4:2:2 and 4:2:0,
   restart markers; arithmetic coding, lossless, 12-bit, CMYK/YCCK and
   other sampling factors raise, naming ROADMAP.md Queue 1 item 11;
-* PNG files (``read_png``: 8-bit grey, grey + alpha, RGB, RGBA or
-  palette, and 16-bit grey; not interlaced; any of the five scanline
-  filters) are inflated with ``zlib`` and unfiltered with numpy;
+* PNG files (``read_png``: every bit depth and colour type PNG allows,
+  plain or Adam7-interlaced, any of the five scanline filters) are
+  inflated with ``zlib``, unfiltered with numpy and given PIL's mode:
+  1-bit grey as bool, 2- and 4-bit grey scaled to 0..255, 16-bit grey
+  as uint16, the high byte of other 16-bit samples, 16-bit grey + alpha
+  as RGBA;
+* BMP files (``read_bmp``: the header sizes, depths, bitfields layouts,
+  RLE8 and RLE4 that PIL's ``BmpImagePlugin`` reads, either row order)
+  are unpacked with numpy as PIL unpacks them, save five kinds of file
+  that PIL misreads, which the port reads by the format
+  (``read_bmp``, ``_bmp_rle``);
 * ``to_rgb`` is PIL's ``convert("RGB")`` of each of those: grey is
-  replicated, alpha dropped, 16-bit grey clipped to 255 and palette
-  indices looked up in the PLTE table (black past its end);
+  replicated, alpha dropped, bool made 0 or 255, 16-bit grey clipped to
+  255 and palette indices looked up in the table (black past its end);
 * the resize is PIL's 8-bit ``Image.BILINEAR`` (``resize_bilinear_u8``):
   the horizontal pass, then the vertical pass on its rounded uint8
   result, each in PIL's 22-bit fixed point.
 
 ``load_rgb`` picks the decoder from a file's leading bytes, as
-``PIL.Image.open`` does (a PNG named ``.jpg`` reads as a PNG), and
-``.npy`` by its suffix.  ``write_png`` writes 8-bit grey or RGB with
-filter 0 and zlib level 6: PIL's encoder picks other filters, so the
-bytes differ from PIL's and the pixels do not.  ``write_jpeg`` writes
-PIL's default JPEG byte for byte (``native.encode_jpeg``), and
+``PIL.Image.open`` does (a PNG or BMP named ``.jpg`` reads as what it
+is), and ``.npy`` by its suffix.  ``write_png`` writes 8-bit grey or RGB
+with filter 0 and zlib level 6: PIL's encoder picks other filters, so
+the bytes differ from PIL's and the pixels do not.  ``write_jpeg``
+writes PIL's default JPEG byte for byte (``native.encode_jpeg``), and
 ``image_comment`` reads the comment that PIL keeps in ``im.info`` and
-writes back into a JPEG (``data/img_aug.py``).  Any other file type
-listed (BMP, WebP) raises ``ValueError``, naming the conversion to
-``.npy`` and ROADMAP.md Queue 1 item 11.  This module imports no torch.
+writes back into a JPEG (``data/img_aug.py``).  A WebP file, and any
+other type, raises ``ValueError``, naming the conversion to ``.npy``
+and ROADMAP.md Queue 1 item 11; a PNG or BMP that PIL refuses raises
+``ValueError`` naming the file.  This module imports no torch.
 """
 
 from __future__ import annotations
@@ -56,8 +65,13 @@ IMAGENET_STD = (0.229, 0.224, 0.225)
 _EXTS = (".jpg", ".jpeg", ".png", ".bmp", ".webp", ".npy")
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _JPEG_SIGNATURE = b"\xff\xd8\xff"          # PIL's JpegImagePlugin._accept
+_BMP_SIGNATURE = b"BM"                     # PIL's BmpImagePlugin._accept
 _PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}  # colour type → samples per pixel
 _PNG_TYPES = {0: "grey", 2: "RGB", 3: "palette", 4: "grey + alpha", 6: "RGBA"}
+_PNG_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}
+# Adam7: (first row, first column, row step, column step) of each pass
+_ADAM7 = ((0, 0, 8, 8), (0, 4, 8, 8), (4, 0, 8, 4), (0, 2, 4, 4), (2, 0, 4, 2),
+          (0, 1, 2, 2), (1, 0, 2, 1))
 _PRECISION_BITS = 32 - 8 - 2               # PIL's Resample.c
 
 
@@ -82,12 +96,49 @@ def _unfilter_wavefront(filt: np.ndarray, ftype: np.ndarray) -> np.ndarray:
     return out[1:, 1:].astype(np.uint8)
 
 
+def _unpack_bits(rows: np.ndarray, width: int, depth: int) -> np.ndarray:
+    """(h, width) samples of ``depth`` < 8 bits packed most significant
+    bits first in the (h, bytes) ``rows``; each row's padding bits
+    dropped."""
+    shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)
+    vals = (rows[:, :, None] >> shifts) & ((1 << depth) - 1)
+    return vals.reshape(rows.shape[0], -1)[:, :width]
+
+
+def _png_pass(raw: np.ndarray, h: int, w: int, depth: int, channels: int,
+              path: str) -> np.ndarray:
+    """(h, w, channels) samples, uint8 (uint16 at 16 bits), of one
+    image or Adam7 pass: ``raw`` holds its h scanlines, each its filter
+    type and then its bytes.  The filters work on bytes, their stride
+    one pixel's bytes (one byte below 8 bits)."""
+    stride = max(1, channels * depth // 8)
+    row_bytes = -(-w * channels * depth // 8)
+    raw = raw.reshape(h, row_bytes + 1)
+    ftype, filt = raw[:, 0], raw[:, 1:].reshape(h, row_bytes // stride, stride)
+    if ftype.max() > 4:
+        raise ValueError(f"{path}: unknown scanline filter {int(ftype.max())}")
+    rows = (_unfilter_wavefront(filt, ftype) if ftype.any() else filt).reshape(h, row_bytes)
+    if depth < 8:
+        return _unpack_bits(rows, w, depth)[:, :, None]
+    if depth == 16:                    # big-endian samples
+        rows = (rows[:, 0::2].astype(np.uint16) << 8) | rows[:, 1::2]
+    return rows.reshape(h, w, channels)
+
+
 def read_png(path: str, palette: bool = False):
-    """(H, W, channels) pixels of a non-interlaced PNG: uint8 for 8-bit
-    grey, grey + alpha, RGB, RGBA and palette (the indices, as
-    ``np.asarray(Image.open(path))``), uint16 for 16-bit grey.  With
-    ``palette=True``, ``(pixels, table)``: the PLTE entries as (n, 3)
-    uint8 for a palette image, else None."""
+    """(H, W, channels) pixels of a PNG file of any bit depth and colour
+    type, interlaced (Adam7) or not: ``np.asarray(Image.open(path))``
+    with a channel axis.  That is bool for 1-bit grey (PIL's mode
+    ``"1"``); uint8 samples scaled to 0..255 for 2- and 4-bit grey
+    (``"L"``), uint16 for 16-bit grey (``"I;16"``); the indices of a
+    palette image (``"P"``); uint8 for 8-bit grey + alpha, RGB and RGBA,
+    and the high byte of each 16-bit sample, 16-bit grey + alpha being
+    widened to RGBA (grey replicated) as PIL opens it.  A ``tRNS`` chunk
+    is ignored, as ``np.asarray`` ignores it.  With ``palette=True``,
+    ``(pixels, table)``: the PLTE entries as (n, 3) uint8 for a palette
+    image, else None.  A file that PIL refuses (a bit depth its colour
+    type forbids, a filter method other than 0) raises ``ValueError``
+    naming it."""
     with open(path, "rb") as fh:
         data = fh.read()
     if data[:8] != _PNG_SIGNATURE:
@@ -112,30 +163,211 @@ def read_png(path: str, palette: bool = False):
         pos += 12 + length
     if header is None:
         raise ValueError(f"{path}: no IHDR chunk")
-    w, h, depth, color, _, _, interlace = header
-    if not (depth == 8 and color in _PNG_CHANNELS or depth == 16 and color == 0) or interlace:
-        kind = _PNG_TYPES.get(color, "unknown")
-        raise ValueError(
-            f"{path}: PNG with bit depth {depth}, colour type {color} ({kind}), interlace "
-            f"{interlace}; the port reads 8-bit grey, grey+alpha, RGB, RGBA and palette "
-            "and 16-bit grey without interlace (other PNG types: ROADMAP.md Queue 1 item "
-            "11): convert the image to an (H, W, 3) uint8 .npy")
+    w, h, depth, color, _, filter_method, interlace = header
+    if depth not in _PNG_DEPTHS.get(color, ()):
+        raise ValueError(f"{path}: PNG with bit depth {depth} and colour type {color} "
+                         f"({_PNG_TYPES.get(color, 'unknown')}), a combination PNG forbids")
+    if filter_method:
+        raise ValueError(f"{path}: unknown PNG filter method {filter_method}")
     if color == 3 and table is None:
         raise ValueError(f"{path}: palette PNG without a PLTE chunk")
     channels = _PNG_CHANNELS[color]
-    bpp = channels * depth // 8        # bytes per pixel, the filters' stride
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    if raw.size != h * (w * bpp + 1):
-        raise ValueError(f"{path}: {raw.size} bytes of image data, expected "
-                         f"{h * (w * bpp + 1)}")
-    raw = raw.reshape(h, w * bpp + 1)
-    ftype, filt = raw[:, 0], raw[:, 1:].reshape(h, w, bpp)
-    if ftype.max() > 4:
-        raise ValueError(f"{path}: unknown scanline filter {int(ftype.max())}")
-    px = _unfilter_wavefront(filt, ftype) if ftype.any() else filt.copy()
-    if depth == 16:                    # big-endian samples
-        px = (px[:, :, 0::2].astype(np.uint16) << 8) | px[:, :, 1::2]
+    px = np.zeros((h, w, channels), np.uint16 if depth == 16 else np.uint8)
+    used = 0
+    for r0, c0, dr, dc in (_ADAM7 if interlace else ((0, 0, 1, 1),)):
+        ph, pw = max(0, -(-(h - r0) // dr)), max(0, -(-(w - c0) // dc))
+        if not ph or not pw:           # an empty pass has no scanlines
+            continue
+        n = ph * (-(-pw * channels * depth // 8) + 1)
+        if used + n <= raw.size:
+            px[r0::dr, c0::dc] = _png_pass(raw[used:used + n], ph, pw, depth, channels, path)
+        used += n
+    if raw.size != used:
+        raise ValueError(f"{path}: {raw.size} bytes of image data, expected {used}")
+    if color == 0 and depth < 8:       # PIL's modes "1" and "L" (L;2, L;4 scaled)
+        px = px.astype(bool) if depth == 1 else px * np.uint8(255 // ((1 << depth) - 1))
+    elif depth == 16 and color:        # RGB;16B, RGBA;16B, LA;16B → RGBA
+        px = (px >> 8).astype(np.uint8)
+        if color == 4:
+            px = px[:, :, [0, 0, 0, 1]]
     return (px, table if color == 3 else None) if palette else px
+
+
+def _bmp_rle(data: bytes, pos: int, w: int, h: int, rle4: bool, path: str) -> np.ndarray:
+    """(h, w) palette indices, the file's first row first, of an RLE8 or
+    RLE4 stream at ``pos``.  As Pillow's ``BmpRleDecoder``, the indices
+    run on through the rows: an encoded run is cut at the row's end, end
+    of line fills the row with index 0 and a delta fills what it skips.
+    Unlike it, a delta's offsets are the two bytes after its escape, an
+    absolute run of n 4-bit pixels reads its ceil(n / 2) bytes, and an
+    end of bitmap before the last row fills the rest with index 0 (the
+    BMP format's meaning: Pillow reads four bytes for a delta, n // 2
+    for the run, and refuses the early end)."""
+    n, out, x = w * h, bytearray(), 0
+    ended = False
+    while len(out) < n and pos + 2 <= len(data):
+        count, byte = data[pos], data[pos + 1]
+        pos += 2
+        if count:                      # encoded run
+            count = min(count, max(0, w - x))
+            pair = bytes((byte >> 4, byte & 15)) if rle4 else bytes((byte, byte))
+            out += (pair * (count // 2 + 1))[:count]
+            x += count
+        elif byte == 0:                # end of line
+            out += bytes(-len(out) % w)
+            x = 0
+        elif byte == 1:                # end of bitmap
+            ended = True
+            break
+        elif byte == 2:                # delta: right, then rows on
+            if pos + 2 > len(data):
+                break
+            out += bytes(data[pos] + data[pos + 1] * w)
+            pos += 2
+            x = len(out) % w
+        else:                          # absolute run of `byte` pixels, 16-bit aligned
+            size = (byte + 1) // 2 if rle4 else byte
+            run = data[pos:pos + size]
+            if len(run) < size:
+                break
+            if rle4:
+                run = _unpack_bits(np.frombuffer(run, np.uint8)[None], byte, 4)[0].tobytes()
+            out += run
+            pos += size + size % 2
+            x += byte
+    if len(out) < n and not ended:
+        raise ValueError(f"{path}: the RLE stream ends after {len(out)} of {n} pixels")
+    out += bytes(max(0, n - len(out)))
+    return np.frombuffer(bytes(out[:n]), np.uint8).reshape(h, w)
+
+
+# BI_BITFIELDS masks that PIL reads (BmpImagePlugin's SUPPORTED): 16-bit
+# (red, green, blue) → PIL's raw mode; 32-bit (red, green, blue, alpha)
+# → the byte of each channel in a little-endian pixel (alpha present:
+# PIL's mode RGBA)
+_BMP_MASKS16 = {(0xF800, 0x7E0, 0x1F): "BGR;16", (0x7C00, 0x3E0, 0x1F): "BGR;15"}
+_BMP_MASKS32 = {(0xFF0000, 0xFF00, 0xFF, 0): (2, 1, 0),
+                (0xFF000000, 0xFF0000, 0xFF00, 0): (3, 2, 1),
+                (0xFF000000, 0xFF00, 0xFF, 0): (3, 1, 0),
+                (0xFF000000, 0xFF0000, 0xFF00, 0xFF): (3, 2, 1, 0),
+                (0xFF, 0xFF00, 0xFF0000, 0xFF000000): (0, 1, 2, 3),
+                (0xFF0000, 0xFF00, 0xFF, 0xFF000000): (2, 1, 0, 3),
+                (0xFF000000, 0xFF00, 0xFF, 0xFF0000): (3, 1, 0, 2),
+                (0, 0, 0, 0): (2, 1, 0, 3)}
+
+
+def _bgr16(v: np.ndarray, layout: str) -> np.ndarray:
+    """(h, w, 3) uint8 of 16-bit BMP pixels, PIL's ``BGR;15`` (5-5-5,
+    the top bit ignored) or ``BGR;16`` (5-6-5): each field v of n bits
+    scaled as v·255 // (2^n − 1)."""
+    if layout == "BGR;15":
+        fields = ((v >> 10) & 31, 31), ((v >> 5) & 31, 31), (v & 31, 31)
+    else:
+        fields = ((v >> 11) & 31, 31), ((v >> 5) & 63, 63), (v & 31, 31)
+    return np.stack([(f.astype(np.uint32) * 255 // m).astype(np.uint8) for f, m in fields], -1)
+
+
+def read_bmp(path: str, palette: bool = False):
+    """(H, W, channels) pixels of a BMP file, ``np.asarray(Image.open(path))``
+    with a channel axis, as Pillow's ``BmpImagePlugin`` reads it: the
+    header sizes 12 (3-byte palette entries), 40, 52, 56, 64, 108 and
+    124; 1-, 4- and 8-bit palettes (the indices, PIL's mode ``"P"``),
+    uncompressed or RLE8/RLE4 (see ``_bmp_rle``); 16-bit 5-5-5 and
+    24-bit, and 32-bit with its fourth byte ignored (uint8 RGB); the
+    ``BI_BITFIELDS`` masks PIL takes (``_BMP_MASKS16``, 24-bit BGR,
+    ``_BMP_MASKS32``: RGBA where they name an alpha); bottom-up rows, or
+    top-down for a negative height.
+
+    A palette whose entries are all grey (i, i, i) at index i gives the
+    indices as grey levels (uint8, PIL's mode ``"L"``), and a two-entry
+    black and white palette gives bool (``"1"``), as PIL reads them.
+    Unlike PIL, a 4-bit file of a grey palette and a 4-bit, 8-bit or
+    RLE-coded file of a two-entry one are unpacked by their bit depth:
+    PIL reads their bytes as 8-bit grey levels or as bits, or refuses
+    them under RLE.
+
+    With ``palette=True``, ``(pixels, table)``: the (n, 3) uint8 RGB
+    entries of a ``"P"`` image, else None.  What PIL refuses (another
+    header size, bit depth, compression or bitfields layout; a palette
+    of more than 65,536 entries) and a truncated file raise
+    ``ValueError`` naming the file."""
+    with open(path, "rb") as fh:
+        data = fh.read()
+    if data[:2] != _BMP_SIGNATURE or len(data) < 18:
+        raise ValueError(f"{path}: not a BMP file")
+    offset, size = struct.unpack_from("<II", data, 10)
+    info = data[18:14 + size]
+    if len(info) != size - 4:
+        raise ValueError(f"{path}: BMP header of {size} bytes, the file is truncated")
+    direction, masks, start = -1, None, 14 + size     # start: where PIL stops reading
+    if size == 12:
+        w, h, _, bits = struct.unpack_from("<HHHH", info)
+        compression, colors, entry = 0, 0, 3
+    elif size in (40, 52, 56, 64, 108, 124):
+        w, h, _, bits, compression, _, _, _, colors = struct.unpack_from("<IIHHIIIII", info)
+        if info[7] == 0xFF:            # a negative height: rows top-down
+            h, direction = 2 ** 32 - h, 1
+        entry = 4
+        if compression == 3:           # 40-byte headers: the masks follow the header
+            words = info[36:52] if len(info) >= 48 else data[14 + size:26 + size]
+            masks = struct.unpack(f"<{len(words) // 4}I", words[:len(words) // 4 * 4])
+            masks = (masks + (0,))[:4] if len(info) < 52 else masks
+            start += 0 if len(info) >= 48 else 12
+    else:
+        raise ValueError(f"{path}: unsupported BMP header size {size}")
+    colors = colors or 1 << bits
+    if offset == 14 + size and bits <= 8:   # PIL: an offset at the palette skips it
+        offset += 4 * colors
+    if bits not in (1, 4, 8, 16, 24, 32):
+        raise ValueError(f"{path}: unsupported BMP bit depth {bits}")
+    layout = {16: "BGR;15", 32: (2, 1, 0)}.get(bits)
+    if compression == 3:
+        if bits == 32 and masks in _BMP_MASKS32:
+            layout = _BMP_MASKS32[masks]
+        elif bits == 16 and masks[:3] in _BMP_MASKS16:
+            layout = _BMP_MASKS16[masks[:3]]
+        elif not (bits == 24 and masks[:3] == (0xFF0000, 0xFF00, 0xFF)):
+            raise ValueError(f"{path}: unsupported BMP bitfields layout {bits} bits, masks "
+                             + ", ".join(f"{m:#x}" for m in masks))
+    elif compression in (1, 2) and bits > 8 or compression not in (0, 1, 2, 3):
+        raise ValueError(f"{path}: unsupported BMP compression {compression} at {bits} bits")
+    grey, table = False, None
+    if bits <= 8:
+        if not 0 < colors <= 65536:
+            raise ValueError(f"{path}: unsupported BMP palette size {colors}")
+        raw_pal = data[start:start + entry * colors]
+        start += entry * colors
+        grey = all(raw_pal[i * entry:i * entry + 3] == bytes((v & 255,)) * 3
+                   for i, v in enumerate((0, 255) if colors == 2 else range(colors)))
+        if not grey:
+            n = len(raw_pal) // entry
+            table = np.frombuffer(raw_pal[:n * entry], np.uint8).reshape(n, entry)[:, 2::-1]
+    offset = offset or start
+    if compression in (1, 2):
+        px = _bmp_rle(data, offset, w, h, compression == 2, path)
+    else:
+        stride = ((w * bits + 31) >> 3) & ~3
+        if offset + h * stride > len(data):
+            raise ValueError(f"{path}: truncated BMP: {len(data) - offset} bytes of pixel "
+                             f"data, expected {h * stride}")
+        rows = np.frombuffer(data, np.uint8, h * stride, offset).reshape(h, stride)
+        if bits < 8:
+            px = _unpack_bits(rows, w, bits)
+        elif bits == 8:
+            px = rows[:, :w]
+        elif bits == 16:
+            px = _bgr16(rows[:, :2 * w].view("<u2"), layout)
+        elif bits == 24:
+            px = rows[:, :3 * w].reshape(h, w, 3)[:, :, ::-1]
+        else:
+            px = rows[:, :4 * w].reshape(h, w, 4)[:, :, list(layout)]
+    if direction == -1:
+        px = px[::-1]
+    px = np.ascontiguousarray(px.reshape(h, w, -1))
+    if grey and colors == 2:           # PIL's mode "1"
+        px = px == 1
+    return (px, table) if palette else px
 
 
 def read_jpeg(path: str) -> np.ndarray:
@@ -146,15 +378,18 @@ def read_jpeg(path: str) -> np.ndarray:
 
 
 def to_rgb(pixels: np.ndarray, palette=None) -> np.ndarray:
-    """PIL's ``convert("RGB")`` of ``read_png``'s (H, W, channels) pixels:
-    (H, W, 3) uint8.  ``palette`` (n, 3), where given, maps the indices
-    (those past its end to black); uint16 grey is clipped to 255; grey is
-    replicated and alpha dropped."""
+    """PIL's ``convert("RGB")`` of ``read_png``'s, ``read_bmp``'s or
+    ``read_jpeg``'s (H, W, channels) pixels: (H, W, 3) uint8.
+    ``palette`` (n, 3), where given, maps the indices (those past its
+    end, or past 256 entries, to black); bool is 0 or 255, uint16 grey
+    clipped to 255; grey is replicated and alpha dropped."""
     if palette is not None:
         lut = np.zeros((256, 3), np.uint8)
-        lut[:len(palette)] = palette
+        lut[:min(len(palette), 256)] = palette[:256]
         return lut[pixels[:, :, 0]]
-    if pixels.dtype == np.uint16:
+    if pixels.dtype == bool:
+        pixels = pixels.astype(np.uint8) * np.uint8(255)
+    elif pixels.dtype == np.uint16:
         pixels = np.minimum(pixels, 255).astype(np.uint8)
     if pixels.shape[2] <= 2:      # grey (+ alpha)
         return np.repeat(pixels[:, :, :1], 3, axis=2)
@@ -321,8 +556,9 @@ def resize_bilinear_u8(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
 
 
 def load_rgb(path: str) -> np.ndarray:
-    """(H, W, 3) uint8 pixels of a ``.npy``, JPEG or PNG image file, the
-    last two told apart by their leading bytes."""
+    """(H, W, 3) uint8 pixels of a ``.npy``, JPEG, PNG or BMP image file,
+    the last three told apart by their leading bytes as
+    ``PIL.Image.open`` tells them."""
     if path.endswith(".npy"):
         arr = np.load(path)
         if arr.ndim == 2:
@@ -337,10 +573,11 @@ def load_rgb(path: str) -> np.ndarray:
         return to_rgb(read_jpeg(path))
     if head == _PNG_SIGNATURE:
         return to_rgb(*read_png(path, palette=True))
-    raise ValueError(f"{path}: the port reads .npy, JPEG and PNG images only (BMP, "
-                     "WebP: ROADMAP.md Queue 1 item 11); convert it to an (H, W, 3) "
-                     "uint8 .npy, e.g. np.save(out, np.asarray(Image.open(path)"
-                     ".convert('RGB')))")
+    if head.startswith(_BMP_SIGNATURE):
+        return to_rgb(*read_bmp(path, palette=True))
+    raise ValueError(f"{path}: the port reads .npy, JPEG, PNG and BMP images only (WebP: "
+                     "ROADMAP.md Queue 1 item 11); convert it to an (H, W, 3) uint8 .npy, "
+                     "e.g. np.save(out, np.asarray(Image.open(path).convert('RGB')))")
 
 
 class ImageFolderDataset:

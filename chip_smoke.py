@@ -257,6 +257,17 @@ non-zero and prints no result:
    split into warp and encode; (b) a warm epoch of ``cls-train`` on the
    augmented folder at phase 12's preset (P = 2000, K = 200), with its
    head launches (the general path).
+20. PNG and BMP: (a) every fixture of ``tests/fixtures/torch_png_bmp``
+   (PNGs of every bit depth and colour type, plain and Adam7; BMPs of
+   every header size, depth, bitfields layout, RLE8 and RLE4, both row
+   orders) through ``read_png``/``read_bmp`` and ``load_rgb``, dtype,
+   shape and digest equal to the manifest of PIL's readings (written
+   where PIL runs); (b) a PASCAL-sized interlaced PNG, RLE8 BMP and
+   24-bit BMP written by the fixtures' encoders, each read back to the
+   encoder's input, with the host ms per read (median of 5); (c) a warm
+   epoch of ``cls-train`` on a 2-class folder of those files at phase
+   12's preset (P = 2000, K = 200), with its head launches (the general
+   path).
 
 Precision: f32 runs with TF32 off for convolutions and matmuls (the
 entry points' ``ieee_f32`` scope; the comparisons here run in the same
@@ -7433,6 +7444,118 @@ def check_img_aug(report, card: str) -> None:
     log(f"  phase 19 {time.perf_counter() - t_phase:.1f} s  [{card}]")
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the PNG and BMP readers on the card's host against the
+# committed manifest of PIL's readings, their host read times, then
+# cls-train on a folder of them
+# ---------------------------------------------------------------------------
+
+PNG_BMP_FIXTURES = ("tests", "fixtures", "torch_png_bmp")
+PNG_BMP_READS = 5       # reads of each PASCAL-sized file; the median is kept
+
+
+def png_bmp_read_check(root: str, where: str) -> str:
+    """(a) Every fixture through ``read_png``/``read_bmp`` and ``load_rgb``
+    against the manifest (dtype, shape and digest of PIL's ``np.asarray``
+    and ``convert("RGB")``); (b) the PASCAL-sized files written by the
+    fixtures' encoders, each read back to the encoder's input, timed.
+    Returns a 2-class folder of all of them (BMPs, PNGs)."""
+    import importlib.util
+    import os
+    import shutil
+    import statistics
+
+    import numpy as np
+    from adlm_tpu_torch.data.image_folder import load_rgb, read_bmp, read_png
+
+    fixtures = os.path.join(os.path.dirname(os.path.abspath(__file__)), *PNG_BMP_FIXTURES)
+    spec = importlib.util.spec_from_file_location(
+        "png_bmp_fixtures", os.path.join(fixtures, "make_fixtures.py"))
+    mf = importlib.util.module_from_spec(spec)     # the encoders, digest: no PIL
+    spec.loader.exec_module(mf)
+    with open(os.path.join(fixtures, "manifest.json")) as f:
+        manifest = json.load(f)
+    folder = os.path.join(root, "cls_png_bmp")
+    modes = {}
+    for name in sorted(manifest):
+        path, want = os.path.join(fixtures, name), manifest[name]
+        raw = (read_png if name.endswith(".png") else read_bmp)(path)
+        rgb = load_rgb(path)
+        for key, got in (("raw", raw.reshape(want["raw"]["shape"])), ("rgb", rgb)):
+            if (str(got.dtype) != want[key]["dtype"] or list(got.shape) != want[key]["shape"]
+                    or mf.digest(got) != want[key]["sha256"]):
+                raise AssertionError(f"{name}: {key} {got.dtype} {got.shape}, not the "
+                                     f"manifest's {want[key]} (PIL mode {want['mode']})")
+        modes[want["mode"]] = modes.get(want["mode"], 0) + 1
+        cls = "class_000" if name.endswith(".bmp") else "class_001"
+        os.makedirs(os.path.join(folder, cls), exist_ok=True)
+        shutil.copy(path, os.path.join(folder, cls, name))
+    log(f"  {len(manifest)} fixtures read to the manifest of PIL's readings (np.asarray and "
+        f"convert('RGB'): dtype, shape, digest); PIL modes {modes}")
+    ms = {}
+    for path, want in mf.pascal_files(root):
+        png = path.endswith(".png")
+        if not np.array_equal((read_png if png else read_bmp)(path), want):
+            raise AssertionError(f"{os.path.basename(path)}: not the encoder's input")
+        times = []
+        for _ in range(PNG_BMP_READS):
+            t0 = time.perf_counter()
+            load_rgb(path)
+            times.append(time.perf_counter() - t0)
+        ms[os.path.basename(path)] = (statistics.median(times) * 1e3, os.path.getsize(path))
+        shutil.copy(path, os.path.join(folder, "class_001" if png else "class_000"))
+    h, w = mf.PASCAL_HW
+    log(f"  load_rgb ms per {w}x{h} file (median of {PNG_BMP_READS}; decode and to_rgb): "
+        + ", ".join(f"{n} {v:.3f} ({size / 1e3:.1f} KB)" for n, (v, size) in ms.items())
+        + f"  [host: {host_cpu()}; {where}]")
+    return folder
+
+
+def check_png_bmp(report, card: str) -> None:
+    """Phase 20: (a) the fixtures against the manifest; (b) the
+    PASCAL-sized reads; (c) one warm epoch of ``cls-train`` on the folder
+    of them at phase 12's preset (P = 2000: the head's general path), its
+    head launches counted."""
+    import csv
+    import os
+    import shutil
+    import tempfile
+
+    from adlm_tpu_torch.data.image_folder import ImageFolderDataset
+    from adlm_tpu_torch.ops import _build
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="adlm_png_bmp_")
+    saved_env = os.environ.get("RESULTS_DIR")
+    try:
+        folder = png_bmp_read_check(root, card)
+        log(f"  (a, b) {time.perf_counter() - t_phase:.1f} s")
+        t0 = time.perf_counter()
+        n = len(ImageFolderDataset(folder, CLS_HW))
+        results = os.path.join(root, "cls_runs")
+        os.environ["RESULTS_DIR"] = results
+        cls_command(["cls-train", "png_bmp", *JPEG_CLS_ARGS, "--train-dir", folder,
+                     "--test-dir", folder])
+        launches = dict(_build.LAUNCHES)
+        with open(os.path.join(results, "png_bmp", "logs", "classification_metrics.csv")) as f:
+            rows = list(csv.DictReader(f))
+        log(f"  cls-train on the PNG and BMP folder ({n} images, 2 classes): rows " + ", ".join(
+            f"{r['phase']} accuracy {float(r['accuracy']):.4f}" for r in rows)
+            + f"; launches {launches}")
+        if [r["phase"] for r in rows] != ["warm"] or launches["prototype_head"] < 2:
+            raise AssertionError(f"cls-train on the PNG and BMP folder: rows {rows}, "
+                                 f"launches {launches}")
+        report["prototype_head"]["launches"] += launches["prototype_head"]
+        log(f"  (c) {time.perf_counter() - t0:.1f} s")
+    finally:
+        if saved_env is None:
+            os.environ.pop("RESULTS_DIR", None)
+        else:
+            os.environ["RESULTS_DIR"] = saved_env
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"  phase 20 {time.perf_counter() - t_phase:.1f} s  [{card}]")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -7571,6 +7694,11 @@ def main() -> int:
             "library's PIL warp and JPEG encoder) on the fixtures' tree against the manifest "
             "of PIL's bytes; cls-train on the augmented folder")
         check_img_aug(report, card)
+
+        log("[20] PNG and BMP: the fixtures of every PNG depth and colour type (plain and "
+            "Adam7) and every BMP header, depth and compression read to the manifest of "
+            "PIL's readings; PASCAL-sized reads timed; cls-train on a folder of them")
+        check_png_bmp(report, card)
     except Exception:  # report any failure and exit non-zero
         traceback.print_exc()
         log(f"FAILED after {time.perf_counter() - t_start:.1f} s")

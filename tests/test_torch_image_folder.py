@@ -11,7 +11,8 @@ type; the JPEG files by PIL (colour at 4:2:0 and 4:4:4, grey,
 progressive).
 """
 
-import struct
+import importlib.util
+import os
 import zlib
 
 import numpy as np
@@ -22,49 +23,19 @@ from adlm_tpu.data.image_folder import ImageFolderDataset as JaxImageFolder
 
 from adlm_tpu_torch.data.image_folder import (
     ImageFolderDataset,
+    load_rgb,
+    read_bmp,
     read_png,
     resize_bilinear_u8,
 )
 
-COLOR_TYPE = {1: 0, 2: 4, 3: 2, 4: 6}   # channels → PNG colour type
-
-
-def _chunk(kind: bytes, body: bytes) -> bytes:
-    return (struct.pack(">I", len(body)) + kind + body
-            + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
-
-
-def _paeth(a, b, c):
-    p = a + b - c
-    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
-    return np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
-
-
-def encode_png(path, pixels: np.ndarray, interlace: int = 0, depth: int = 8,
-               color=None, plte=None) -> None:
-    """A PNG of (H, W, C) 8-bit pixels, or with ``color`` given of (H, W,
-    bytes per pixel) data (16-bit samples big-endian), whose row ``r``
-    carries scanline filter ``r % 5``; ``plte`` (n, 3) is written as the
-    PLTE chunk."""
-    h, w, ch = pixels.shape
-    px = pixels.astype(np.int32)
-    rows = []
-    for r in range(h):
-        cur = px[r]
-        up = px[r - 1] if r else np.zeros_like(cur)
-        left = np.concatenate([np.zeros((1, ch), np.int32), cur[:-1]])
-        upleft = np.concatenate([np.zeros((1, ch), np.int32), up[:-1]])
-        ftype = r % 5
-        pred = [0, left, up, (left + up) >> 1, _paeth(left, up, upleft)][ftype]
-        rows.append(bytes([ftype]) + ((cur - pred) & 255).astype(np.uint8).tobytes())
-    color = COLOR_TYPE[ch] if color is None else color
-    body = _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, color, 0, 0, interlace))
-    if plte is not None:
-        body += _chunk(b"PLTE", np.asarray(plte, np.uint8).tobytes())
-    with open(path, "wb") as f:
-        f.write(b"\x89PNG\r\n\x1a\n" + body
-                + _chunk(b"IDAT", zlib.compress(b"".join(rows), 6))
-                + _chunk(b"IEND", b""))
+FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures", "torch_png_bmp")
+_spec = importlib.util.spec_from_file_location("png_bmp_fixtures",
+                                               os.path.join(FIXTURES, "make_fixtures.py"))
+_mf = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(_mf)
+# every filter type on the rows, Adam7 and every bit depth on request
+encode_png = _mf.encode_png
 
 
 def _smooth(rng, h, w, ch):
@@ -166,21 +137,36 @@ def test_jpeg_folder_equals_the_jax_dataset_bit_for_bit(tmp_path):
                 np.testing.assert_array_equal(a, b)
 
 
+@pytest.mark.parametrize("name", ["x.bmp", "interlaced.png", "deep.png", "palette.png"])
+def test_formats_once_refused_equal_pil(tmp_path, name):
+    """A PIL-written BMP, an interlaced PNG, a 16-bit RGB PNG and PIL's
+    1-bit palette PNG read as PIL reads them, in a class folder too."""
+    (tmp_path / "a").mkdir()
+    px = np.random.RandomState(4).randint(0, 256, (8, 8, 3)).astype(np.uint8)
+    path = tmp_path / "a" / name
+    if name == "x.bmp":
+        Image.fromarray(px).save(path)
+    elif name == "interlaced.png":
+        encode_png(path, px, interlace=1)
+    elif name == "deep.png":
+        encode_png(path, _mf.be16(px.astype(np.uint16) * 257 + 3), depth=16, color=2)
+    else:
+        Image.fromarray((px[:, :, 0] > 127).astype(np.uint8), "P").save(path)  # 1-bit
+    with Image.open(path) as im:
+        want, rgb = np.asarray(im), np.asarray(im.convert("RGB"))
+    got = read_png(str(path)) if name.endswith(".png") else read_bmp(str(path))
+    assert got.dtype == want.dtype
+    np.testing.assert_array_equal(got.reshape(want.shape), want)
+    np.testing.assert_array_equal(load_rgb(str(path)), rgb)
+    port, ref = ImageFolderDataset(str(tmp_path), 8), JaxImageFolder(str(tmp_path), 8)
+    np.testing.assert_array_equal(port.load(0)[0], ref.load(0)[0])
+
+
 def test_other_formats_raise(tmp_path):
     (tmp_path / "a").mkdir()
-    Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(tmp_path / "a" / "x.bmp")
     Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(tmp_path / "a" / "y.webp")
     ds = ImageFolderDataset(str(tmp_path), 8)
-    for i in range(2):
-        with pytest.raises(ValueError, match=r"BMP, WebP: ROADMAP\.md Queue 1 item 11.*\.npy"):
-            ds.load(i)
-    px = np.zeros((8, 8, 3), np.uint8)
-    for name, kw in (("interlaced.png", dict(interlace=1)), ("deep.png", dict(depth=16))):
-        encode_png(tmp_path / name, px, **kw)
-        with pytest.raises(ValueError, match="8-bit"):
-            read_png(str(tmp_path / name))
-    Image.fromarray(np.zeros((8, 8), np.uint8), "P").save(tmp_path / "palette.png")
-    with pytest.raises(ValueError, match="colour type 3"):
-        read_png(str(tmp_path / "palette.png"))
+    with pytest.raises(ValueError, match=r"WebP: ROADMAP\.md Queue 1 item 11.*\.npy"):
+        ds.load(0)
     with pytest.raises(ValueError, match="no class"):
         ImageFolderDataset(str(tmp_path / "a"), 8)

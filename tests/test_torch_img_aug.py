@@ -239,8 +239,8 @@ def test_manifest_is_the_jax_function_output(tmp_path):
 def test_augment_directory_refuses_what_the_port_does_not_read(tmp_path):
     (tmp_path / "src" / "c").mkdir(parents=True)
     Image.fromarray(_contents(8, 8, 0)["noise"]).save(tmp_path / "src" / "c" / "a.jpg",
-                                                      format="BMP")
-    with pytest.raises(ValueError, match="item 11"):
+                                                      format="WEBP")
+    with pytest.raises(ValueError, match="a.jpg: .*WebP: ROADMAP.md Queue 1 item 11"):
         img_aug.augment_directory(str(tmp_path / "src"), str(tmp_path / "dst"), 1)
 
 

@@ -148,12 +148,23 @@ def test_to_rgb_is_pils_convert_rgb(pngs):
 
 
 def test_other_png_types_raise_naming_the_type(tmp_path):
-    encode_png(tmp_path / "rgb16.png", np.zeros((4, 4, 6), np.uint8), color=2, depth=16)
-    with pytest.raises(ValueError, match=r"bit depth 16, colour type 2 \(RGB\).*item 11"):
-        read_png(str(tmp_path / "rgb16.png"))
-    Image.fromarray(np.zeros((8, 8), np.uint8), "P").save(tmp_path / "p1.png")  # 1-bit
-    with pytest.raises(ValueError, match=r"bit depth 1, colour type 3 \(palette\)"):
-        read_png(str(tmp_path / "p1.png"))
+    """The two files the reader once refused (16-bit RGB, PIL's 1-bit
+    palette) read as PIL reads them; a combination PNG forbids (16-bit
+    palette) raises, naming the file and the type."""
+    rgb16 = np.random.RandomState(1).randint(0, 1 << 16, (4, 5, 3))
+    encode_png(tmp_path / "rgb16.png", np.stack([rgb16 >> 8, rgb16 & 255], -1).reshape(4, 5, 6),
+               color=2, depth=16)
+    Image.fromarray(np.eye(8, dtype=np.uint8), "P").save(tmp_path / "p1.png")  # 1-bit
+    for name in ("rgb16.png", "p1.png"):
+        got = to_rgb(*read_png(str(tmp_path / name), palette=True))
+        np.testing.assert_array_equal(got, _pil_rgb(tmp_path / name))
+        want = _pil(tmp_path / name)
+        np.testing.assert_array_equal(read_png(str(tmp_path / name)).reshape(want.shape), want)
+    assert (_pil(tmp_path / "rgb16.png") == rgb16 >> 8).all()
+    encode_png(tmp_path / "p16.png", np.zeros((4, 4, 2), np.uint8), color=3, depth=16,
+               plte=np.zeros((4, 3), np.uint8))
+    with pytest.raises(ValueError, match=r"p16\.png: .*bit depth 16 and colour type 3 \(palette\)"):
+        read_png(str(tmp_path / "p16.png"))
 
 
 # ---------------------------------------------------------------------------
